@@ -10,10 +10,15 @@ with WavefrontPathTracer.render at 1920x1080, batch=4, depth=4, as
 chip_smoke.py's main path does, and prints:
   * the card's name and power limit;
   * the host-clock ms of two warm frames;
-  * by layer (CUDA events in one frame): the traced wavefronts (coherence
-    sort, packet kernel, epilogue, un-permute; every outermost call of
-    _traced_wavefront or _trace_dispatch) against the rest of the frame
-    (shading and accumulation);
+  * by layer (CUDA events in one frame): the traced wavefronts (stream3
+    primary waves; coherence sort, packet kernel, epilogue, un-permute;
+    every outermost call of _traced_wavefront or _trace_dispatch) against
+    the rest of the frame (shading and accumulation);
+  * the stream3 primary waves by stage (CUDA events in one more frame,
+    summed over its primary waves): rows transpose, prep, emit, refine,
+    features transpose, isect, glue, residual; and the diagnostics of
+    one such wave (words, kept words, steps, capped slots, flagged
+    packets, rays re-walked);
   * by kernel kind (torch.profiler over one more frame): device ms per
     kind, the device's busy ms (union of its kernel and copy intervals)
     and its idle share of the profiled frame's host-clock time;
@@ -37,6 +42,10 @@ import chip_smoke
 W, H, BATCH, DEPTH = chip_smoke.W, chip_smoke.H, 4, 4
 KINDS = (  # (kind, substrings of a kernel's name), first match wins
     ("packet_trace", ("packet_trace",)),
+    ("stream3_emit", ("emit_kernel",)),
+    ("stream3_refine", ("refine_kernel",)),
+    ("stream3_isect", ("isect_kernel",)),
+    ("stream3_transpose", ("transpose_kernel",)),
     ("sort", ("sort", "Radix", "radix")),
     ("copy/cat", ("Cat", "copy", "Memcpy", "Memset")),
     ("reduce", ("reduce",)),
@@ -115,6 +124,7 @@ def main() -> int:
     from radiance_tpu_torch.api import accel
     from radiance_tpu_torch.core import types
     from radiance_tpu_torch.engine import pathtracer
+    from radiance_tpu_torch.ops import stream3
     from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda")
@@ -147,6 +157,20 @@ def main() -> int:
     print(f"by layer (CUDA events, one frame): frame {frame_ms:.3f} ms, "
           f"{n_traces} traced wavefronts {trace_ms:.3f} ms, shading and "
           f"accumulation {frame_ms - trace_ms:.3f} ms", flush=True)
+    _, stage_ms = chip_smoke.stage_spans(stream3, frame)
+    stage_ms = {k: round(v, 3) for k, v in stage_ms.items()}
+    print(f"stream3 primary waves by stage (CUDA events, one frame): "
+          f"{json.dumps(stage_ms)}", flush=True)
+    pix = torch.arange(W * H, device=dev)
+    _, _, alive, o, d = pathtracer._sample_init(tracer, res, pix, 0, 0)
+    _, diag = stream3.trace_rows_stream3(
+        scene, stream3.rows_from_aos_fast(o, d), tracer.tmin, tracer.tmax,
+        live=alive, with_diag=True)
+    primary_diag = {k: int(diag[k]) for k in (
+        "words", "kept_words", "steps", "capped", "flagged",
+        "residual_rays")}
+    print(f"one engine primary wave (pixel order): "
+          f"{json.dumps(primary_diag)}", flush=True)
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -178,6 +202,7 @@ def main() -> int:
         card=card, width=W, height=H, batch=BATCH, depth=DEPTH,
         warm_frame_ms=warm_ms, event_frame_ms=frame_ms,
         traced_wavefront_ms=trace_ms, n_traced_wavefronts=n_traces,
+        stream3_stage_ms=stage_ms, stream3_primary_diag=primary_diag,
         profiled_frame_ms=wall_ms, device_busy_ms=busy_ms,
         idle_share=1 - busy_ms / wall_ms,
         device_ms_by_kind={k: v / 1e3 for k, v in

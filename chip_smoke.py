@@ -8,8 +8,10 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
 Phases (each raises on failure; the script then exits non-zero and
 prints no result):
   1. device and toolchain: the card's name and power limit, CUDA, nvcc;
-  2. build the packet-trace kernel (csrc/packet_trace.cu) with nvcc for
-     sm_90a, print its registers/spills and the build seconds;
+  2. build the five kernel sources (csrc/packet_trace.cu and the stream3
+     pipeline's s3_transpose.cu, s3_emit.cu, s3_refine.cu, s3_isect.cu)
+     with nvcc for sm_90a, one nvcc each, all started together; print
+     their registers/spills and the build seconds;
   3. kernel vs its plain PyTorch version on the card, every variant, on
      64k-ray probes of the bench's three waves (primary, mirror bounce,
      shadow) and of a scattered wave over the 1M-triangle city, the
@@ -19,11 +21,19 @@ prints no result):
      a small render against the CPU route; sample1's 512x512 primary and
      shadow waves on each Cornell-box instance's tables;
   4. the three 1920x1080 waves timed with CUDA events, kernel and plain,
-     and the kernel's output held to the plain version's ray by ray;
-  5. the main path: WavefrontPathTracer.render on the city at 1920x1080,
-     batch=4, depth=4, then sample1's Cornell box at 512x512, batch=16,
-     depth=4, with launch counts reset just before and read just after;
-  6. the kernels' JSON line, the card line, and the contract's last line.
+     and the kernel's output held to the plain version's ray by ray; the
+     plain version's walk counts give each variant's bound;
+  5. stream3 on the city's 1920x1080 primary wave (2,073,600 rays): each
+     of its four kernels against its plain version on the card at the
+     wave's shapes (transposes bit-exact, emit and refine word lists
+     identical, pair intersection per ray to the parity bars), each
+     timed; the whole wave against the packet kernel (two exact
+     tracers, the same bars), its stage times and diagnostics;
+  6. the main path: WavefrontPathTracer.render on the city at 1920x1080,
+     batch=4, depth=4 (primary waves through stream3), then sample1's
+     Cornell box at 512x512, batch=16, depth=4, with launch counts reset
+     just before and read just after;
+  7. the kernels' JSON line, the card line, and the contract's last line.
 
 Imports nothing of JAX or radiance_tpu (bench.py's numpy-only scene
 helpers are reused).  Needs one CUDA card; exits 2 without one.
@@ -47,9 +57,30 @@ BARS = dict(hit=0.999, prim=0.999, rel_t_p99=1e-5)
 WITNESS_RATIO = 2.0
 KERNEL_SOURCE = "radiance_tpu_torch/csrc/packet_trace.cu"
 REPLACES = "radiance_tpu/ops/packet_trace.py:125"
-# the variants on the main path: single-instance waves are live-masked
-# (primary) or argsorted (bounces); multi-instance sweeps are unmasked
-PATH_VARIANTS = ("closest", "any_hit", "masked_closest", "masked_any_hit")
+# the packet-kernel variants on the main path: the city's primary shadows
+# are live-masked, its bounces argsorted (unmasked), stream3's residual
+# and the multi-instance sweeps unmasked.  masked_closest (the primary's
+# route before stream3) is still checked in phases 3-4.
+PATH_VARIANTS = ("closest", "any_hit", "masked_any_hit")
+S3_SRC = "radiance_tpu_torch/csrc/"
+S3_KERNELS = {   # stage key -> (JSON name, source, TPU kernels replaced)
+    "transpose": ("stream3_transpose", S3_SRC + "s3_transpose.cu",
+                  ["radiance_tpu/ops/stream3.py:1595",
+                   "radiance_tpu/ops/stream3.py:1575"]),
+    "emit": ("stream3_emit", S3_SRC + "s3_emit.cu",
+             ["radiance_tpu/ops/stream3.py:595",
+              "radiance_tpu/ops/stream3.py:753",
+              "radiance_tpu/ops/stream3.py:1031",
+              "radiance_tpu/ops/stream3.py:1257"]),
+    "refine": ("stream3_refine", S3_SRC + "s3_refine.cu",
+               ["radiance_tpu/ops/stream3.py:1635"]),
+    "isect": ("stream3_isect", S3_SRC + "s3_isect.cu",
+              ["radiance_tpu/ops/stream3.py:1853"]),
+}
+# the card's peaks (H100 SXM datasheet, dense)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+FLOPS_PER_PAIR = 44           # a ray-triangle test: 22 FP32 FMAs
 
 
 def log(*a):
@@ -212,6 +243,86 @@ def witness(name, o, d, outs, kprim, verts, tris):
     return res
 
 
+def bound(flops, nbytes):
+    """(bound_ms, bound_by): the least time for `flops` FP32 operations
+    and `nbytes` of device-memory traffic at the card's peaks."""
+    f_ms, b_ms = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (f_ms, "operations") if f_ms > b_ms else (b_ms, "bytes")
+
+
+def hold_prims(name, t_k, prim_k, t_p, prim_p):
+    """judge() for outputs that carry prim ids (stream3): hit agreement,
+    prim agreement on rays both hit, p99 relative |dt| where the prims
+    agree, each to BARS; returns the result dict."""
+    hk, hp = t_k < 3.4e38, t_p < 3.4e38
+    both = hk & hp
+    same = both & (prim_k == prim_p)
+    nb = int(both.sum())
+    rel = ((t_k - t_p).abs() / t_p.abs().clamp(min=1e-30))[same]
+    res = dict(name=name, rays=int(t_k.numel()),
+               hit_rate=float(hp.float().mean()),
+               hit_agree=float((hk == hp).float().mean()),
+               prim_agree=float(same.sum()) / nb if nb else 1.0,
+               rel_t_p99=(float(torch.quantile(rel.double(), 0.99))
+                          if rel.numel() else 0.0),
+               max_abs_err=(float((t_k - t_p).abs()[same].max())
+                            if rel.numel() else 0.0))
+    res["ok"] = bool(res["hit_agree"] >= BARS["hit"]
+                     and res["prim_agree"] >= BARS["prim"]
+                     and res["rel_t_p99"] <= BARS["rel_t_p99"]
+                     and res["hit_rate"] > 0.0)
+    log("  ", json.dumps(res))
+    if not res["ok"]:
+        raise AssertionError(f"{name} disagrees: {res}")
+    return res
+
+
+def first_word_diff(wk, wp, cnt):
+    """(slot, word index, leaf) of the first differing valid word."""
+    valid = torch.arange(wk.shape[1], device=wk.device)[None, :] \
+        < cnt[:, None]
+    bad = torch.nonzero((wk != wp) & valid)
+    if bad.numel() == 0:
+        return None
+    s, j = (int(v) for v in bad[0])
+    return dict(slot=s, word=j, kernel=int(wk[s, j]), plain=int(wp[s, j]),
+                leaf=(int(wp[s, j]) >> 17) - 1)
+
+
+def stage_spans(s3, fn):
+    """Run fn() with CUDA events around the stream3 module's stages;
+    returns (fn's result, {stage: summed ms}).  "residual" is the
+    trace_rows_stream3 time outside _run (flagged re-walk, masking)."""
+    names = ("_stage_prep", "stage_emit", "stage_refine",
+             "feats_rows_to_major", "stage_isect", "_stage_glue", "_run",
+             "trace_rows_stream3", "rows_from_aos_fast")
+    spans = {n: [] for n in names}
+    orig = {n: getattr(s3, n) for n in names}
+
+    def timed(n, f):
+        def wrapper(*a, **k):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = f(*a, **k)
+            ev[1].record()
+            spans[n].append(ev)
+            return out
+        return wrapper
+
+    for n in names:
+        setattr(s3, n, timed(n, orig[n]))
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        for n in names:
+            setattr(s3, n, orig[n])
+    ms = {n: sum(a.elapsed_time(b) for a, b in v) for n, v in spans.items()}
+    ms["residual"] = ms["trace_rows_stream3"] - ms["_run"]
+    return out, ms
+
+
 def pcg3d_words_np(v):
     """numpy uint32 oracle of the PCG3D hash words (math.cl:10-23)."""
     v = v.astype(np.uint32) * np.uint32(1664525) + np.uint32(1013904223)
@@ -300,7 +411,10 @@ def main() -> int:
     from radiance_tpu_torch.api import accel
     from radiance_tpu_torch.core import math as rmath
     from radiance_tpu_torch.core import types
+    from radiance_tpu_torch.ops import cuda_build
     from radiance_tpu_torch.ops import packet_trace as pk
+    from radiance_tpu_torch.ops import stream3 as s3
+    from radiance_tpu_torch.ops import stream3_stages as stg
     from radiance_tpu_torch.ops.intersect import (FLT_MAX,
                                                   intersect_triangle_soup)
     from radiance_tpu_torch.shading import camera
@@ -312,7 +426,7 @@ def main() -> int:
     card = card_line()
     log(f"[1] card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}; devices {torch.cuda.device_count()}")
-    log("    nvcc:", subprocess.run([pk._nvcc(), "--version"],
+    log("    nvcc:", subprocess.run([cuda_build.nvcc(), "--version"],
                                     capture_output=True, text=True,
                                     timeout=60).stdout.strip().splitlines()[-1])
     if torch.backends.cuda.matmul.allow_tf32:
@@ -322,13 +436,15 @@ def main() -> int:
 
     # ---- 2. build ----------------------------------------------------
     t0 = time.time()
-    pk.load_kernel()
-    info = pk.BUILD_INFO
-    log(f"[2] kernel built in {info.get('seconds', 0.0):.1f} s "
-        f"(load {time.time() - t0:.1f} s): {' '.join(pk.NVCC_FLAGS)}")
-    for line in info.get("ptxas", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log("    ptxas:", line.strip())
+    cuda_build.load_all([pk.KERNEL, *stg.LIBS.values()])
+    log(f"[2] five kernel sources built in parallel and loaded in "
+        f"{time.time() - t0:.1f} s: {' '.join(cuda_build.NVCC_FLAGS)}")
+    for name, info in cuda_build.BUILD_INFO.items():
+        log(f"    {name}: {info['seconds']:.1f} s, "
+            f"{' '.join(info['command'][len(cuda_build.NVCC_FLAGS) + 1:-3])}")
+        for line in info["ptxas"].splitlines():
+            if "registers" in line or "spill" in line:
+                log("      ptxas:", line.strip())
 
     # ---- 3. kernel vs plain ------------------------------------------
     t0 = time.time()
@@ -499,22 +615,36 @@ def main() -> int:
     }
     times = {}
 
-    def run(route, wave, live, any_hit):
+    def run(route, wave, live, any_hit, **kw):
         o, d = waves[wave]
         fn = (pk.packet_trace_cuda if route == "cuda"
               else pk._packet_trace_reference)
         return lambda: fn(o, d, live, scene.knode_f, scene.kleaf, TMIN, TMAX,
-                          any_hit=any_hit, stable=True)
+                          any_hit=any_hit, stable=True, **kw)
+
+    pk_bounds = {}
 
     def timed_and_judged(wave, live, any_hit):
         """Time kernel and plain on a full wave, then hold the kernel's
         output to the plain version's, ray by ray, and closest-hit t to
         float64.  The bounce wave's hits are short rays from hit points,
-        judged as the scattered probe is."""
+        judged as the scattered probe is.  The plain version's walk
+        counts give the variant's bound: every ray-triangle test of the
+        rays inside a visited leaf's box at 22 FMAs, against the rays in
+        and out (32 B each), the node rows (64 B) and leaf matrices
+        (32 KiB) the walk touched, each once."""
         k_ms, (t_k, tri_k) = cuda_ms(run("cuda", wave, live, any_hit), 5)
-        p_ms, (t_p, tri_p) = cuda_ms(run("plain", wave, live, any_hit), 1,
-                                     warmup=False)
-        name = f"{wave}_1080p/{pk.variant(any_hit, live is not None, True)}"
+        st = {}
+        p_ms, (t_p, tri_p) = cuda_ms(run("plain", wave, live, any_hit,
+                                         stats=st), 1, warmup=False)
+        var = pk.variant(any_hit, live is not None, True)
+        pk_bounds.setdefault(var, bound(   # closest: the primary wave's
+            st["ray_leaf_tris"] * FLOPS_PER_PAIR,
+            n * 32 + st["node_rows"] * 64
+            + st["leaves"] * scene.kleaf[0].numel() * 4))
+        log(f"    {wave}/{var} plain walk: {json.dumps(st)}; bound "
+            f"{pk_bounds[var][0]:.4f} ms ({pk_bounds[var][1]})")
+        name = f"{wave}_1080p/{var}"
         o, d = waves[wave]
         results[name] = judge(name, t_k, tri_k, t_p, tri_p, o, d, live,
                               scene.kprim, any_hit=any_hit,
@@ -543,12 +673,131 @@ def main() -> int:
         f"Mrays/s, plain {3 * n / p_sum / 1e3:.3f} Mrays/s "
         f"({time.time() - t0:.1f} s)")
 
-    # ---- 5. the main path --------------------------------------------
+    # ---- 5. stream3 on the 1080p primary wave ------------------------
+    t0 = time.time()
+    s3k = {}        # stage key -> the kernel's JSON numbers
+    stable = scene.stable_frames
+    kleaf, knode = scene.kleaf, scene.knode_f
+
+    def exact(name, k, p):
+        same = k.shape == p.shape and torch.equal(
+            k.contiguous().view(torch.int32), p.contiguous().view(torch.int32))
+        log(f"   {name}: bit-exact {same}")
+        if not same:
+            raise AssertionError(f"{name}: transpose not bit-exact")
+
+    # A: the wave's AoS -> rows and the features' rows -> ray-major
+    rows = s3.rows_from_aos_fast(o1, d1)
+    exact("A rows_from_aos_fast", torch.stack(rows),
+          torch.cat([o1.t().contiguous(), d1.t().contiguous()]))
+    _, feats_t, scal, smeta, bscal, _ = s3._stage_prep(
+        rows, knode, scene.inst_inv[0], stable=stable)
+    feats = stg.transpose_cuda(feats_t)
+    exact("A feats_rows_to_major", feats, feats_t.t().contiguous())
+    npad = feats_t.shape[1]
+    nslot = scal.shape[0]
+    a_ms, _ = cuda_ms(lambda: (stg.transpose_cuda(o1), stg.transpose_cuda(d1),
+                               stg.transpose_cuda(feats_t)), 10)
+    a_plain, _ = cuda_ms(lambda: (o1.t().contiguous(), d1.t().contiguous(),
+                                  feats_t.t().contiguous()), 10)
+    s3k["transpose"] = dict(
+        ms=a_ms, plain_ms=a_plain, library_ms=a_plain, max_abs_err=0.0,
+        bound=bound(0, 2 * 4 * (6 * n + 16 * npad)))
+
+    # B: emit, kernel vs plain on the same slot tables
+    emit_args = (scal, smeta, bscal, knode, TMAX, stg.STEP_CAP, stg.PCAP)
+    b_ms, (wk, ek) = cuda_ms(lambda: stg.emit_cuda(*emit_args), 5)
+    b_plain, (wp, ep) = cuda_ms(lambda: stg._emit_plain(*emit_args), 1,
+                                warmup=False)
+    cnt = torch.clamp(ep[:, 0], max=stg.PCAP)
+    diff = first_word_diff(wk, wp, cnt)
+    if not torch.equal(ek[:, :3], ep[:, :3]) or diff is not None:
+        bad = torch.nonzero((ek[:, :3] != ep[:, :3]).any(1))
+        raise AssertionError(f"emit: kernel and plain differ: first emeta "
+                             f"slot {bad[:1].tolist()}, first word {diff}")
+    steps = int(ek[:, 2].sum())
+    words = int(cnt.sum())
+    log(f"   B emit: word lists identical on {nslot} slots ({words} words, "
+        f"{steps} steps, {int(ek[:, 1].sum())} capped)")
+    s3k["emit"] = dict(
+        ms=b_ms, plain_ms=b_plain, library_ms=None, max_abs_err=0.0,
+        bound=bound(steps * 33 * 30, steps * 64 + words * 4
+                    + nslot * (16 + 8 + 8) * 4 + bscal.numel() * 4))
+
+    # C: refine, kernel vs plain on the (identical) emitted lists
+    slot_pkt = smeta[:, 0].contiguous()
+    aabb8 = s3.leaf_aabb8(knode, kleaf.shape[0])
+    ref_args = (slot_pkt, feats_t, aabb8, TMAX, stg.PCAP)
+    c_ms, (rk, rek) = cuda_ms(lambda: stg.refine_cuda(wk, ek, *ref_args), 5)
+    c_plain, (rp, rep) = cuda_ms(lambda: stg._refine_plain(wp, ep, *ref_args),
+                                 1, warmup=False)
+    diff = first_word_diff(rk, rp, rep[:, 0])
+    if not torch.equal(rek, rep) or diff is not None:
+        raise AssertionError(f"refine: kernel and plain differ: {diff}")
+    kept = int(rep[:, 0].sum())
+    live_slots = int((cnt > 0).sum())
+    log(f"   C refine: kept lists identical ({kept} of {words} words kept)")
+    s3k["refine"] = dict(
+        ms=c_ms, plain_ms=c_plain, library_ms=None, max_abs_err=0.0,
+        bound=bound(words * stg.PKT * 12, words * (4 + 32) + kept * 4
+                    + live_slots * stg.PKT * 24 + nslot * 64))
+
+    # D: pair intersection, kernel vs plain on the refined lists
+    is_args = (rk, rek, slot_pkt, feats, kleaf, TMIN, TMAX, stg.PCAP, stable)
+    d_ms, out_k = cuda_ms(lambda: stg.isect_cuda(*is_args), 3)
+    d_plain, out_p = cuda_ms(lambda: stg._isect_plain(*is_args), 1,
+                             warmup=False)
+    res_d = hold_prims("D isect", out_k[..., 0].reshape(-1),
+                       out_k[..., 1].reshape(-1), out_p[..., 0].reshape(-1),
+                       out_p[..., 1].reshape(-1))
+    valid = torch.arange(stg.PCAP, device=dev)[None, :] < rep[:, :1]
+    kw_valid = rk[valid]
+    km = (kw_valid >> 9) & 255
+    pairs = int(sum(((km >> b) & 1).sum() for b in range(8)))
+    leaves = int(torch.unique((kw_valid >> 17) - 1).numel())
+    log(f"   D isect: {pairs} (leaf, block) pairs over {leaves} leaves")
+    s3k["isect"] = dict(
+        ms=d_ms, plain_ms=d_plain, library_ms=None,
+        max_abs_err=res_d["max_abs_err"],
+        bound=bound(pairs * stg.BLK * stg.T * FLOPS_PER_PAIR,
+                    npad * 64 + kept * 4 + leaves * kleaf[0].numel() * 4
+                    + out_k.numel() * 4))
+    del wk, wp, rk, rp, out_k, out_p
+
+    # the whole wave: stream3 (all four kernels) against the packet
+    # kernel, two exact tracers on the same rays, then its stage times
+    w_ms, (rec3, diag) = cuda_ms(lambda: s3.trace_rows_stream3(
+        scene, rows, TMIN, TMAX, with_diag=True), 10)
+    pw_ms, rec_pk = cuda_ms(lambda: pk.trace_rays_packet(
+        scene, o1, d1, TMIN, TMAX), 10)
+    results["stream3_1080p/vs_packet_kernel"] = hold_prims(
+        "stream3 wave vs packet kernel", rec3.t, rec3.prim, rec_pk.t,
+        rec_pk.prim)
+    _, spans = stage_spans(s3, lambda: s3.trace_rows_stream3(
+        scene, s3.rows_from_aos_fast(o1, d1), TMIN, TMAX))
+    s3_diag = {k: (int(v) if not isinstance(v, int) else v)
+               for k, v in diag.items()
+               if k in ("words", "kept_words", "steps", "capped", "flagged",
+                        "residual_rays")}
+    log(f"[5] stream3 primary 1080p ({card}): {w_ms:.3f} ms per wave "
+        f"({n / w_ms / 1e3:.2f} Mrays/s) vs trace_rays_packet {pw_ms:.3f} "
+        f"ms and the packet kernel alone {wave_ms['primary'][0]:.3f} ms; "
+        f"diag {json.dumps(s3_diag)}")
+    log(f"    stage ms (CUDA events): "
+        f"{json.dumps({k: round(v, 3) for k, v in spans.items()})}")
+    for key, r in s3k.items():
+        log(f"    {key}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} "
+            f"ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    log(f"[5] done in {time.time() - t0:.1f} s")
+    del rec3, rec_pk, feats, feats_t
+
+    # ---- 6. the main path --------------------------------------------
     res = city_resources(dev, verts, tris, W, H)
     cscene, cres = cornell_inputs(dev, CW)
     torch.cuda.synchronize()
 
     pk.packet_trace_cuda.launches.clear()
+    stg.reset_launches()
     frame_ms = []
     accum = torch.zeros(n, 3, device=dev)
     ts = 0
@@ -560,6 +809,7 @@ def main() -> int:
         frame_ms.append((time.time() - t0) * 1e3)
         ts += 4
     city_launches = dict(pk.packet_trace_cuda.launches)
+    city_s3 = {k: fn.launches for k, fn in stg.KERNELS.items()}
     t0 = time.time()
     caccum, cimage = tracer.render(cscene, cres, torch.zeros(CW * CW, 3,
                                                              device=dev),
@@ -567,22 +817,26 @@ def main() -> int:
     torch.cuda.synchronize()
     cornell_ms = (time.time() - t0) * 1e3
     launches = dict(pk.packet_trace_cuda.launches)
+    s3_launches = {k: fn.launches for k, fn in stg.KERNELS.items()}
 
-    log(f"[5] city 1920x1080 batch 4 depth 4 ({card}): frames "
+    log(f"[6] city 1920x1080 batch 4 depth 4 ({card}): frames "
         f"{', '.join(f'{m:.1f}' for m in frame_ms)} ms; "
         f"{4 * 4 * 2 * n / (frame_ms[-1] / 1e3) / 1e6:.3f} Mrays/s "
-        f"(batch*depth*2*n / frame time); launches {city_launches}")
+        f"(batch*depth*2*n / frame time); launches {city_launches}, "
+        f"stream3 {city_s3}")
     check_frame("city", accum, image, n)
-    log(f"[5] sample1 Cornell 512x512 batch 16 depth 4: {cornell_ms:.1f} ms; "
-        f"launches after both {launches}")
+    log(f"[6] sample1 Cornell 512x512 batch 16 depth 4: {cornell_ms:.1f} ms; "
+        f"launches after both {launches}, stream3 {s3_launches}")
     check_frame("sample1", caccum, cimage, CW * CW)
     for var in PATH_VARIANTS:
         if launches.get(var, 0) <= 0:
             raise AssertionError(f"main path never launched variant {var}")
     if any(city_launches.get(v, 0) <= 0 for v in PATH_VARIANTS):
         raise AssertionError(f"city frame missed a variant: {city_launches}")
+    if any(v <= 0 for v in city_s3.values()):
+        raise AssertionError(f"city frame missed a stream3 kernel: {city_s3}")
 
-    # ---- 6. results --------------------------------------------------
+    # ---- 7. results --------------------------------------------------
     kernels = []
     for var in PATH_VARIANTS:
         errs = [r["max_abs_err"] for k, r in results.items()
@@ -591,7 +845,18 @@ def main() -> int:
             "name": f"packet_trace[{var}]", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": REPLACES,
             "launches": launches[var], "max_abs_err": max(errs),
-            "ms": times[var][0], "plain_ms": times[var][1]})
+            "ms": times[var][0], "plain_ms": times[var][1],
+            "bound_ms": pk_bounds[var][0], "bound_by": pk_bounds[var][1],
+            "library_ms": None})
+    for key, (name, src, replaced) in S3_KERNELS.items():
+        r = s3k[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaced[0], "also_replaces": replaced[1:],
+            "launches": s3_launches[key], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": r["library_ms"]})
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -18,6 +18,7 @@ import numpy as np
 
 from radiance_tpu_torch.bvh import builder, serialize
 from radiance_tpu_torch.bvh import device as bvh_device
+from radiance_tpu_torch.core import device as rdevice
 from radiance_tpu_torch.core import types
 
 
@@ -51,10 +52,11 @@ class TopAccelStruct:
     tlas_capacity: int = 0
     _scenes: dict = dataclasses.field(default_factory=dict, repr=False)
 
-    def device_scene(self, device="cpu", *,
+    def device_scene(self, device=rdevice.DEFAULT, *,
                      stable_frames: bool = True) -> bvh_device.DeviceScene:
         """The DeviceScene with its tensors on `device` (built once per
         device and frame mode)."""
+        device = rdevice.resolve(device)
         key = (str(device), stable_frames)
         if key not in self._scenes:
             blas_by_offset = {off: (b.nodes, b.faces, b.vertices)

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from radiance_tpu_torch import config
+from radiance_tpu_torch.core import device as rdevice
 
 # node_kind values
 KIND_INNER = 0
@@ -364,7 +365,7 @@ def build_device_scene(tlas_nodes: np.ndarray,
                        leaf_width: int = config.LEAF_WIDTH,
                        tlas_capacity: int = 0,
                        *, stable_frames: bool = True,
-                       device="cpu") -> DeviceScene:
+                       device=rdevice.DEFAULT) -> DeviceScene:
     """Assemble the DeviceScene from parsed/built host arrays.
 
     tlas_nodes: DEVICE_BVH_NODE_DTYPE array
@@ -372,8 +373,10 @@ def build_device_scene(tlas_nodes: np.ndarray,
     blas_by_offset: {byteOffset: (nodes, faces, verts[V,>=3])}
     tlas_capacity: pad the TLAS block to this many rows; 0 = exact size.
     stable_frames: kernel-table frame mode (the JAX default is stable).
-    device: where the tensors are made.
+    device: where the tensors are made (the card unless the caller
+    asks for the CPU).
     """
+    device = rdevice.resolve(device)
     arrays = build_scene_arrays(tlas_nodes, device_instances,
                                 blas_by_offset, leaf_width, tlas_capacity,
                                 stable_frames)

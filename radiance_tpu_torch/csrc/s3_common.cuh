@@ -1,0 +1,37 @@
+// Shared by the stream3 kernels (s3_*.cu): the word format and the float
+// helpers whose semantics the plain PyTorch versions fix.
+#pragma once
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace s3 {
+
+constexpr float kFltMax = 3.402823466e38f;
+constexpr int kPkt = 1024;      // rays per packet
+constexpr int kBlk = 128;       // rays per phase-2 block
+constexpr int kNLanes = 32;     // 32-ray sub-frusta per packet
+
+// Word: (leaf + 1) << kLeafShift | keepmask << kKeepShift | tq, 9 tq bits.
+constexpr int kTqBits = 9;
+constexpr int kKeepShift = kTqBits;
+constexpr int kLeafShift = kTqBits + 8;
+constexpr int kTqMask = (1 << kTqBits) - 1;
+constexpr int kTqShift = 27 - kTqBits;
+constexpr int kTqBias3 = 125 << (kTqBits - 4);
+
+// torch.minimum / torch.maximum (and jnp.minimum / maximum): NaN in, NaN
+// out.  fminf / fmaxf would drop the NaN.
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a || b != b) ? a + b : fminf(a, b);
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || b != b) ? a + b : fmaxf(a, b);
+}
+
+__device__ __forceinline__ int word_leaf(int w) {
+  return max((w >> kLeafShift) - 1, 0);
+}
+
+}  // namespace s3

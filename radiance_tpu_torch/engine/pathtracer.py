@@ -13,17 +13,21 @@ the SBT's skip of shaders no lane selects):
       colour/throughput/alive update (shader.cl:233-260)
   running average into the accumulation image, tonemap, u8 quantize
 
-Wave routes, as the JAX engine picks them on its accelerator:
-  * single-instance scenes with kernel tables: the primary wave and its
-    shadow rays take "gen1_live" (the live-masked packet kernel, rays in
-    pixel order); bounce waves and their shadow rays take "argsort"
-    (coherence_key sort of live rays, dead lanes parked, unsorted after);
+Wave routes, as the JAX engine picks them on its accelerator
+(radiance_tpu/engine/pathtracer.py:722-726), the same on the card and
+on the CPU (where every kernel runs its plain version):
+  * single-instance scenes with kernel tables: the primary wave's
+    closest-hit trace takes "stream3" (ops/stream3.py: emit walk, exact
+    refine, pair intersection, rays in pixel order, live-masked); its
+    shadow rays take "gen1_live" (the live-masked packet kernel); bounce
+    waves and their shadow rays take "argsort" (coherence_key sort of
+    live rays, dead lanes parked, unsorted after);
   * multi-instance scenes: every wave takes "argsort", and the trace is
     one packet sweep per instance (trace_rays_packet_multi).
 
 Not ported yet: the monolithic frame function, temporal t-bounds, the
-stream3 routes and the per-ray traversal walk (custom any-hit programs,
-scenes without kernel tables).
+stream3 occlusion route and the per-ray traversal walk (custom any-hit
+programs, scenes without kernel tables).
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from radiance_tpu_torch.api.sbt import ShaderBindingTable
 from radiance_tpu_torch.bvh.device import DeviceScene
 from radiance_tpu_torch.core import math as rmath
 from radiance_tpu_torch.engine.context import Payload, ShadeContext
-from radiance_tpu_torch.ops import compaction, packet_trace
+from radiance_tpu_torch.ops import compaction, packet_trace, stream3
 from radiance_tpu_torch.ops import tonemap as tonemap_ops
 from radiance_tpu_torch.ops.packet_trace import HitRecord
 
@@ -69,11 +73,21 @@ def _traced_wavefront(scene, o, d, tmin, tmax, alive, *, route: str,
                       any_hit_terminate: bool = False) -> HitRecord:
     """Trace only the live rays of a wave; dead lanes report a miss.
 
+    route "stream3": the stream3 pipeline on rays in pixel order, dead
+    lanes masked out of every frustum (closest hit on scenes where
+    stream3.supports holds; others fall back to "argsort").
     route "gen1_live": the live-masked packet kernel on rays in pixel
     order (single-instance scenes only; others fall back to "argsort").
     route "argsort": live rays sorted by coherence_key (dead lanes last
     and parked), traced, and scattered back to pixel order.
     """
+    if (route == "stream3" and not any_hit_terminate
+            and stream3.supports(scene)):
+        rows = stream3.rows_from_aos_fast(o, d)
+        rec = stream3.trace_rows_stream3(scene, rows, tmin, tmax,
+                                         live=alive)
+        rec.slot = torch.clamp(rec.slot, min=-1)
+        return rec
     if route == "gen1_live" and packet_trace.supports(scene):
         rec = _trace_dispatch(scene, o, d, tmin, tmax, live=alive,
                               any_hit_terminate=any_hit_terminate)
@@ -239,7 +253,9 @@ class WavefrontPathTracer:
         miss_index = self.miss_index + miss_group_offset
         effective_depth = 1 if debug else depth
         single = packet_trace.supports(scene)
-        primary_route = "gen1_live" if single else "argsort"
+        primary_route = "stream3" if stream3.supports(scene) else (
+            "gen1_live" if single else "argsort")
+        primary_shadow = "gen1_live" if single else "argsort"
         step = functools.partial(_sample_step, self, scene, resources,
                                  pixel_index, debug=debug,
                                  hit_offset=hit_offset, miss_index=miss_index)
@@ -250,8 +266,12 @@ class WavefrontPathTracer:
             state = _sample_init(self, resources, pixel_index, fid,
                                  int(total_samples))
             for b in range(effective_depth):
-                route = primary_route if b == 0 else "argsort"
-                state = step(fid, b, state, route=route, shadow_route=route)
+                if b == 0:
+                    state = step(fid, b, state, route=primary_route,
+                                 shadow_route=primary_shadow)
+                else:
+                    state = step(fid, b, state, route="argsort",
+                                 shadow_route="argsort")
             colors = colors + state[0]
         accum, image = _finish_frame(self, int(batch), debug, accum, colors,
                                      int(total_samples))

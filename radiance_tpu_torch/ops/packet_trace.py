@@ -19,7 +19,8 @@ Here:
     summation order.  It is also the card's comparison oracle.
 
 The kernel is built with nvcc at first use (never at import) into the
-git-ignored radiance_tpu_torch/_build/ and bound with ctypes.
+git-ignored radiance_tpu_torch/_build/ and bound with ctypes
+(ops/cuda_build.py).
 
 The wrapper keeps the JAX epilogue: rays are moved into the instance's
 object space, dead lanes of a live-masked wave are parked on an
@@ -29,29 +30,17 @@ ktri_geo for the winning triangle, and slot = 0 on a hit.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import os
-import shutil
-import subprocess
-import threading
-import time
 from typing import Tuple
 
 import torch
 
 from radiance_tpu_torch.core import math as rmath
+from radiance_tpu_torch.ops import cuda_build
 from radiance_tpu_torch.ops.intersect import FLT_MAX, intersect_triangle
 
 PACKET = 1024                 # rays per packet in the plain version
 _REF_CHUNK = 64               # packets per batched leaf product
-
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNEL_SOURCE = os.path.join(_PKG_DIR, "csrc", "packet_trace.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-_KERNEL_LIB = os.path.join(BUILD_DIR, "libpacket_trace.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 @dataclasses.dataclass
@@ -103,52 +92,18 @@ def supports_multi(scene) -> bool:
 # CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
 
-_build_lock = threading.Lock()
-_lib = None
-BUILD_INFO: dict = {}
+KERNEL = cuda_build.KernelLib("packet_trace", (("rt_packet_trace", (
+    cuda_build.P, cuda_build.P, cuda_build.P, cuda_build.P, cuda_build.P,
+    cuda_build.I64, cuda_build.I32, cuda_build.I32, cuda_build.F32,
+    cuda_build.F32, cuda_build.I32, cuda_build.I32, cuda_build.P,
+    cuda_build.P, cuda_build.P)),))
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found (looked on PATH and in "
-                           "/usr/local/cuda/bin)")
-    return path
-
-
-def load_kernel() -> ctypes.CDLL:
-    """Build (once per process, if the .so is missing or older than the
-    source) and load the kernel library.  BUILD_INFO then holds the
-    build seconds and nvcc's ptxas report (registers, spills)."""
-    global _lib
-    with _build_lock:
-        if _lib is not None:
-            return _lib
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        if (not os.path.exists(_KERNEL_LIB)
-                or os.path.getmtime(_KERNEL_LIB)
-                < os.path.getmtime(KERNEL_SOURCE)):
-            tmp = f"{_KERNEL_LIB}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, KERNEL_SOURCE]
-            t0 = time.time()
-            proc = subprocess.run(cmd, capture_output=True, text=True,
-                                  timeout=600)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{proc.stderr}{proc.stdout}")
-            os.replace(tmp, _KERNEL_LIB)
-            BUILD_INFO.update(seconds=time.time() - t0, command=cmd,
-                              ptxas=proc.stderr + proc.stdout)
-        lib = ctypes.CDLL(_KERNEL_LIB)
-        lib.rt_packet_trace.restype = ctypes.c_int
-        lib.rt_packet_trace.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p]
-        _lib = lib
-        return _lib
+def load_kernel():
+    """Build (once per process, if the .so is missing or stale) and load
+    the kernel library; cuda_build.BUILD_INFO["packet_trace"] then holds
+    the build seconds and nvcc's ptxas report."""
+    return cuda_build.load(KERNEL)
 
 
 def variant(any_hit: bool, masked: bool, stable: bool) -> str:
@@ -156,14 +111,6 @@ def variant(any_hit: bool, masked: bool, stable: bool) -> str:
     name = ("masked_" if masked else "") + ("any_hit" if any_hit
                                             else "closest")
     return name if stable else name + "_legacy"
-
-
-def _check(name: str, x: torch.Tensor, dtype, ndim: int, dev) -> None:
-    if x.device != dev or x.dtype != dtype or x.dim() != ndim \
-            or not x.is_contiguous():
-        raise ValueError(f"packet_trace_cuda: {name} must be a contiguous "
-                         f"{ndim}-d {dtype} tensor on {dev}, got "
-                         f"{tuple(x.shape)} {x.dtype} on {x.device}")
 
 
 def packet_trace_cuda(o, d, live, nodef, kleaf, tmin, tmax, *,
@@ -177,15 +124,15 @@ def packet_trace_cuda(o, d, live, nodef, kleaf, tmin, tmax, *,
     dev = o.device
     if dev.type != "cuda":
         raise ValueError("packet_trace_cuda needs CUDA tensors")
-    _check("o", o, torch.float32, 2, dev)
-    _check("d", d, torch.float32, 2, dev)
-    _check("nodef", nodef, torch.float32, 2, dev)
-    _check("kleaf", kleaf, torch.float32, 3, dev)
     n = o.shape[0]
-    if o.shape[1] != 3 or d.shape != o.shape:
-        raise ValueError("o and d must both be [n, 3]")
-    if nodef.shape[1] != 16 or nodef.shape[0] % 8 \
-            or kleaf.shape[1] != 16 or kleaf.shape[2] % 4:
+    fn = "packet_trace_cuda"
+    cuda_build.check_tensor(fn, "o", o, torch.float32, (n, 3), dev)
+    cuda_build.check_tensor(fn, "d", d, torch.float32, (n, 3), dev)
+    cuda_build.check_tensor(fn, "nodef", nodef, torch.float32, (None, 16),
+                            dev)
+    cuda_build.check_tensor(fn, "kleaf", kleaf, torch.float32,
+                            (None, 16, None), dev)
+    if nodef.shape[0] % 8 or kleaf.shape[2] % 4:
         raise ValueError(f"bad table shapes {tuple(nodef.shape)}, "
                          f"{tuple(kleaf.shape)}")
     live_u8 = None
@@ -205,9 +152,7 @@ def packet_trace_cuda(o, d, live, nodef, kleaf, tmin, tmax, *,
         kleaf.shape[2] // 4, float(tmin), float(tmax), int(any_hit),
         int(stable), out_t.data_ptr(), out_tri.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"packet_trace kernel launch failed: CUDA "
-                           f"error {err}")
+    cuda_build.check_launch("packet_trace", err)
     key = variant(any_hit, live is not None, stable)
     packet_trace_cuda.launches[key] = packet_trace_cuda.launches.get(key, 0) + 1
     return out_t, out_tri
@@ -223,7 +168,7 @@ packet_trace_cuda.launches = {}
 # ---------------------------------------------------------------------------
 
 def _packet_trace_reference(o, d, live, nodef, kleaf, tmin, tmax, *,
-                            any_hit: bool, stable: bool
+                            any_hit: bool, stable: bool, stats=None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: (t [n] f32, tri [n] i32).
 
@@ -231,6 +176,11 @@ def _packet_trace_reference(o, d, live, nodef, kleaf, tmin, tmax, *,
     radiance_tpu/ops/packet_trace.py::_kernel step for step, with every
     packet advanced in lockstep: packet i's cursor, clip and pending-leaf
     pipeline are exactly the TPU kernel's grid step i.
+
+    stats, a dict if given, receives the walk's counts, from which a
+    caller bounds the kernel's work: packet node steps, distinct node
+    rows and leaves touched, and ray_leaf_tris, the sum over staged
+    leaves of (rays of the packet inside the leaf box) x (its triangles).
     """
     f32, i64 = torch.float32, torch.int64
     dev = o.device
@@ -281,6 +231,10 @@ def _packet_trace_reference(o, d, live, nodef, kleaf, tmin, tmax, *,
     best_tri = torch.full((npk, PACKET, T), -1, dtype=torch.int32,
                           device=dev)
     lanes = torch.arange(T, dtype=torch.int32, device=dev)
+    node_seen = torch.zeros(nodef.shape[0], dtype=torch.bool, device=dev)
+    leaf_seen = torch.zeros(kleaf.shape[0], dtype=torch.bool, device=dev)
+    ray_leaf_tris = torch.zeros((), dtype=i64, device=dev)
+    node_steps = 0
 
     def process_leaf(pk, rows, starts, do_clip):
         """Intersect the leaves `rows` with packets `pk` (one leaf each)."""
@@ -333,6 +287,9 @@ def _packet_trace_reference(o, d, live, nodef, kleaf, tmin, tmax, *,
         act = torch.nonzero(idx >= 0).squeeze(1)
         if act.numel() == 0:
             break
+        if stats is not None:
+            node_steps += act.numel()
+            node_seen[base[act] + idx[act]] = True
         row = nodef[base[act] + idx[act]]                     # [k, 16]
         a_ = row[:, 8].to(i64)
         esc = row[:, 9].to(i64)
@@ -358,6 +315,9 @@ def _packet_trace_reference(o, d, live, nodef, kleaf, tmin, tmax, *,
         is_leaf = ntri > 0
         stage = is_leaf & box_hit
         if bool(stage.any()):
+            if stats is not None:
+                leaf_seen[a_[stage]] = True
+                ray_leaf_tris += (hit[stage].sum(dim=1) * ntri[stage]).sum()
             s = act[stage]
             pend = cnt[s] > 0
             if bool(pend.any()):
@@ -379,6 +339,10 @@ def _packet_trace_reference(o, d, live, nodef, kleaf, tmin, tmax, *,
         process_leaf(q, p_row[q], p_start[q],
                      torch.zeros(q.numel(), dtype=torch.bool, device=dev))
 
+    if stats is not None:
+        stats.update(node_steps=node_steps, node_rows=int(node_seen.sum()),
+                     leaves=int(leaf_seen.sum()),
+                     ray_leaf_tris=int(ray_leaf_tris))
     # per-ray reduction: min over lanes, first lane wins ties
     pr = best_t.amin(dim=2)
     match = best_t == pr[..., None]

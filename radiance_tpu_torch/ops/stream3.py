@@ -1,0 +1,409 @@
+"""Stream tracer v6 (stream3): the closest-hit pipeline of the primary wave.
+
+Port of radiance_tpu/ops/stream3.py::trace_rows_stream3 (:2728) and the
+stages it runs (`_run`, :2459) on the engine's primary wave:
+
+  prep    (plain torch) object-space rows, phase-2 features [16, Npad],
+          32-ray sub-frustum scalars, and the slot tables: a packet whose
+          rays share one direction octant is one slot; a mixed packet
+          becomes one slot per present octant, drawn from an EXTRA pool;
+  emit    (kernel B) every slot walks the octant node table once with its
+          interval frustum and appends one i32 word per overlapped leaf;
+  refine  (kernel C) the exact per-ray slab test of every (leaf, 128-ray
+          block) pair; empty words are dropped;
+  isect   (kernel D) the Pluecker tests of every kept pair, per-ray
+          closest hit with the winner's prim and barycentrics;
+  glue    (plain torch) slot results folded into per-packet winners;
+  residual  packets whose walk was cut (STEP_CAP) or whose list
+          overflowed (PCAP) are re-traced exactly, ray by ray.
+
+The layout transposes (rows_from_aos_fast, feats_rows_to_major) are
+kernel A.  The kernels and their plain versions live in
+ops/stream3_stages.py; on CPU tensors every stage runs its plain version.
+
+Differences from the JAX module, none visible in a hit record:
+  * the residual drain re-walks flagged packets through the packet
+    tracer (packet_trace.trace_rays_packet, closest hit: the CUDA packet
+    kernel on the card), where the JAX module uses its per-ray traversal
+    walk (ops/traversal.py, not ported yet).  Both are exact tracers.  All
+    flagged packets drain in one call (the JAX drain runs RES_CAP packets
+    a chunk under a while_loop);
+  * constants are the compiled-TPU defaults and no environment variable
+    is read: exact refine on, lean isect off, presort off, f32 only, the
+    9-bit tq word format, the lockstep walk's slot order (one GPU warp
+    per slot replaces the TPU's lockstep, treelet and work-stealing walks,
+    which all emit the same words);
+  * emeta lane 2 counts each slot's own walk steps (the TPU kernel stamps
+    its 8-slot group's count), and diag["steps"] sums them;
+  * kernel D keeps no tq occlusion cull (a cull at equal t could change
+    which of two tied triangles wins).
+
+Not ported: the occlusion pair kernel (_isect3_occl_kernel), the prep
+kernel (_oscal_kernel), presort (_block_sort), temporal t-bounds,
+trace_rows_cascade, lean isect (_winner_barys) and build_tracer.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from radiance_tpu_torch.ops import packet_trace
+from radiance_tpu_torch.ops.intersect import FLT_MAX
+from radiance_tpu_torch.ops.packet_trace import HitRecord
+from radiance_tpu_torch.ops.stream3_stages import (
+    BIG, BLK, EXTRA, FMAX, G, NLANES, PCAP, PKT, REFINE_SUB, STEP_CAP,
+    W_LEAF_MAX, feats_rows_to_major, rows_from_aos_fast, stage_emit,
+    stage_isect, stage_refine)
+
+
+def supports(scene) -> bool:
+    """True when the single-instance stream3 path applies."""
+    return (getattr(scene, "knode_f", None) is not None
+            and scene.inst_inv.shape[0] == 1
+            and scene.kleaf.shape[0] + 1 < W_LEAF_MAX)
+
+
+def rows_from_aos(origin, direction):
+    """[N, 3] -> six [N] component rows (column views)."""
+    o = origin.to(torch.float32)
+    d = direction.to(torch.float32)
+    return (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2])
+
+
+def leaf_tables(nodef, n_leaves):
+    """(tstart [1, Nl] i32, aabb [Nl, 6] f32) keyed by kleaf row, from
+    the octant-0 node rows (leaf meta words 8-11 are f32 values)."""
+    nk = nodef.shape[0] // 8
+    rows = nodef[:nk]
+    isleaf = rows[:, 10] > 0
+    idx = torch.where(isleaf, rows[:, 8].to(torch.int64), 0)
+    lt = torch.where(isleaf, rows[:, 11].to(torch.int32), 0)
+    tstart = torch.zeros(n_leaves, dtype=torch.int32, device=nodef.device)
+    tstart = tstart.scatter_reduce(0, idx, lt, "amax")
+    box = torch.where(isleaf[:, None], rows[:, 0:6], -FMAX)
+    aabb = torch.full((n_leaves, 6), -FMAX, dtype=torch.float32,
+                      device=nodef.device)
+    aabb = aabb.scatter_reduce(0, idx[:, None].expand(-1, 6), box, "amax")
+    return tstart[None, :], aabb
+
+
+def leaf_aabb8(nodef, n_leaves):
+    """Leaf boxes padded to [ceil8(Nl), 8] f32 (kernel C's table)."""
+    _, aabb = leaf_tables(nodef, n_leaves)
+    nlp = ((n_leaves + 7) // 8) * 8
+    out = torch.zeros(nlp, 8, dtype=torch.float32, device=nodef.device)
+    out[:n_leaves, :6] = aabb
+    return out
+
+
+# ---------------------------------------------------------------- prep
+
+def _interval_scalars(oc, dc, mask=None):
+    """Interval-frustum scalars for one axis over a ray-group axis:
+    oc, dc [ngrp, g] -> (sgn, olo, ohi, ilo, ihi) [ngrp].  With `mask`,
+    rays outside the subset are ignored."""
+    def lo_hi(v, lo_fill, hi_fill):
+        if mask is None:
+            return v.amin(dim=1), v.amax(dim=1)
+        return (torch.where(mask, v, lo_fill).amin(dim=1),
+                torch.where(mask, v, hi_fill).amax(dim=1))
+
+    dmin, dmax = lo_hi(dc, BIG, -BIG)
+    neg = dmax < 0.0
+    sgn = torch.where(dmin > 0.0, 1.0, torch.where(neg, -1.0, 0.0))
+    osn = oc * torch.where(neg, -1.0, 1.0)[:, None]
+    olo, ohi = lo_hi(osn, BIG, -BIG)
+    inv = torch.clamp(1.0 / torch.clamp(dc.abs(), min=1e-30), max=BIG)
+    ilo, ihi = lo_hi(inv, BIG, 0.0)
+    return sgn, olo, ohi, ilo, ihi
+
+
+def _group_scalars(rows, group, mask=None):
+    """[ngrp, 16] scalar rows (sgn3, olo3, ohi3, ilo3, ihi3, pad) for
+    every `group`-ray window of the wave."""
+    ox, oy, oz, dx, dy, dz = rows
+    ngrp = ox.shape[0] // group
+    cols = [[], [], [], [], []]
+    for oc, dc in ((ox, dx), (oy, dy), (oz, dz)):
+        vals = _interval_scalars(oc.reshape(ngrp, group),
+                                 dc.reshape(ngrp, group), mask)
+        for lst, v in zip(cols, vals):
+            lst.append(v)
+    flat = [v for lst in cols for v in lst]
+    flat.append(torch.zeros(ngrp, dtype=torch.float32, device=ox.device))
+    return torch.stack(flat, dim=1)
+
+
+def _octant_scalars(rows, live, npk):
+    """(cand [npk, 8, 16], present [npk, 8], full_pkt [npk, 16]): per
+    (packet, direction octant) interval scalars, octant presence, and the
+    whole-packet scalars (the XLA formulation, stream3.py:411-446)."""
+    ox, oy, oz, dx, dy, dz = rows
+    dev = ox.device
+    oct_of = ((dx < 0).to(torch.int64) + 2 * (dy < 0).to(torch.int64)
+              + 4 * (dz < 0).to(torch.int64)).reshape(npk, 1, PKT)
+    omask = oct_of == torch.arange(8, device=dev)[None, :, None]
+    if live is not None:
+        omask = omask & live.reshape(npk, 1, PKT)
+    present = omask.any(dim=2)
+    cols = []
+    for oc, dc in ((ox, dx), (oy, dy), (oz, dz)):
+        ocp = oc.reshape(npk, 1, PKT)
+        dcp = dc.reshape(npk, 1, PKT)
+        dmin = torch.where(omask, dcp, BIG).amin(dim=2)
+        dmax = torch.where(omask, dcp, -BIG).amax(dim=2)
+        sgn = torch.where(dmin > 0.0, 1.0,
+                          torch.where(dmax < 0.0, -1.0, 0.0))
+        osn = ocp * torch.where(dmax < 0.0, -1.0, 1.0)[:, :, None]
+        olo = torch.where(omask, osn, BIG).amin(dim=2)
+        ohi = torch.where(omask, osn, -BIG).amax(dim=2)
+        inv = torch.clamp(1.0 / torch.clamp(dcp.abs(), min=1e-30), max=BIG)
+        ilo = torch.where(omask, inv, BIG).amin(dim=2)
+        ihi = torch.where(omask, inv, 0.0).amax(dim=2)
+        cols.append((sgn, olo, ohi, ilo, ihi))
+    cand = torch.stack(
+        [cols[k][f] for f in range(5) for k in range(3)]
+        + [torch.zeros(npk, 8, dtype=torch.float32, device=dev)], dim=2)
+    full_pkt = _group_scalars(
+        rows, PKT, mask=None if live is None else live.reshape(npk, PKT))
+    return cand, present, full_pkt
+
+
+def _pad_wave(rows_w, live):
+    """Pad rows to whole groups of G packets with copies of ray 0; padded
+    lanes are not live."""
+    n = rows_w[0].shape[0]
+    pad = (-n) % (G * PKT)
+    if pad:
+        rows_w = tuple(torch.cat([r, r[:1].expand(pad)]) for r in rows_w)
+        if live is not None:
+            live = torch.cat([live, torch.zeros(pad, dtype=torch.bool,
+                                                device=live.device)])
+    return rows_w, live
+
+
+def _stage_prep(rows_w, nodef, inv0, live=None, *, stable: bool):
+    """Object-space rows, phase-2 features [16, Npad], sub-block scalars
+    and the slot tables (stream3.py::_stage_prep, :449-590).
+
+    `live` ([N] bool) drops dead lanes from every interval frustum;
+    packets with no live ray get no active slot.  Returns (rows, feats_t,
+    scal [nslot, 16] f32, smeta [nslot, 8] i32 (lanes 0 packet, 1 alive,
+    2 node-table base row), bscal [npk*32, 16] f32, order [nslot] i64):
+    slots sorted heavy-walk first, order the stable sort permutation."""
+    f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    rows_w, live = _pad_wave(rows_w, live)
+    ox_w, oy_w, oz_w, dx_w, dy_w, dz_w = (r.to(f32) for r in rows_w)
+    m = inv0.to(f32)
+    ox = m[0, 0] * ox_w + m[0, 1] * oy_w + m[0, 2] * oz_w + m[0, 3]
+    oy = m[1, 0] * ox_w + m[1, 1] * oy_w + m[1, 2] * oz_w + m[1, 3]
+    oz = m[2, 0] * ox_w + m[2, 1] * oy_w + m[2, 2] * oz_w + m[2, 3]
+    dx = m[0, 0] * dx_w + m[0, 1] * dy_w + m[0, 2] * dz_w
+    dy = m[1, 0] * dx_w + m[1, 1] * dy_w + m[1, 2] * dz_w
+    dz = m[2, 0] * dx_w + m[2, 1] * dy_w + m[2, 2] * dz_w
+    rows = (ox, oy, oz, dx, dy, dz)
+    dev = ox.device
+    npad = ox.shape[0]
+    npk = npad // PKT
+    nk_local = nodef.shape[0] // 8
+
+    ones = torch.ones(npad, dtype=f32, device=dev)
+    zeros = torch.zeros(npad, dtype=f32, device=dev)
+    if stable:
+        # the isect stage computes the ray moment per leaf as (o - c) x d
+        mx = my = mz = zeros
+    else:
+        mx = oy * dz - oz * dy
+        my = oz * dx - ox * dz
+        mz = ox * dy - oy * dx
+    feats_t = torch.stack([dx, dy, dz, mx, my, mz, ox, oy, oz, ones,
+                           zeros, zeros, zeros, zeros, zeros, zeros])
+
+    # 32-ray sub-frusta, rows sub-major within each packet (sub s of
+    # block j at row s*8 + j)
+    spb = BLK // REFINE_SUB
+    sub_mask = None if live is None else live.reshape(-1, REFINE_SUB)
+    bscal = _group_scalars(rows, REFINE_SUB, mask=sub_mask) \
+        .reshape(npk, 8, spb, 16).transpose(1, 2).reshape(npk * NLANES, 16)
+
+    # ----- slot construction -----
+    cand, present, full_pkt = _octant_scalars(rows, live, npk)
+    pure = present.sum(dim=1) == 1
+    oct_idx = torch.argmax(present.to(i32), dim=1)
+    full = torch.where(pure[:, None],
+                       cand[torch.arange(npk, device=dev), oct_idx],
+                       full_pkt)
+    oct_full = ((full[:, 0] < 0).to(i32) + 2 * (full[:, 1] < 0).to(i32)
+                + 4 * (full[:, 2] < 0).to(i32))
+
+    nslot = npk + EXTRA
+    scal = torch.zeros(nslot, 16, dtype=f32, device=dev)
+    scal[:npk] = torch.where(pure[:, None], full, 0.0)
+    smeta = torch.zeros(nslot, 8, dtype=i32, device=dev)
+    smeta[:npk, 0] = torch.arange(npk, dtype=i32, device=dev)
+    smeta[:npk, 1] = pure.to(i32)
+    smeta[:npk, 2] = oct_full * nk_local
+
+    # octant sub-slots: a mixed packet takes them only if ALL its octants
+    # fit in the pool, else its base slot walks the whole-packet frustum
+    valid0 = (~pure)[:, None] & present                    # [npk, 8]
+    rank0 = torch.cumsum(valid0.reshape(-1).to(i64), 0) - 1
+    pkt_ids = torch.arange(npk, dtype=i64, device=dev).repeat_interleave(8)
+    maxrank = torch.full((npk,), -1, dtype=i64, device=dev).scatter_reduce(
+        0, pkt_ids, torch.where(valid0.reshape(-1), rank0, -1), "amax")
+    fits = (~pure) & (maxrank < EXTRA)
+    vflat = valid0.reshape(-1) & fits[pkt_ids]
+    rank = torch.cumsum(vflat.to(i64), 0) - 1
+    fit = vflat & (rank < EXTRA)
+    slot_of = (npk + rank)[fit]                # the dropped writes removed
+    oct_ids = torch.arange(8, dtype=i32, device=dev).repeat(npk)
+    scal[slot_of] = cand.reshape(-1, 16)[fit]
+    smeta[slot_of, 0] = pkt_ids[fit].to(i32)
+    smeta[slot_of, 1] = 1
+    smeta[slot_of, 2] = oct_ids[fit] * nk_local
+
+    conserv = (~pure) & (~fits)
+    scal[:npk] = torch.where(conserv[:, None], full, scal[:npk])
+    smeta[:npk, 1] = torch.maximum(smeta[:npk, 1], conserv.to(i32))
+    # slots sorted by a walk-length proxy, heavy first; dead slots last
+    # (stable: jnp.argsort is)
+    spread = scal[:, 6:9] - scal[:, 3:6]
+    score = (torch.log2(torch.clamp(scal[:, 12:15], 1.0, 1e8)).sum(dim=1)
+             + torch.log2(torch.clamp(spread, 1e-3, 1e4)).sum(dim=1))
+    score = torch.where(smeta[:, 1] > 0, score, -BIG)
+    order = torch.argsort(-score, stable=True)
+    return rows, feats_t, scal[order], smeta[order], bscal, order
+
+
+# ----------------------------------------------------------------- glue
+
+def _stage_glue(out_s, smeta, npk, n) -> HitRecord:
+    """Fold storage-order slot results [nslot, PKT, 4] into per-ray
+    winners (stream3.py::_stage_glue, :2353-2406): base slot p is packet
+    p; an extra (octant) slot's row min-folds into its packet, ties to
+    the base slot."""
+    f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    t_all = out_s[:, :, 0]
+    alive = smeta[:, 1] > 0
+    kb = torch.where(alive[:npk, None], t_all[:npk], FMAX).view(i32)
+    ex_pkt = smeta[npk:, 0].to(i64)
+    ex_alive = alive[npk:]
+    keep = (ex_pkt >= 0) & (ex_pkt < npk)           # mode="drop"
+    ex_pkt, ex_alive, ex = ex_pkt[keep], ex_alive[keep], out_s[npk:][keep]
+    kx = torch.where(ex_alive[:, None], ex[:, :, 0], FMAX).view(i32)
+    rows = ex_pkt[:, None].expand(-1, PKT)
+    kmin = kb.scatter_reduce(0, rows, kx, "amin")
+    t = kmin.view(f32)
+    take = ex_alive[:, None] & (kx == kmin[ex_pkt])
+
+    def fold(lane, fill, base):
+        ext = torch.full((npk, PKT), fill, dtype=f32, device=out_s.device)
+        ext = ext.scatter_reduce(0, rows, torch.where(take, ex[:, :, lane],
+                                                      fill), "amax")
+        return torch.where(kmin == kb, base, ext)
+
+    prim_f = fold(1, -FMAX, torch.where(alive[:npk, None], out_s[:npk, :, 1],
+                                        -1.0))
+    b1_f = fold(2, 0.0, out_s[:npk, :, 2])
+    b2_f = fold(3, 0.0, out_s[:npk, :, 3])
+    t, prim, b1, b2 = (v.reshape(-1)[:n] for v in (t, prim_f, b1_f, b2_f))
+    hit = (t < FLT_MAX) & (prim >= 0.0)
+    return HitRecord(t=torch.where(hit, t, FLT_MAX),
+                     prim=torch.where(hit, prim.to(i32), -1),
+                     slot=torch.where(hit, 0, -1).to(i32),
+                     b1=torch.where(hit, b1, 0.0),
+                     b2=torch.where(hit, b2, 0.0))
+
+
+# ----------------------------------------------------------------- run
+
+def _run(rows_w, tmin, tmax, nodef, kleaf, inv0, *, live=None,
+         stable: bool, with_diag: bool = False):
+    """The pipeline on world-space component rows (stream3.py::_run,
+    non-work-stealing branch).  Returns a HitRecord, and with with_diag
+    (rec, diag): diag["pkt_flag"] [npk] i32 marks packets whose walk was
+    cut or whose list overflowed -- the caller must re-trace them.  Dead
+    lanes of `live` come back as garbage for the caller to mask."""
+    n = rows_w[0].shape[0]
+    rows_w, live = _pad_wave(rows_w, live)
+    rows, feats_t, scal, smeta, bscal, order = _stage_prep(
+        rows_w, nodef, inv0, live=live, stable=stable)
+    npad = rows[0].shape[0]
+    npk = npad // PKT
+    words, emeta = stage_emit(scal, smeta, bscal, nodef, tmax,
+                              step_cap=STEP_CAP, pcap=PCAP)
+    slot_pkt = smeta[:, 0].contiguous()
+    words_i, emeta_i = stage_refine(
+        words, emeta, slot_pkt, feats_t, leaf_aabb8(nodef, kleaf.shape[0]),
+        tmax, pcap=PCAP)
+    feats = feats_rows_to_major(feats_t)
+    out_s = stage_isect(words_i, emeta_i, slot_pkt, feats, kleaf, tmin,
+                        tmax, stable=stable, pcap=PCAP)
+    # back to storage order (slot p == packet p for base slots)
+    inv_order = torch.empty_like(order)
+    inv_order[order] = torch.arange(order.shape[0], device=order.device)
+    smeta_u = torch.empty_like(smeta)
+    smeta_u[order] = smeta
+    rec = _stage_glue(out_s[inv_order], smeta_u, npk, npad)
+    rec = HitRecord(t=rec.t[:n], prim=rec.prim[:n], slot=rec.slot[:n],
+                    b1=rec.b1[:n], b2=rec.b2[:n])
+    if not with_diag:
+        return rec
+    alive = smeta[:, 1] > 0
+    trunc = alive & ((emeta[:, 1] > 0) | (emeta[:, 0] > PCAP))
+    pkt_flag = torch.zeros(npk, dtype=torch.int32, device=alive.device) \
+        .scatter_reduce(0, smeta[:, 0].to(torch.int64), trunc.to(torch.int32),
+                        "amax")
+    a64 = alive.to(torch.int64)
+    diag = {"pkt_flag": pkt_flag,
+            "words": (torch.clamp(emeta[:, 0], max=PCAP) * a64).sum(),
+            "kept_words": (torch.clamp(emeta_i[:, 0], max=PCAP) * a64).sum(),
+            "steps": emeta[:, 2].to(torch.int64).sum(),
+            "capped": ((emeta[:, 1] > 0) & alive).sum()}
+    return rec, diag
+
+
+def trace_rows_stream3(scene, rows_w, tmin, tmax, live=None,
+                       with_diag: bool = False):
+    """Closest-hit trace of a wave given as six world-space [N] rows
+    (ox, oy, oz, dx, dy, dz) against a single-instance scene (check
+    supports(scene)).
+
+    Every packet flagged by the pipeline (walk cut at STEP_CAP, word list
+    past PCAP) is re-traced exactly through the packet tracer.  `live`
+    ([N] bool) masks dead lanes out of every frustum (they may hold
+    NaN/Inf: they are parked first); dead lanes report a miss.  With
+    with_diag, returns (rec, diag) with the pipeline's counters plus
+    "flagged" packets and "residual_rays" re-traced."""
+    n = rows_w[0].shape[0]
+    if live is not None:
+        live = live.bool()
+        rows_w = tuple(torch.where(live, r.to(torch.float32),
+                                   BIG if k < 3 else 1.0)
+                       for k, r in enumerate(rows_w))
+    rec, diag = _run(rows_w, tmin, tmax, scene.knode_f, scene.kleaf,
+                     scene.inst_inv[0], live=live,
+                     stable=bool(scene.stable_frames), with_diag=True)
+    flagged = torch.nonzero(diag["pkt_flag"] > 0).squeeze(1)
+    diag["flagged"] = int(flagged.numel())
+    diag["residual_rays"] = 0
+    if flagged.numel():
+        sel = (flagged[:, None] * PKT
+               + torch.arange(PKT, device=flagged.device)).reshape(-1)
+        sel = sel[sel < n]
+        ow = torch.stack([r[sel] for r in rows_w[:3]], dim=1)
+        dw = torch.stack([r[sel] for r in rows_w[3:]], dim=1)
+        sub = packet_trace.trace_rays_packet(scene, ow, dw, tmin, tmax,
+                                             any_hit=False)
+        for f in ("t", "prim", "slot", "b1", "b2"):
+            getattr(rec, f)[sel] = getattr(sub, f).to(getattr(rec, f).dtype)
+        diag["residual_rays"] = int(sel.numel())
+    if live is not None:
+        rec = rec.masked_miss(~live[:n])
+    return (rec, diag) if with_diag else rec
+
+
+def trace_rays_stream3(scene, origin, direction, tmin, tmax) -> HitRecord:
+    """trace_rows_stream3 on [N, 3] world-space rays (one transpose)."""
+    return trace_rows_stream3(scene, rows_from_aos_fast(origin, direction),
+                              tmin, tmax)

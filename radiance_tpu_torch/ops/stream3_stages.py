@@ -1,0 +1,480 @@
+"""The stream3 pipeline's kernel stages: four CUDA kernels, their plain
+PyTorch versions, and the word-format constants they share.
+
+Port of the Pallas kernels of radiance_tpu/ops/stream3.py that the
+closest-hit primary wave runs (ops/stream3.py drives them):
+
+  A  transpose_rows  csrc/s3_transpose.cu  <- _aos2rows_kernel (:1595),
+                                              _transpose_kernel (:1575)
+  B  stage_emit      csrc/s3_emit.cu       <- _emit3_kernel (:595),
+                                              _emit3t_kernel (:753),
+                                              _emit3ws_kernel (:1031),
+                                              _emit3wst_kernel (:1257)
+  C  stage_refine    csrc/s3_refine.cu     <- _refine3_kernel (:1635)
+  D  stage_isect     csrc/s3_isect.cu      <- _isect3_kernel (:1853)
+
+Each stage takes its kernel for CUDA tensors (no fallback: a failed
+launch raises) and its plain version for CPU tensors.  The plain
+versions are vectorised over slots: emit is a loop over walk steps,
+refine and isect loops over word positions.  Each kernel wrapper counts
+its launches in `<wrapper>.launches`.
+
+Word format (the compiled-TPU default, 9 tq bits): one i32 per emitted
+(leaf, slot) pair, (leaf + 1) << 17 | keepmask << 9 | tq.  keepmask has
+one bit per 128-ray block of the slot's packet; tq is a quantised lower
+bound on the leaf's entry distance (carried, not read by this port).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from radiance_tpu_torch.bvh.kernel_pack import KERNEL_MAX_TRIS
+from radiance_tpu_torch.ops import cuda_build
+
+T = KERNEL_MAX_TRIS         # triangles per kernel leaf
+G = 8                       # slot pad granularity (the TPU walk's group)
+PKT = 1024                  # rays per packet (= walk slot granularity)
+BLK = 128                   # rays per phase-2 block (8 per packet)
+PCAP = 1024                 # emitted words per slot
+EXTRA = 256                 # sub-walk slot pool for mixed-octant packets
+STEP_CAP = 2048             # walk steps per slot before its packet flags
+REFINE_SUB = 32             # rays per emit-refine sub-frustum
+NLANES = 8 * (BLK // REFINE_SUB)    # sub-frusta per packet (32)
+
+W_TQ_BITS = 9
+W_KEEP_SHIFT = W_TQ_BITS
+W_LEAF_SHIFT = W_TQ_BITS + 8
+W_TQ_MASK = (1 << W_TQ_BITS) - 1
+TQ_SHIFT = 27 - W_TQ_BITS
+TQ_BIAS3 = 125 << (W_TQ_BITS - 4)
+W_LEAF_MAX = 1 << (31 - W_LEAF_SHIFT)   # leaf + 1 must stay below this
+
+FMAX = 3.4028234663852886e38    # float32 max, exactly representable
+BIG = 1e30
+
+_P, _I32, _I64, _F32 = cuda_build.P, cuda_build.I32, cuda_build.I64, \
+    cuda_build.F32
+LIBS = {
+    "transpose": cuda_build.KernelLib("s3_transpose", (
+        ("rt_s3_transpose", (_P, _I64, _I64, _P, _I64, _P)),)),
+    # emit and refine: only products, differences and comparisons; without
+    # FMA contraction their word lists are bit-identical to the plain
+    # versions'
+    "emit": cuda_build.KernelLib("s3_emit", (
+        ("rt_s3_emit", (_P, _P, _P, _P, _I32, _F32, _I32, _I32, _P, _P,
+                        _P)),), ("-fmad=false",)),
+    "refine": cuda_build.KernelLib("s3_refine", (
+        ("rt_s3_refine", (_P, _P, _P, _P, _I64, _P, _I32, _I32, _F32, _P,
+                          _P, _P)),), ("-fmad=false",)),
+    "isect": cuda_build.KernelLib("s3_isect", (
+        ("rt_s3_isect", (_P, _P, _P, _P, _P, _I32, _I32, _F32, _F32, _I32,
+                         _P, _P)),)),
+}
+
+
+def load_kernels():
+    """Build (in parallel, where stale) and load the four libraries."""
+    return cuda_build.load_all(list(LIBS.values()))
+
+
+def _lib(key: str):
+    return cuda_build.load(LIBS[key])
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _cuda_only(fn: str, x: torch.Tensor) -> torch.device:
+    if x.device.type != "cuda":
+        raise ValueError(f"{fn} needs CUDA tensors")
+    return x.device
+
+
+def _route(x: torch.Tensor) -> str:
+    if x.device.type in ("cuda", "cpu"):
+        return x.device.type
+    raise ValueError(f"stream3: no route for device {x.device}")
+
+
+# ---------------------------------------------------------------------------
+# A. transpose
+# ---------------------------------------------------------------------------
+
+def transpose_cuda(src: torch.Tensor, out: torch.Tensor = None
+                   ) -> torch.Tensor:
+    """Kernel A: [R, C] f32 -> [C, R] f32 (bit-exact .t().contiguous()).
+    out, if given, is a contiguous [C, R] f32 tensor to write into."""
+    dev = _cuda_only("transpose_cuda", src)
+    chk = functools.partial(cuda_build.check_tensor, "transpose_cuda",
+                            dev=dev)
+    chk("src", src, torch.float32, (None, None))
+    r, c = src.shape
+    if out is None:
+        out = torch.empty(c, r, dtype=torch.float32, device=dev)
+    chk("out", out, torch.float32, (c, r))
+    if src.numel():
+        cuda_build.check_launch("s3_transpose", _lib("transpose")
+                                .rt_s3_transpose(src.data_ptr(), r, c,
+                                                 out.data_ptr(), r,
+                                                 _stream(dev)))
+        transpose_cuda.launches += 1
+    return out
+
+
+transpose_cuda.launches = 0
+
+
+def transpose_rows(src: torch.Tensor, out: torch.Tensor = None
+                   ) -> torch.Tensor:
+    """[R, C] -> [C, R]: kernel A on CUDA tensors, .t().contiguous() (its
+    plain version) on CPU tensors."""
+    if _route(src) == "cuda":
+        return transpose_cuda(src, out)
+    res = src.t().contiguous()
+    if out is not None:
+        out.copy_(res)
+        return out
+    return res
+
+
+def rows_from_aos_fast(origin: torch.Tensor, direction: torch.Tensor):
+    """[N, 3] o/d -> six contiguous [N] f32 rows (ox, oy, oz, dx, dy, dz)
+    by two transposes into one [6, N] buffer."""
+    o = origin.to(torch.float32).contiguous()
+    d = direction.to(torch.float32).contiguous()
+    n = o.shape[0]
+    out = torch.empty(6, n, dtype=torch.float32, device=o.device)
+    transpose_rows(o, out[0:3])
+    transpose_rows(d, out[3:6])
+    return tuple(out[k] for k in range(6))
+
+
+def feats_rows_to_major(feats_t: torch.Tensor) -> torch.Tensor:
+    """[16, Npad] phase-2 features -> ray-major [Npad, 16]."""
+    return transpose_rows(feats_t.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# B. emit walk
+# ---------------------------------------------------------------------------
+
+def _interval_test(bmn, bmx, s, tf0):
+    """Interval-frustum box test of node bounds bmn/bmx [..., 3] against
+    frustum scalars s [..., 16] (sgn3, olo3, ohi3, ilo3, ihi3): (tn, tf).
+    Sign-mixed axes pass (tn 0, tf FMAX), as in _emit3_kernel :653-689."""
+    tn = torch.zeros_like(bmn[..., 0])
+    tf = torch.full_like(tn, tf0)
+    fmax = torch.full_like(tn, FMAX)
+    zero = torch.zeros_like(tn)
+    for k in range(3):
+        sk = s[..., k]
+        m0 = sk * bmn[..., k]
+        m1 = sk * bmx[..., k]
+        lo = torch.minimum(m0, m1) - s[..., 6 + k]
+        hi = torch.maximum(m0, m1) - s[..., 3 + k]
+        tnk = lo * torch.where(lo >= 0.0, s[..., 9 + k], s[..., 12 + k])
+        tfk = hi * torch.where(hi >= 0.0, s[..., 12 + k], s[..., 9 + k])
+        mixed = sk == 0.0
+        tn = torch.maximum(tn, torch.where(mixed, zero, tnk))
+        tf = torch.minimum(tf, torch.where(mixed, fmax, tfk))
+    return tn, tf
+
+
+def _emit_plain(scal, smeta, bscal, nodef, tmax, step_cap, pcap):
+    """Plain version of kernel B: the lockstep walk of _emit3_kernel,
+    every live slot advanced one node per loop step."""
+    dev = scal.device
+    i32, i64 = torch.int32, torch.int64
+    nslot = scal.shape[0]
+    tmax_t = torch.tensor(tmax, dtype=torch.float32, device=dev)
+    words = torch.zeros(nslot, pcap, dtype=i32, device=dev)
+    cnt = torch.zeros(nslot, dtype=i64, device=dev)
+    steps = torch.zeros(nslot, dtype=i64, device=dev)
+    idx = torch.where(smeta[:, 1] > 0, 0, -1).to(i64)
+    base = smeta[:, 2].to(i64)
+    sub = bscal.view(-1, NLANES, 16)[smeta[:, 0].to(i64)]  # [nslot, 32, 16]
+    pow2 = (1 << torch.arange(8, device=dev)).to(i32)
+    for _ in range(int(step_cap)):
+        act = torch.nonzero(idx >= 0).squeeze(1)
+        if act.numel() == 0:
+            break
+        row = nodef[base[act] + idx[act]]                   # [k, 16]
+        bmn, bmx = row[:, 0:3], row[:, 3:6]
+        tn, tf = _interval_test(bmn, bmx, scal[act], float(tmax))
+        box_hit = (tf >= tn) & (tn < tmax_t)
+        tn_b, tf_b = _interval_test(bmn[:, None], bmx[:, None], sub[act],
+                                    FMAX)
+        keep = ((tf_b >= tn_b) & (tn_b < tmax_t)).view(-1, NLANES // 8, 8)
+        kmask = (keep.any(dim=1).to(i32) * pow2).sum(dim=1, dtype=i32)
+        tq = torch.clamp((torch.maximum(tn, torch.zeros_like(tn))
+                          .view(i32) >> TQ_SHIFT) - TQ_BIAS3, 0, W_TQ_MASK)
+        a = row[:, 8].to(i32)
+        word = ((a + 1) << W_LEAF_SHIFT) | (kmask << W_KEEP_SHIFT) | tq
+        is_leaf = row[:, 10] > 0.0
+        emit = is_leaf & box_hit & (kmask > 0)
+        c = cnt[act]
+        wr = emit & (c < pcap)
+        words[act[wr], c[wr]] = word[wr]
+        cnt[act] = c + emit.to(i64)
+        steps[act] += 1
+        idx[act] = torch.where(is_leaf | ~box_hit, row[:, 9].to(i64),
+                               a.to(i64))
+    emeta = torch.zeros(nslot, 8, dtype=i32, device=dev)
+    emeta[:, 0] = cnt.to(i32)
+    emeta[:, 1] = (idx >= 0).to(i32)
+    emeta[:, 2] = steps.to(i32)
+    return words, emeta
+
+
+def emit_cuda(scal, smeta, bscal, nodef, tmax, step_cap, pcap):
+    """Kernel B: (words [nslot, pcap] i32, emeta [nslot, 8] i32).  Only
+    the first min(emeta[:, 0], pcap) words of a row are defined."""
+    dev = _cuda_only("emit_cuda", scal)
+    chk = functools.partial(cuda_build.check_tensor, "emit_cuda",
+                            dev=dev)
+    nslot = scal.shape[0]
+    chk("scal", scal, torch.float32, (nslot, 16))
+    chk("smeta", smeta, torch.int32, (nslot, 8))
+    chk("bscal", bscal, torch.float32, (None, 16))
+    chk("nodef", nodef, torch.float32, (None, 16))
+    if bscal.shape[0] % NLANES or nodef.shape[0] % 8:
+        raise ValueError("emit_cuda: bscal rows must be a multiple of 32 "
+                         "and nodef rows of 8")
+    words = torch.empty(nslot, pcap, dtype=torch.int32, device=dev)
+    emeta = torch.empty(nslot, 8, dtype=torch.int32, device=dev)
+    if nslot:
+        cuda_build.check_launch("s3_emit", _lib("emit").rt_s3_emit(
+            scal.data_ptr(), smeta.data_ptr(), bscal.data_ptr(),
+            nodef.data_ptr(), nslot, float(tmax), int(step_cap), int(pcap),
+            words.data_ptr(), emeta.data_ptr(), _stream(dev)))
+        emit_cuda.launches += 1
+    return words, emeta
+
+
+emit_cuda.launches = 0
+
+
+def stage_emit(scal, smeta, bscal, nodef, tmax, *, step_cap=STEP_CAP,
+               pcap=PCAP):
+    """Walk every slot: (words, emeta) with emeta lanes 0 count (past
+    pcap on overflow), 1 capped (walk cut at step_cap), 2 steps."""
+    fn = emit_cuda if _route(scal) == "cuda" else _emit_plain
+    return fn(scal, smeta, bscal, nodef, tmax, step_cap, pcap)
+
+
+# ---------------------------------------------------------------------------
+# C. exact refine
+# ---------------------------------------------------------------------------
+
+def _slot_rays(feats_t, slot_pkt, rows):
+    """feats_t rows `rows` of each slot's packet: [len(rows), nslot, PKT]."""
+    x = feats_t[rows].view(len(rows), -1, PKT)
+    return x[:, slot_pkt.to(torch.int64)]
+
+
+def _refine_plain(words, emeta, slot_pkt, feats_t, aabb8, tmax, pcap):
+    """Plain version of kernel C: _refine3_kernel (sort=False) over every
+    slot, one word position per loop step."""
+    dev = words.device
+    i32, i64 = torch.int32, torch.int64
+    nslot = words.shape[0]
+    tmax_t = torch.tensor(tmax, dtype=torch.float32, device=dev)
+    cnt = torch.clamp(emeta[:, 0], max=pcap).to(i64)
+    out = torch.zeros_like(words)
+    kept = torch.zeros(nslot, dtype=i64, device=dev)
+    live = torch.nonzero(cnt > 0).squeeze(1)
+    pow2 = (1 << torch.arange(8, device=dev)).to(i32)
+    if live.numel():
+        x = _slot_rays(feats_t, slot_pkt[live], [0, 1, 2, 6, 7, 8])
+        o, iv = x[3:6], 1.0 / x[0:3]                        # [3, k, PKT]
+        for j in range(int(cnt.max())):
+            q = torch.nonzero(cnt[live] > j).squeeze(1)     # into live
+            s = live[q]
+            w = words[s, j]
+            box = aabb8[torch.clamp((w >> W_LEAF_SHIFT) - 1, min=0).to(i64)]
+            tn = torch.zeros(q.numel(), PKT, dtype=torch.float32, device=dev)
+            tf = torch.full_like(tn, FMAX)
+            for k in range(3):
+                t0 = (box[:, k:k + 1] - o[k, q]) * iv[k, q]
+                t1 = (box[:, 3 + k:4 + k] - o[k, q]) * iv[k, q]
+                tn = torch.maximum(tn, torch.minimum(t0, t1))
+                tf = torch.minimum(tf, torch.maximum(t0, t1))
+            ok = (tf >= torch.maximum(tn, torch.zeros_like(tn))) \
+                & (tn < tmax_t)
+            kex = (ok.view(-1, 8, BLK).any(dim=2).to(i32) * pow2).sum(
+                dim=1, dtype=i32)
+            km = ((w >> W_KEEP_SHIFT) & 255) & kex
+            keep = km > 0
+            w2 = (w & ~(255 << W_KEEP_SHIFT)) | (km << W_KEEP_SHIFT)
+            out[s[keep], kept[s[keep]]] = w2[keep]
+            kept[s] += keep.to(i64)
+    emeta_out = emeta.clone()
+    emeta_out[:, 0] = kept.to(i32)
+    emeta_out[:, 4] = cnt.to(i32)
+    return out, emeta_out
+
+
+def refine_cuda(words, emeta, slot_pkt, feats_t, aabb8, tmax, pcap):
+    """Kernel C: (words', emeta'); only the first emeta'[:, 0] words of
+    a row are defined."""
+    dev = _cuda_only("refine_cuda", words)
+    chk = functools.partial(cuda_build.check_tensor, "refine_cuda",
+                            dev=dev)
+    nslot = words.shape[0]
+    chk("words", words, torch.int32, (nslot, pcap))
+    chk("emeta", emeta, torch.int32, (nslot, 8))
+    chk("slot_pkt", slot_pkt, torch.int32, (nslot,))
+    chk("feats_t", feats_t, torch.float32, (16, None))
+    chk("aabb8", aabb8, torch.float32, (None, 8))
+    if feats_t.shape[1] % PKT:
+        raise ValueError("refine_cuda: feats_t width must be whole packets")
+    out = torch.empty_like(words)
+    emeta_out = torch.empty_like(emeta)
+    if nslot:
+        cuda_build.check_launch("s3_refine", _lib("refine").rt_s3_refine(
+            words.data_ptr(), emeta.data_ptr(), slot_pkt.data_ptr(),
+            feats_t.data_ptr(), feats_t.shape[1], aabb8.data_ptr(), nslot,
+            int(pcap), float(tmax), out.data_ptr(), emeta_out.data_ptr(),
+            _stream(dev)))
+        refine_cuda.launches += 1
+    return out, emeta_out
+
+
+refine_cuda.launches = 0
+
+
+def stage_refine(words, emeta, slot_pkt, feats_t, aabb8, tmax, *,
+                 pcap=PCAP):
+    """Exact per-ray slab refine of every word list: keep bits ANDed with
+    the exact (leaf, 128-ray block) overlap, empty words dropped, order
+    kept; emeta' lane 0 kept count, lane 4 the pre-refine count."""
+    fn = refine_cuda if _route(words) == "cuda" else _refine_plain
+    return fn(words, emeta, slot_pkt, feats_t, aabb8, tmax, pcap)
+
+
+# ---------------------------------------------------------------------------
+# D. pair intersection (closest hit)
+# ---------------------------------------------------------------------------
+
+_ISECT_CHUNK = 256          # (slot, block) pairs per batched leaf product
+
+
+def _isect_plain(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
+                 stable):
+    """Plain version of kernel D: for each word position, the [BLK, 16] x
+    [16, 4T] Pluecker product of every kept (slot, block) pair, the
+    stable-frame correction, the sign test and t window, then a running
+    per-ray best with the reference's tie rule (lower t, then lower leaf
+    lane, then the earlier word)."""
+    dev = words.device
+    f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    nslot = words.shape[0]
+    nt = kleaf.shape[2] // 4
+    tmin_t = torch.tensor(tmin, dtype=f32, device=dev)
+    tmax_t = torch.tensor(tmax, dtype=f32, device=dev)
+    cnt = torch.clamp(emeta[:, 0], max=pcap).to(i64)
+    best_t = torch.full((nslot, PKT), FMAX, dtype=f32, device=dev)
+    best_lane = torch.full((nslot, PKT), nt, dtype=i64, device=dev)
+    best_prim = torch.full((nslot, PKT), -1.0, dtype=f32, device=dev)
+    best_b1 = torch.zeros(nslot, PKT, dtype=f32, device=dev)
+    best_b2 = torch.zeros(nslot, PKT, dtype=f32, device=dev)
+    xs = feats.view(-1, 8, BLK, 16)
+    lanes = torch.arange(nt, dtype=i64, device=dev)
+    in_blk = torch.arange(BLK, dtype=i64, device=dev)
+    bits = torch.arange(8, dtype=i32, device=dev)
+    for j in range(int(cnt.max()) if nslot else 0):
+        sel = torch.nonzero(cnt > j).squeeze(1)
+        w = words[sel, j]
+        kmask = (w >> W_KEEP_SHIFT) & 255
+        ps, pb = torch.nonzero((kmask[:, None] >> bits) & 1, as_tuple=True)
+        for c in range(0, ps.numel(), _ISECT_CHUNK):
+            q, b = ps[c:c + _ISECT_CHUNK], pb[c:c + _ISECT_CHUNK]
+            slot = sel[q]
+            leaf = torch.clamp((w[q] >> W_LEAF_SHIFT) - 1, min=0).to(i64)
+            x = xs[slot_pkt[slot].to(i64), b]                  # [c, BLK, 16]
+            wf = kleaf[leaf]                                   # [c, 16, 4T]
+            m = torch.bmm(x, wf)
+            if stable:
+                lo = x[:, :, 6:9] - wf[:, 12:15, 0][:, None, :]
+                dv = x[:, :, 0:3]
+                rm0 = lo[..., 1:2] * dv[..., 2:3] - lo[..., 2:3] * dv[..., 1:2]
+                rm1 = lo[..., 2:3] * dv[..., 0:1] - lo[..., 0:1] * dv[..., 2:3]
+                rm2 = lo[..., 0:1] * dv[..., 1:2] - lo[..., 1:2] * dv[..., 0:1]
+                m = (m + rm0 * wf[:, 3:4, :] + rm1 * wf[:, 4:5, :]
+                     + rm2 * wf[:, 5:6, :])
+            s0, s1, s2 = m[..., :nt], m[..., nt:2 * nt], m[..., 2 * nt:3 * nt]
+            num = m[..., 3 * nt:]
+            ssum = s0 + s1 + s2
+            i0, i1, i2 = (v.contiguous().view(i32) for v in (s0, s1, s2))
+            inside = ((i0 ^ i1) | (i1 ^ i2)) >= 0
+            rv = 1.0 / ssum                 # ssum == 0 -> inf/nan -> miss
+            t = -num * rv
+            ok = inside & (t > tmin_t) & (t < tmax_t)
+            tt = torch.where(ok, t, FMAX)                      # [c, BLK, T]
+            tw = tt.amin(dim=2)
+            lw = torch.where(tt == tw[..., None], lanes, nt).amin(dim=2)
+            g = lw[..., None]
+            prim = wf[:, 10, :nt].gather(1, lw)
+            b1 = (s2 * rv).gather(2, g).squeeze(2)
+            b2 = (s0 * rv).gather(2, g).squeeze(2)
+            rr = (b * BLK)[:, None] + in_blk                   # [c, BLK]
+            ss = slot[:, None].expand_as(rr)
+            cur_t, cur_l = best_t[ss, rr], best_lane[ss, rr]
+            imp = (tw < FMAX) & ((tw < cur_t) | ((tw == cur_t) & (lw < cur_l)))
+            best_t[ss, rr] = torch.where(imp, tw, cur_t)
+            best_lane[ss, rr] = torch.where(imp, lw, cur_l)
+            best_prim[ss, rr] = torch.where(imp, prim, best_prim[ss, rr])
+            best_b1[ss, rr] = torch.where(imp, b1, best_b1[ss, rr])
+            best_b2[ss, rr] = torch.where(imp, b2, best_b2[ss, rr])
+    return torch.stack([best_t, best_prim, best_b1, best_b2], dim=2)
+
+
+def isect_cuda(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
+               stable):
+    """Kernel D: out [nslot, PKT, 4] f32 (t, prim, b1, b2); rays with no
+    hit hold (FLT_MAX, -1, 0, 0)."""
+    dev = _cuda_only("isect_cuda", words)
+    chk = functools.partial(cuda_build.check_tensor, "isect_cuda",
+                            dev=dev)
+    nslot = words.shape[0]
+    chk("words", words, torch.int32, (nslot, pcap))
+    chk("emeta", emeta, torch.int32, (nslot, 8))
+    chk("slot_pkt", slot_pkt, torch.int32, (nslot,))
+    chk("feats", feats, torch.float32, (None, 16))
+    chk("kleaf", kleaf, torch.float32, (None, 16, 4 * T))
+    if feats.shape[0] % PKT:
+        raise ValueError("isect_cuda: feats must hold whole packets")
+    out = torch.empty(nslot, PKT, 4, dtype=torch.float32, device=dev)
+    if nslot:
+        cuda_build.check_launch("s3_isect", _lib("isect").rt_s3_isect(
+            words.data_ptr(), emeta.data_ptr(), slot_pkt.data_ptr(),
+            feats.data_ptr(), kleaf.data_ptr(), nslot, int(pcap),
+            float(tmin), float(tmax), int(bool(stable)), out.data_ptr(),
+            _stream(dev)))
+        isect_cuda.launches += 1
+    return out
+
+
+isect_cuda.launches = 0
+
+
+def stage_isect(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, *,
+                stable: bool, pcap=PCAP):
+    """Closest-hit pair intersection of every slot's word list against
+    its packet's rays (ray-major feats [Npad, 16])."""
+    fn = isect_cuda if _route(words) == "cuda" else _isect_plain
+    return fn(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
+              stable)
+
+
+KERNELS = {"transpose": transpose_cuda, "emit": emit_cuda,
+           "refine": refine_cuda, "isect": isect_cuda}
+
+
+def reset_launches() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0

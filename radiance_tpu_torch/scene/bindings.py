@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from radiance_tpu_torch import config
+from radiance_tpu_torch.core import device as rdevice
 from radiance_tpu_torch.core import types
 
 
@@ -73,13 +74,15 @@ def scene_binding_arrays(
 
 
 def resources_from_numpy(arrays: Mapping, textures: Optional[np.ndarray] = None,
-                         sampler: Sampler = Sampler(), device="cpu") -> Dict:
+                         sampler: Sampler = Sampler(),
+                         device=rdevice.DEFAULT) -> Dict:
     """The shader resource dict with its arrays as tensors on `device`.
 
     arrays: name -> numpy array, e.g. scene_binding_arrays' output or a
     JAX resource dict's arrays (np.asarray of each); non-array entries
     (camera, sampler, textures) are not read from it.
     """
+    device = rdevice.resolve(device)
     res = {k: torch.from_numpy(np.array(v)).to(device)
            for k, v in arrays.items()
            if k not in ("camera", "sampler", "textures")}
@@ -92,7 +95,8 @@ def resources_from_numpy(arrays: Mapping, textures: Optional[np.ndarray] = None,
 
 def make_scene_bindings(mesh_infos, vertices, indices, uvs, normals,
                         materials, scene_props, textures=None,
-                        sampler: Sampler = Sampler(), device="cpu") -> Dict:
+                        sampler: Sampler = Sampler(),
+                        device=rdevice.DEFAULT) -> Dict:
     """Assemble the shader resource dict (tensors on `device`)."""
     arrays = scene_binding_arrays(mesh_infos, vertices, indices, uvs,
                                   normals, materials, scene_props)

@@ -14,6 +14,7 @@ from typing import List
 import numpy as np
 
 from radiance_tpu_torch.api import accel
+from radiance_tpu_torch.core import device as rdevice
 from radiance_tpu_torch.core import types
 from radiance_tpu_torch.scene import bindings
 
@@ -27,7 +28,7 @@ class HostScene:
     resources: dict              # shader bindings (without the camera)
     tlas: accel.TopAccelStruct
 
-    def device_scene(self, device="cpu"):
+    def device_scene(self, device=rdevice.DEFAULT):
         return self.tlas.device_scene(device)
 
 
@@ -68,7 +69,7 @@ def assemble_scene(meshes, materials, scene_props: types.SceneProperties,
                    textures=None,
                    sampler: bindings.Sampler = bindings.Sampler(),
                    transforms=None, verbose: bool = False,
-                   device="cpu") -> HostScene:
+                   device=rdevice.DEFAULT) -> HostScene:
     """meshes: list of (verts, tris, normals, uvs, material_index).
 
     Concatenated attribute arrays + MeshInfo offsets like the reference
@@ -109,7 +110,7 @@ def assemble_scene(meshes, materials, scene_props: types.SceneProperties,
 
 
 def cornell_box(light_dir=(0.3, -1.0, 0.4), light_intensity=3.0,
-                verbose: bool = False, device="cpu") -> HostScene:
+                verbose: bool = False, device=rdevice.DEFAULT) -> HostScene:
     """Cornell-style box: 5 walls + 2 boxes, distinct PBR materials.
 
     The box spans x,y in [-5, 5], z in [-10, 0]; its open side faces +z.

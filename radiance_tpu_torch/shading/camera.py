@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from radiance_tpu_torch.core import device as rdevice
 from radiance_tpu_torch.core import math as rmath
 
 PI = 3.14159265359
@@ -86,8 +87,9 @@ def physical_camera_raygen(resources, pixel_index, rand_input):
     return generate_rays(resources["camera"], pixel_index, rand_input)
 
 
-def camera_params(cam, device="cpu") -> dict:
+def camera_params(cam, device=rdevice.DEFAULT) -> dict:
     """PhysicalCamera -> dict of 0-d float32 tensors on `device`."""
+    device = rdevice.resolve(device)
     fields = dict(
         width_pixel=cam.width_pixel, height_pixel=cam.height_pixel,
         focal_length=cam.focal_length, sensor_width=cam.sensor_width,

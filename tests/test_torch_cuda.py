@@ -1,4 +1,6 @@
-"""The CUDA packet-trace kernel vs its plain PyTorch version, on the card.
+"""The CUDA kernels vs their plain PyTorch versions, on the card: the
+packet-trace kernel and the stream3 pipeline's four kernels (transpose,
+emit walk, exact refine, pair intersection).
 
 Every case is marked `gpu` and skips (with the reason) where no CUDA
 card is present; the `cuda` fixture decides at run time, never at
@@ -12,7 +14,9 @@ agreement >= 0.999 on rays both hit, p99 relative |dt| <= 1e-5 where
 both agree on the prim (the kernel sums the leaf products in another
 order, with FMAs, than the plain version's matmul; near-cancelling side
 products amplify that on a few rays); any-hit variants are compared on
-occluded or not.
+occluded or not.  Stream3: the transposes are bit-exact, emit and
+refine give identical word lists (no FMA contraction in either), the
+pair intersection and the whole wave hold the traversal bars.
 """
 
 import numpy as np
@@ -26,6 +30,8 @@ from radiance_tpu_torch.core import types
 from radiance_tpu_torch.engine import shaders
 from radiance_tpu_torch.engine.pathtracer import WavefrontPathTracer
 from radiance_tpu_torch.ops import packet_trace as pk
+from radiance_tpu_torch.ops import stream3 as s3
+from radiance_tpu_torch.ops import stream3_stages as stg
 from radiance_tpu_torch.ops.intersect import FLT_MAX, intersect_triangle_soup
 from radiance_tpu_torch.scene import procedural
 from radiance_tpu_torch.shading import camera
@@ -40,6 +46,7 @@ def cuda():
                     "the GPU (CPU tensors take its plain version, tested "
                     "in test_torch_packet_trace.py)")
     pk.load_kernel()
+    stg.load_kernels()
     return torch.device("cuda")
 
 
@@ -199,3 +206,92 @@ def test_render_on_card_matches_cpu(cuda, scene):
     rmse = np.sqrt(np.mean((imgs["cpu"] - imgs["cuda"]) ** 2))
     assert rmse < 3.0, rmse
     assert imgs["cuda"].std() > 1.0
+
+
+def test_s3_transpose_bit_exact(cuda):
+    rng = np.random.default_rng(0)
+    for shape in ((5000, 3), (16, 8192), (37, 70)):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        got = stg.transpose_cuda(x.to(cuda)).cpu()
+        assert got.numpy().tobytes() == x.t().contiguous().numpy().tobytes()
+    rows = s3.rows_from_aos_fast(x[:, :3].contiguous().to(cuda),
+                                 x[:, 3:6].contiguous().to(cuda))
+    for k in range(6):
+        assert torch.equal(rows[k].cpu(), x[:, k])
+    assert stg.transpose_cuda.launches >= 5
+
+
+def _s3_stages(dev, tlas, n=8192, seed=7):
+    """A mixed-octant wave through prep on `dev`: the stage inputs."""
+    ds = tlas.device_scene(dev)
+    o, d = _rays(seed, n, 10.0)
+    rows = s3.rows_from_aos(torch.from_numpy(o).to(dev),
+                            torch.from_numpy(d).to(dev))
+    _, feats_t, scal, smeta, bscal, _ = s3._stage_prep(
+        rows, ds.knode_f, ds.inst_inv[0], stable=ds.stable_frames)
+    return ds, feats_t, scal, smeta, bscal
+
+
+def test_s3_emit_and_refine_identical_to_plain(cuda):
+    tlas = _scene(_mesh(10, 3000, 8.0))
+    ds, feats_t, scal, smeta, bscal = _s3_stages(cuda, tlas)
+    wk, ek = stg.emit_cuda(scal, smeta, bscal, ds.knode_f, 1e3, stg.STEP_CAP,
+                           stg.PCAP)
+    wp, ep = stg._emit_plain(scal, smeta, bscal, ds.knode_f, 1e3,
+                             stg.STEP_CAP, stg.PCAP)
+    assert torch.equal(ek, ep)
+    cnt = torch.clamp(ek[:, 0], max=stg.PCAP)
+    valid = torch.arange(stg.PCAP, device=cuda)[None, :] < cnt[:, None]
+    assert torch.equal(wk[valid], wp[valid]) and int(cnt.sum()) > 100
+    slot_pkt = smeta[:, 0].contiguous()
+    aabb8 = s3.leaf_aabb8(ds.knode_f, ds.kleaf.shape[0])
+    rk, rek = stg.refine_cuda(wk, ek, slot_pkt, feats_t, aabb8, 1e3,
+                              stg.PCAP)
+    rp, rep = stg._refine_plain(wp, ep, slot_pkt, feats_t, aabb8, 1e3,
+                                stg.PCAP)
+    assert torch.equal(rek, rep)
+    valid = torch.arange(stg.PCAP, device=cuda)[None, :] < rek[:, :1]
+    assert torch.equal(rk[valid], rp[valid])
+
+
+def test_s3_isect_matches_plain(cuda):
+    tlas = _scene(_mesh(10, 3000, 8.0))
+    ds, feats_t, scal, smeta, bscal = _s3_stages(cuda, tlas)
+    words, emeta = stg._emit_plain(scal, smeta, bscal, ds.knode_f, 1e3,
+                                   stg.STEP_CAP, stg.PCAP)
+    slot_pkt = smeta[:, 0].contiguous()
+    words, emeta = stg._refine_plain(
+        words, emeta, slot_pkt, feats_t,
+        s3.leaf_aabb8(ds.knode_f, ds.kleaf.shape[0]), 1e3, stg.PCAP)
+    feats = feats_t.t().contiguous()
+    args = (words, emeta, slot_pkt, feats, ds.kleaf, 1e-3, 1e3, stg.PCAP,
+            ds.stable_frames)
+    ok = stg.isect_cuda(*args)
+    op = stg._isect_plain(*args)
+    ref = pk.HitRecord(t=op[..., 0].reshape(-1), prim=op[..., 1].reshape(-1),
+                       slot=None, b1=None, b2=None)
+    got = pk.HitRecord(t=ok[..., 0].reshape(-1), prim=ok[..., 1].reshape(-1),
+                       slot=None, b1=None, b2=None)
+    assert _agree(ref, got, False).mean() > 0.02
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_s3_wave_matches_packet_kernel(cuda, masked):
+    """trace_rows_stream3 on the card (all four kernels) against the CUDA
+    packet kernel: two exact tracers on the same rays."""
+    tlas = _scene(_mesh(11, 4000, 8.0))
+    ds = tlas.device_scene(cuda)
+    o, d = _rays(3, 20000, 10.0)
+    o_t, d_t = torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda)
+    live = (torch.from_numpy(np.random.default_rng(4).uniform(size=20000)
+                             < 0.5).to(cuda) if masked else None)
+    stg.reset_launches()
+    got = s3.trace_rows_stream3(ds, s3.rows_from_aos_fast(o_t, d_t), 1e-3,
+                                1e3, live=live)
+    ref = pk.trace_rays_packet(ds, o_t, d_t, 1e-3, 1e3, live=live)
+    torch.cuda.synchronize()
+    assert all(fn.launches >= 1 for fn in stg.KERNELS.values())
+    hit = _agree(ref, got, False)
+    assert hit.mean() > 0.05
+    if masked:
+        assert not hit[~live.cpu().numpy()].any()

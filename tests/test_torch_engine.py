@@ -1,12 +1,13 @@
 """The whole slice: radiance_tpu_torch's render vs radiance_tpu's.
 
 The port's WavefrontPathTracer.render (on CPU tensors: the plain
-version of the packet kernel on every route) against the JAX engine's
-staged scheduler (RADIANCE_ENGINE_STAGED=1) at the same seeds, batch=2,
-depth 1 and 2.  Here the Cornell box at 32x32 (7 instances: per-instance
-sweeps); test_torch_engine_city.py runs a 20k-triangle cut of the
-bench's city (single instance: live-masked primary, argsorted bounces)
-at 64x64 with the same check.  Each package builds its own scene from
+versions of the packet kernel and of the stream3 kernels) against the
+JAX engine's staged scheduler (RADIANCE_ENGINE_STAGED=1) at the same
+seeds, batch=2, depth 1 and 2.  Here the Cornell box at 32x32 (7
+instances: per-instance sweeps); test_torch_engine_city.py runs a
+20k-triangle cut of the bench's city (single instance: the port's
+primary wave through stream3, its shadows live-masked, argsorted
+bounces) at 64x64 with the same check.  Each package builds its own scene from
 the same geometry.  The bar is the golden tests' (tests/test_golden.py
 :384, :396): u8 RMSE < 2.0 at depth 1 and < 3.0 at depth 2.
 """
@@ -75,10 +76,10 @@ def _cornell(w, h):
     jhost = jproc.cornell_box()
     jres = dict(jhost.resources)
     jres["camera"] = jcam.camera_params(jtypes.PhysicalCamera(**cam))
-    thost = tproc.cornell_box()
+    thost = tproc.cornell_box(device="cpu")
     tres = dict(thost.resources)
-    tres["camera"] = tcam.camera_params(ttypes.PhysicalCamera(**cam))
-    return (jhost.device_scene(), jres), (thost.device_scene(), tres)
+    tres["camera"] = tcam.camera_params(ttypes.PhysicalCamera(**cam), "cpu")
+    return (jhost.device_scene(), jres), (thost.device_scene("cpu"), tres)
 
 
 def _city(w, h):
@@ -92,18 +93,21 @@ def _city(w, h):
     uvs = np.zeros_like(verts)
     cam = _camera(w, h, 140.0, 80.0)
     out = []
-    for accel, types, bind, camera in ((jaccel, jtypes, jbind, jcam),
-                                       (taccel, ttypes, tbind, tcam)):
+    # the JAX package places arrays itself; the port is asked for the CPU
+    for accel, types, bind, camera, dev in (
+            (jaccel, jtypes, jbind, jcam, {}),
+            (taccel, ttypes, tbind, tcam, {"device": "cpu"})):
         blas = accel.BuildBottomAccelStruct(types.Mesh(verts, tris))
         inst = types.Instance(np.eye(4, dtype=np.float32), 0, 0, blas)
-        ds = accel.BuildTopAccelStruct([inst]).device_scene()
+        ds = accel.BuildTopAccelStruct([inst]).device_scene(**dev)
         mats = [types.Material(albedo=(0.7, 0.7, 0.7, 1.0), roughness=0.6)]
         props = types.SceneProperties(lights=[types.DirLight(
             direction=(0.26726124, 0.8017837, 0.5345225, 0.0),
             color=(3.0, 3.0, 3.0, 1.0))])
         res = bind.make_scene_bindings([types.MeshInfo()], verts, tris, uvs,
-                                       normals, mats, props)
-        res["camera"] = camera.camera_params(types.PhysicalCamera(**cam))
+                                       normals, mats, props, **dev)
+        res["camera"] = camera.camera_params(types.PhysicalCamera(**cam),
+                                             **dev)
         out.append((ds, res))
     return out
 

@@ -1,7 +1,7 @@
 """The whole slice on a single-instance scene: radiance_tpu_torch's
 render vs radiance_tpu's on a 20k-triangle cut of the bench's city at
-64x64, batch=2, depth 1 and 2 (live-masked primary wave, argsorted
-bounce waves).  The check and its bars are test_torch_engine.py's; the
+64x64, batch=2, depth 1 and 2 (the port's primary wave through stream3,
+live-masked primary shadows, argsorted bounce waves).  The check and its bars are test_torch_engine.py's; the
 city cases live in their own file so each file stays short under the
 parallel test runner.
 """

@@ -244,7 +244,7 @@ def test_far_grazing_scene_vs_soup():
     from radiance_tpu_torch.core import types as ttypes
     blas = taccel.BuildBottomAccelStruct(ttypes.Mesh(verts, mesh.triangles))
     ts = taccel.BuildTopAccelStruct([ttypes.Instance(
-        np.eye(4, dtype=np.float32), 0, 0, blas)]).device_scene()
+        np.eye(4, dtype=np.float32), 0, 0, blas)]).device_scene("cpu")
     rng = np.random.default_rng(7)
     n = 1024
     o = np.tile((offset + [0, 0, 60.0]).astype(np.float32), (n, 1))

@@ -55,7 +55,7 @@ def test_camera_rays(f_stop):
                     pix.astype(np.uint32)], -1)
     jo, jd = jcam.generate_rays(jcam.camera_params(cam), jnp.asarray(pix),
                                 jnp.asarray(rnd))
-    to, td = tcam.generate_rays(tcam.camera_params(cam),
+    to, td = tcam.generate_rays(tcam.camera_params(cam, "cpu"),
                                 torch.from_numpy(pix.astype(np.int64)),
                                 torch.from_numpy(rnd.astype(np.int64)))
     _close(to, jo)
@@ -214,7 +214,7 @@ def test_material_shader_matches_jax(debug):
         next_factor=jnp.ones((n, 3)), next_origin=jnp.asarray(zeros),
         next_dir=jnp.asarray(zeros)))
 
-    tres = tproc.cornell_box().resources
+    tres = tproc.cornell_box(device="cpu").resources
     tc = tctx.ShadeContext(
         **{k: torch.from_numpy(v) for k, v in inp.items()},
         frame_id=3, depth=1, resources=tres, debug=debug,

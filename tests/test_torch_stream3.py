@@ -1,0 +1,280 @@
+"""radiance_tpu_torch's stream3 pipeline vs radiance_tpu's, stage by stage.
+
+The port's plain PyTorch versions of the four kernels (the CPU route of
+radiance_tpu_torch.ops.stream3_stages) and its prep, glue and entry
+points against the JAX module (ops/stream3.py) with its Pallas kernels in
+interpret mode.  Each package builds its own scene from the same mesh
+(the tables are bit-identical, tests/test_torch_tables.py); rays are made
+from a seed with numpy.
+
+Bars, per stage:
+  * transposes, prep (rows, feats_t, scal, smeta, bscal, slot order):
+    exact -- the same f32 formulas in the same order;
+  * emit: emeta lanes 0-1 and the first min(count, PCAP) words of every
+    row identical (products, differences and comparisons only);
+  * refine: kept counts, pre-refine counts and kept words identical;
+  * isect on the refined lists, per ray both hit: t rtol 1e-5 atol 1e-6,
+    prim equal on >= 0.999 -- the leaf product's 16 terms are summed in
+    another order (torch.bmm vs the interpret-mode dot), which can flip a
+    near-tie between two triangles;
+  * end to end: tests/test_torch_stream3_e2e.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+import jax
+
+from radiance_tpu.api import accel as jaccel
+from radiance_tpu.core import types as jtypes
+from radiance_tpu.ops import stream3 as js3
+from radiance_tpu.ops.intersect import FLT_MAX
+
+from radiance_tpu_torch.api import accel as taccel
+from radiance_tpu_torch.core import types as ttypes
+from radiance_tpu_torch.ops import stream3 as ts3
+from radiance_tpu_torch.ops import stream3_stages as stg
+
+from test_bvh import random_mesh
+from test_traversal import gen_rays
+
+TMIN, TMAX = 1e-3, 1e3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Plain versions run many small ops; one intra-op thread avoids
+    contention with the parallel test runner's other processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def scene_pair(mesh):
+    """(JAX DeviceScene, port DeviceScene on the CPU) of one mesh, each
+    built through its own package's accel path."""
+    out = []
+    for accel, types, kw in ((jaccel, jtypes, {}),
+                             (taccel, ttypes, {"device": "cpu"})):
+        blas = accel.BuildBottomAccelStruct(types.Mesh(mesh.vertices,
+                                                       mesh.triangles))
+        inst = types.Instance(np.eye(4, dtype=np.float32), 0, 0, blas)
+        out.append(accel.BuildTopAccelStruct([inst]).device_scene(**kw))
+    return tuple(out)
+
+
+def soup_pair(n_tris, seed):
+    return scene_pair(random_mesh(np.random.default_rng(seed), n_tris,
+                                  spread=5.0))
+
+
+def mini_city_pair():
+    """tests/test_stream3.py:1066-1082's clustered mini city."""
+    rng = np.random.default_rng(7)
+    centers = rng.uniform(-20, 20, size=(64, 3)).astype(np.float32)
+    local = rng.uniform(-1.5, 1.5, size=(64, 60, 3)).astype(np.float32)
+    offs = rng.normal(scale=0.08, size=(64, 60, 3, 3)).astype(np.float32)
+    verts = ((centers[:, None, :] + local)[:, :, None, :]
+             + offs).reshape(-1, 3)
+    return scene_pair(jtypes.Mesh(
+        verts, np.arange(len(verts), dtype=np.uint32).reshape(-1, 3)))
+
+
+def camera_wave(n, w, z):
+    ij = np.arange(n)
+    xs = (ij % w) / w - 0.5
+    ys = (ij // w) / (n / w) - 0.5
+    o = np.tile([[0.0, 0.0, z]], (n, 1)).astype(np.float32)
+    d = np.stack([xs * 1.2, ys * 0.7, np.full(n, -1.0)], -1).astype(
+        np.float32)
+    return o, d / np.linalg.norm(d, axis=-1, keepdims=True)
+
+
+def jrows(o, d):
+    return js3.rows_from_aos(jnp.asarray(o), jnp.asarray(d))
+
+
+def trows(o, d):
+    return ts3.rows_from_aos(torch.from_numpy(o), torch.from_numpy(d))
+
+
+def hold(ref_t, ref_prim, got_t, got_prim):
+    """The end-to-end and isect bars; returns the hit mask."""
+    ref_t, got_t = np.asarray(ref_t), np.asarray(got_t)
+    hr, hg = ref_t < FLT_MAX, got_t < FLT_MAX
+    assert (hr == hg).mean() >= 0.999
+    both = hr & hg
+    assert both.any()
+    assert (np.asarray(ref_prim)[both]
+            == np.asarray(got_prim)[both]).mean() >= 0.999
+    np.testing.assert_allclose(got_t[both], ref_t[both], rtol=1e-5,
+                               atol=1e-6)
+    return hg
+
+
+# ------------------------------------------------------------- transposes
+
+def test_transposes_match_pallas_bit_exact():
+    n = 2 * js3.PKT
+    rng = np.random.default_rng(0)
+    o = rng.standard_normal((n, 3)).astype(np.float32)
+    d = rng.standard_normal((n, 3)).astype(np.float32)
+    spec = pl.BlockSpec((js3.PKT, 3), lambda i: (i, 0),
+                        memory_space=pltpu.VMEM)
+    ref = pl.pallas_call(
+        js3._aos2rows_kernel, grid=(n // js3.PKT,), in_specs=[spec] * 2,
+        out_specs=pl.BlockSpec((8, js3.PKT), lambda i: (0, i),
+                               memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((8, n), jnp.float32),
+        interpret=True)(jnp.asarray(o), jnp.asarray(d))
+    got = ts3.rows_from_aos_fast(torch.from_numpy(o), torch.from_numpy(d))
+    for k in range(6):
+        assert got[k].numpy().tobytes() == np.asarray(ref[k]).tobytes()
+
+    x = rng.standard_normal((16, n)).astype(np.float32)
+    ref = pl.pallas_call(
+        js3._transpose_kernel, grid=(n // js3.PKT,),
+        in_specs=[pl.BlockSpec((16, js3.PKT), lambda i: (0, i),
+                               memory_space=pltpu.VMEM)],
+        out_specs=pl.BlockSpec((js3.PKT, 16), lambda i: (i, 0),
+                               memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((n, 16), jnp.float32),
+        interpret=True)(jnp.asarray(x))
+    got = ts3.feats_rows_to_major(torch.from_numpy(x))
+    assert got.numpy().tobytes() == np.asarray(ref).tobytes()
+
+
+# ------------------------------------------------------------------ prep
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_stage_prep_matches_jax(masked):
+    """A 2-packet wave whose packets mix direction octants: the pure /
+    sub-slot / conservative slot tables, exact."""
+    jds, tds = soup_pair(300, 10)
+    o, d = gen_rays(np.random.default_rng(4), 2 * js3.PKT, spread=8.0)
+    o[:js3.PKT // 2] = [0.0, 0.0, 12.0]           # half a pure packet
+    d[:js3.PKT // 2] = [0.0, 0.0, -1.0]
+    live = np.random.default_rng(5).uniform(size=len(o)) < 0.5 \
+        if masked else None
+    ref = js3._stage_prep(jrows(o, d), TMIN, TMAX, jds.knode_f,
+                          jds.inst_inv[0],
+                          live=None if live is None else jnp.asarray(live),
+                          stable=jds.stable_frames)
+    got = ts3._stage_prep(trows(o, d), tds.knode_f, tds.inst_inv[0],
+                          live=None if live is None
+                          else torch.from_numpy(live),
+                          stable=tds.stable_frames)
+    rows_r, feats_r, scal_r, smeta_r, bscal_r, _, order_r = ref
+    rows_g, feats_g, scal_g, smeta_g, bscal_g, order_g = got
+    for a, b in zip(rows_r, rows_g):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    for a, b in ((feats_r, feats_g), (scal_r, scal_g), (smeta_r, smeta_g),
+                 (bscal_r, bscal_g), (order_r, order_g)):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    assert (smeta_g[:, 1] > 0).sum() > 2          # sub-slots were made
+
+
+# ------------------------------------------------ emit, refine, isect
+
+@pytest.fixture(scope="module")
+def staged():
+    """One G*PKT = 8192-ray mixed-octant wave through the JAX stages
+    (interpret mode) and the port's plain versions, each stage fed the
+    JAX stage's output so that each comparison is of one stage."""
+    jds, tds = soup_pair(1200, 21)
+    o, d = gen_rays(np.random.default_rng(7), js3.G * js3.PKT, spread=8.0)
+    _, feats_t, scal, smeta, bscal, lim, _ = js3._stage_prep(
+        jrows(o, d), TMIN, TMAX, jds.knode_f, jds.inst_inv[0],
+        stable=jds.stable_frames)
+    words, emeta = js3._stage_emit(lim, scal, smeta, bscal, jds.knode_f,
+                                   interpret=True, treelet=False)
+    slot_pkt = smeta[:, 0]
+    _, aabb = js3.leaf_tables(jds.knode_f, jds.kleaf.shape[0])
+    nl = aabb.shape[0]
+    aabb8 = jnp.zeros((((nl + 7) // 8) * 8, 8), jnp.float32).at[
+        :nl, :6].set(aabb)
+    words_i, emeta_i = js3._stage_refine_exact(
+        words, emeta, slot_pkt, feats_t, aabb8, lim, interpret=True)
+    out = js3._stage_isect(words_i, emeta_i, slot_pkt, feats_t.T, lim,
+                           jds.kleaf, precision="f32", interpret=True,
+                           orient="major", stable=jds.stable_frames)
+    j = {k: np.asarray(v) for k, v in dict(
+        feats_t=feats_t, scal=scal, smeta=smeta, bscal=bscal, words=words,
+        emeta=emeta, aabb8=aabb8, words_i=words_i, emeta_i=emeta_i,
+        out=out).items()}
+    t = {k: torch.from_numpy(v.copy()) for k, v in j.items()}
+    return jds, tds, j, t
+
+
+def test_stage_emit_matches_jax(staged):
+    _, tds, j, t = staged
+    words, emeta = stg.stage_emit(t["scal"], t["smeta"], t["bscal"],
+                                  tds.knode_f, TMAX)
+    words, emeta = words.numpy(), emeta.numpy()
+    np.testing.assert_array_equal(emeta[:, :2], j["emeta"][:, :2])
+    cnt = np.minimum(emeta[:, 0], stg.PCAP)
+    for s in np.nonzero(cnt)[0]:
+        np.testing.assert_array_equal(words[s, :cnt[s]],
+                                      j["words"][s, :cnt[s]])
+    assert cnt.sum() > 100 and (j["smeta"][:, 1] > 0).sum() > 16
+    # the port counts each slot's own steps; the TPU stamps its group's
+    alive = j["smeta"][:, 1] > 0
+    assert (emeta[alive, 2] > 0).all() and (emeta[~alive, 2] == 0).all()
+    assert (emeta[:, 2].reshape(-1, js3.G).max(1)
+            == j["emeta"][::js3.G, 2]).all()
+
+
+def test_stage_refine_matches_jax(staged):
+    _, _, j, t = staged
+    words, emeta = stg.stage_refine(t["words"], t["emeta"],
+                                    t["smeta"][:, 0].contiguous(),
+                                    t["feats_t"], t["aabb8"], TMAX)
+    words, emeta = words.numpy(), emeta.numpy()
+    np.testing.assert_array_equal(emeta[:, 0], j["emeta_i"][:, 0])
+    np.testing.assert_array_equal(emeta[:, 4], j["emeta_i"][:, 4])
+    for s in np.nonzero(emeta[:, 0])[0]:
+        np.testing.assert_array_equal(words[s, :emeta[s, 0]],
+                                      j["words_i"][s, :emeta[s, 0]])
+    assert emeta[:, 0].sum() > 100                # the case is not vacuous
+
+
+def test_stage_isect_matches_jax(staged):
+    _, tds, j, t = staged
+    feats = stg.feats_rows_to_major(t["feats_t"])
+    out = stg.stage_isect(t["words_i"], t["emeta_i"],
+                          t["smeta"][:, 0].contiguous(), feats, tds.kleaf,
+                          TMIN, TMAX, stable=tds.stable_frames).numpy()
+    ref = j["out"]
+    hit = hold(ref[..., 0].ravel(), ref[..., 1].ravel(),
+               out[..., 0].ravel(), out[..., 1].ravel())
+    assert hit.mean() > 0.02
+    miss = ~hit
+    assert (out[..., 1].ravel()[miss] == -1).all()
+    same = hit & (ref[..., 1].ravel() == out[..., 1].ravel())
+    for lane in (2, 3):
+        np.testing.assert_allclose(out[..., lane].ravel()[same],
+                                   ref[..., lane].ravel()[same], atol=1e-4)
+
+
+def test_leaf_tables_match_jax():
+    jds, tds = soup_pair(500, 6)
+    ref = js3.leaf_tables(jds.knode_f, jds.kleaf.shape[0])
+    got = ts3.leaf_tables(tds.knode_f, tds.kleaf.shape[0])
+    for a, b in zip(ref, got):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    assert ts3.supports(tds) and js3.supports(jds)
+
+
+def test_wrappers_refuse_cpu_tensors():
+    """The kernel wrappers never run on CPU tensors: the stages route
+    those to the plain versions."""
+    x = torch.zeros(4, 16)
+    with pytest.raises(ValueError):
+        stg.transpose_cuda(x)
+    with pytest.raises(ValueError):
+        stg.emit_cuda(x, x.int(), x, x, TMAX, 4, 8)

@@ -79,7 +79,7 @@ def test_single_instance_tables_bit_identical(monkeypatch, scene, stable):
     jt, tt = _build_pair(meshes)
     assert jt.blob == tt.blob
     jds = jt.device_scene()
-    tds = tt.device_scene(stable_frames=stable)
+    tds = tt.device_scene("cpu", stable_frames=stable)
     assert tds.knode_f is not None and tds.stable_frames == stable
     _assert_same(jds, tds)
 
@@ -88,7 +88,8 @@ def test_single_instance_tables_bit_identical(monkeypatch, scene, stable):
 def test_cornell_tables_bit_identical(monkeypatch, stable):
     monkeypatch.setenv("RADIANCE_STABLE_FRAMES", "1" if stable else "0")
     jds = jproc.cornell_box().device_scene()
-    tds = tproc.cornell_box().tlas.device_scene(stable_frames=stable)
+    tds = tproc.cornell_box(device="cpu").tlas.device_scene(
+        "cpu", stable_frames=stable)
     assert tds.knode_f is None and len(tds.kblas) == 7
     _assert_same(jds, tds)
 
@@ -104,7 +105,7 @@ def test_scene_from_numpy_round_trip():
     arrays["inst_kblas"] = jds.inst_kblas
     tds = tdevice.scene_from_numpy(arrays, jds.stable_frames, "cpu")
     _assert_same(jds, tds)
-    own = tproc.cornell_box().device_scene()
+    own = tproc.cornell_box(device="cpu").device_scene("cpu")
     _assert_same(jds, own)
 
 
