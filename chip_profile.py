@@ -3,22 +3,29 @@
 
 Run from the repository root on a machine with one NVIDIA Hopper card:
 
-    python3 chip_profile.py
+    python3 chip_profile.py            # the city, batch 4, depth 4
+    python3 chip_profile.py --multi    # bench.py --multi's 64 instances
 
 It renders the city scene (bench.scene_geometry("city"), 1M triangles)
 with WavefrontPathTracer.render at 1920x1080, batch=4, depth=4, as
-chip_smoke.py's main path does, and prints:
+chip_smoke.py's main path does -- or, with --multi, the 64-instance,
+1M-triangle scene of chip_smoke.multi64_scene at 1920x1080, batch=1,
+depth=2, every wave through the instance scan (ops/stream3_multi) --
+and prints:
   * the card's name and power limit;
   * the host-clock ms of two warm frames;
   * by layer (CUDA events in one frame): the traced wavefronts (stream3
-    primary waves; coherence sort, packet kernel, epilogue, un-permute;
-    every outermost call of _traced_wavefront or _trace_dispatch) against
-    the rest of the frame (shading and accumulation);
-  * the stream3 primary waves by stage (CUDA events in one more frame,
-    summed over its primary waves): rows transpose, prep, emit, refine,
-    features transpose, isect, glue, residual; and the diagnostics of
-    one such wave (words, kept words, steps, capped slots, flagged
-    packets, rays re-walked);
+    primary waves or instance scans; coherence sort, packet kernel,
+    epilogue, un-permute; every outermost call of _traced_wavefront or
+    _trace_dispatch) against the rest of the frame (shading and
+    accumulation);
+  * the stream3 pipelines by stage (CUDA events in one more frame,
+    summed over its pipeline runs): rows transpose, prep, emit, refine,
+    features transpose, isect, glue, and (city) the residual; and the
+    diagnostics of one primary wave (city: words, kept words, steps,
+    capped slots, flagged packets, rays re-walked; --multi: instances
+    run, overlapping (block, instance) pairs, flagged sub-wave packets,
+    poisoned rays);
   * by kernel kind (torch.profiler over one more frame): device ms per
     kind, the device's busy ms (union of its kernel and copy intervals)
     and its idle share of the profiled frame's host-clock time;
@@ -39,12 +46,16 @@ import torch
 
 import chip_smoke
 
-W, H, BATCH, DEPTH = chip_smoke.W, chip_smoke.H, 4, 4
+MULTI = "--multi" in sys.argv[1:]
+W, H = chip_smoke.W, chip_smoke.H
+BATCH, DEPTH = (1, 2) if MULTI else (4, 4)
 KINDS = (  # (kind, substrings of a kernel's name), first match wins
     ("packet_trace", ("packet_trace",)),
     ("stream3_emit", ("emit_kernel",)),
     ("stream3_refine", ("refine_kernel",)),
+    ("stream3_isect_occl", ("isect_occl_kernel",)),
     ("stream3_isect", ("isect_kernel",)),
+    ("stream3_oscal", ("oscal_kernel",)),
     ("stream3_transpose", ("transpose_kernel",)),
     ("sort", ("sort", "Radix", "radix")),
     ("copy/cat", ("Cat", "copy", "Memcpy", "Memset")),
@@ -124,18 +135,21 @@ def main() -> int:
     from radiance_tpu_torch.api import accel
     from radiance_tpu_torch.core import types
     from radiance_tpu_torch.engine import pathtracer
-    from radiance_tpu_torch.ops import stream3
+    from radiance_tpu_torch.ops import stream3, stream3_multi
     from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda")
     card = chip_smoke.card_line()
     print(card, flush=True)
-    verts, tris = bench.scene_geometry("city")
-    tlas = accel.BuildTopAccelStruct([types.Instance(
-        np.eye(4, dtype=np.float32), 0, 0,
-        accel.BuildBottomAccelStruct(types.Mesh(verts, tris)))])
-    scene = tlas.device_scene(dev)
-    res = chip_smoke.city_resources(dev, verts, tris, W, H)
+    if MULTI:
+        scene, res = chip_smoke.multi64_scene(dev, W, H)
+    else:
+        verts, tris = bench.scene_geometry("city")
+        tlas = accel.BuildTopAccelStruct([types.Instance(
+            np.eye(4, dtype=np.float32), 0, 0,
+            accel.BuildBottomAccelStruct(types.Mesh(verts, tris)))])
+        scene = tlas.device_scene(dev)
+        res = chip_smoke.city_resources(dev, verts, tris, W, H)
     tracer = chip_smoke.make_tracer()
     state = dict(accum=torch.zeros(W * H, 3, device=dev), ts=0)
 
@@ -158,17 +172,26 @@ def main() -> int:
           f"{n_traces} traced wavefronts {trace_ms:.3f} ms, shading and "
           f"accumulation {frame_ms - trace_ms:.3f} ms", flush=True)
     _, stage_ms = chip_smoke.stage_spans(stream3, frame)
+    if MULTI:       # no trace_rows_stream3 around the instance scan's runs
+        del stage_ms["trace_rows_stream3"], stage_ms["residual"]
     stage_ms = {k: round(v, 3) for k, v in stage_ms.items()}
-    print(f"stream3 primary waves by stage (CUDA events, one frame): "
+    print(f"stream3 pipelines by stage (CUDA events, one frame): "
           f"{json.dumps(stage_ms)}", flush=True)
     pix = torch.arange(W * H, device=dev)
     _, _, alive, o, d = pathtracer._sample_init(tracer, res, pix, 0, 0)
-    _, diag = stream3.trace_rows_stream3(
-        scene, stream3.rows_from_aos_fast(o, d), tracer.tmin, tracer.tmax,
-        live=alive, with_diag=True)
-    primary_diag = {k: int(diag[k]) for k in (
-        "words", "kept_words", "steps", "capped", "flagged",
-        "residual_rays")}
+    if MULTI:
+        _, diag = stream3_multi.trace_rows_multi(
+            scene, stream3_multi.multi_tables(scene),
+            stream3.rows_from_aos(o, d), tracer.tmin, tracer.tmax,
+            with_diag=True)
+        primary_diag = dict(diag)
+    else:
+        _, diag = stream3.trace_rows_stream3(
+            scene, stream3.rows_from_aos_fast(o, d), tracer.tmin,
+            tracer.tmax, live=alive, with_diag=True)
+        primary_diag = {k: int(diag[k]) for k in (
+            "words", "kept_words", "steps", "capped", "flagged",
+            "residual_rays")}
     print(f"one engine primary wave (pixel order): "
           f"{json.dumps(primary_diag)}", flush=True)
 
@@ -199,10 +222,11 @@ def main() -> int:
                                   key=lambda kv: -kv[1][0])[:30]:
         print(f"  {us / 1e3:10.3f} ms {cnt:6d}  {name[:110]}")
     out = dict(
-        card=card, width=W, height=H, batch=BATCH, depth=DEPTH,
+        card=card, scene="multi64" if MULTI else "city", width=W, height=H,
+        batch=BATCH, depth=DEPTH,
         warm_frame_ms=warm_ms, event_frame_ms=frame_ms,
         traced_wavefront_ms=trace_ms, n_traced_wavefronts=n_traces,
-        stream3_stage_ms=stage_ms, stream3_primary_diag=primary_diag,
+        stream3_stage_ms=stage_ms, primary_diag=primary_diag,
         profiled_frame_ms=wall_ms, device_busy_ms=busy_ms,
         idle_share=1 - busy_ms / wall_ms,
         device_ms_by_kind={k: v / 1e3 for k, v in

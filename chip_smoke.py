@@ -8,10 +8,11 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
 Phases (each raises on failure; the script then exits non-zero and
 prints no result):
   1. device and toolchain: the card's name and power limit, CUDA, nvcc;
-  2. build the five kernel sources (csrc/packet_trace.cu and the stream3
-     pipeline's s3_transpose.cu, s3_emit.cu, s3_refine.cu, s3_isect.cu)
-     with nvcc for sm_90a, one nvcc each, all started together; print
-     their registers/spills and the build seconds;
+  2. build the seven kernel sources (csrc/packet_trace.cu and the stream3
+     pipeline's s3_transpose.cu, s3_emit.cu, s3_refine.cu, s3_isect.cu,
+     s3_isect_occl.cu, s3_oscal.cu) with nvcc for sm_90a, one nvcc each,
+     all started together; print their registers/spills and the build
+     seconds;
   3. kernel vs its plain PyTorch version on the card, every variant, on
      64k-ray probes of the bench's three waves (primary, mirror bounce,
      shadow) and of a scattered wave over the 1M-triangle city, the
@@ -24,16 +25,30 @@ prints no result):
      and the kernel's output held to the plain version's ray by ray; the
      plain version's walk counts give each variant's bound;
   5. stream3 on the city's 1920x1080 primary wave (2,073,600 rays): each
-     of its four kernels against its plain version on the card at the
-     wave's shapes (transposes bit-exact, emit and refine word lists
-     identical, pair intersection per ray to the parity bars), each
-     timed; the whole wave against the packet kernel (two exact
-     tracers, the same bars), its stage times and diagnostics;
+     of its four closest-hit kernels against its plain version on the
+     card at the wave's shapes (transposes bit-exact, emit and refine
+     word lists identical, pair intersection per ray to the parity
+     bars), each timed; the whole wave against the packet kernel (two
+     exact tracers, the same bars), its stage times and diagnostics;
   6. the main path: WavefrontPathTracer.render on the city at 1920x1080,
      batch=4, depth=4 (primary waves through stream3), then sample1's
      Cornell box at 512x512, batch=16, depth=4, with launch counts reset
      just before and read just after;
-  7. the kernels' JSON line, the card line, and the contract's last line.
+  7. the many-instance stream path: kernel F (prep octant scalars) on the
+     city's 1080p primary rows, masked and unmasked, equal to its plain
+     version value for value, and the whole prep timed with F and with
+     the plain form; kernel E (occlusion pairs) on the city's 1080p
+     shadow wave against its plain version, and that wave through
+     trace_rows_stream3(occl=True) against the packet kernel's any-hit;
+     the 64-instance, 1M-triangle scene of bench.py --multi (built here
+     with the port's accel) traced on the bench's tile-ordered 1080p
+     primary rays through trace_rows_multi against the packet kernel's
+     per-instance sweeps, then its shadow wave as occlusion, both timed,
+     E and F per launch and held against their plain versions on the
+     largest launch of each wave; then an engine frame on that scene at
+     1920x1080, batch=1, depth=2 (depth cut for time, not the width),
+     with launch counts reset just before and read just after;
+  8. the kernels' JSON line, the card line, and the contract's last line.
 
 Imports nothing of JAX or radiance_tpu (bench.py's numpy-only scene
 helpers are reused).  Needs one CUDA card; exits 2 without one.
@@ -76,7 +91,12 @@ S3_KERNELS = {   # stage key -> (JSON name, source, TPU kernels replaced)
                ["radiance_tpu/ops/stream3.py:1635"]),
     "isect": ("stream3_isect", S3_SRC + "s3_isect.cu",
               ["radiance_tpu/ops/stream3.py:1853"]),
+    "isect_occl": ("stream3_isect_occl", S3_SRC + "s3_isect_occl.cu",
+                   ["radiance_tpu/ops/stream3.py:2100"]),
+    "oscal": ("stream3_oscal", S3_SRC + "s3_oscal.cu",
+              ["radiance_tpu/ops/stream3.py:294"]),
 }
+MULTI_TRIS = 1_000_000        # bench.py --multi: 8 BLASes x 8 instances
 # the card's peaks (H100 SXM datasheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -277,6 +297,27 @@ def hold_prims(name, t_k, prim_k, t_p, prim_p):
     return res
 
 
+def hold_occluded(name, occ_k, occ_p, live, need_occluded=True):
+    """Occluded-or-not of two tracers on the live rays only (dead lanes
+    miss on both sides and would dilute the bar): agreement over the live
+    rays, and over the rays that either side calls occluded, each to
+    BARS["hit"]; with need_occluded, some ray must be occluded.  Returns
+    the result dict."""
+    k, p = occ_k[live], occ_p[live]
+    dis = int((k != p).sum())
+    either = int((k | p).sum())
+    res = dict(name=name, live=int(k.numel()), occluded=int(p.sum()),
+               disagree=dis, live_agree=1.0 - dis / max(k.numel(), 1),
+               occluded_agree=1.0 - dis / max(either, 1))
+    res["ok"] = bool(res["live_agree"] >= BARS["hit"]
+                     and res["occluded_agree"] >= BARS["hit"]
+                     and (res["occluded"] > 0 or not need_occluded))
+    log("  ", json.dumps(res))
+    if not res["ok"]:
+        raise AssertionError(f"{name} disagrees: {res}")
+    return res
+
+
 def first_word_diff(wk, wp, cnt):
     """(slot, word index, leaf) of the first differing valid word."""
     valid = torch.arange(wk.shape[1], device=wk.device)[None, :] \
@@ -289,15 +330,14 @@ def first_word_diff(wk, wp, cnt):
                 leaf=(int(wp[s, j]) >> 17) - 1)
 
 
-def stage_spans(s3, fn):
-    """Run fn() with CUDA events around the stream3 module's stages;
-    returns (fn's result, {stage: summed ms}).  "residual" is the
-    trace_rows_stream3 time outside _run (flagged re-walk, masking)."""
-    names = ("_stage_prep", "stage_emit", "stage_refine",
-             "feats_rows_to_major", "stage_isect", "_stage_glue", "_run",
-             "trace_rows_stream3", "rows_from_aos_fast")
+def call_spans(mod, names, fn, keep=None):
+    """Run fn() with CUDA events around each call of the functions `names`
+    of module `mod`.  Returns (fn's result, {name: [ms of each call]},
+    {name: args of its largest call}) where keep maps a name to the size
+    function of its arguments that picks that call."""
     spans = {n: [] for n in names}
-    orig = {n: getattr(s3, n) for n in names}
+    kept = {}
+    orig = {n: getattr(mod, n) for n in names}
 
     def timed(n, f):
         def wrapper(*a, **k):
@@ -307,20 +347,49 @@ def stage_spans(s3, fn):
             out = f(*a, **k)
             ev[1].record()
             spans[n].append(ev)
+            if keep and n in keep:
+                size = keep[n](*a)
+                if n not in kept or size > kept[n][0]:
+                    kept[n] = (size, a)
             return out
         return wrapper
 
     for n in names:
-        setattr(s3, n, timed(n, orig[n]))
+        if hasattr(orig[n], "launches"):
+            raise ValueError(f"{n} is a counted kernel wrapper: time its "
+                             f"call site instead")
+        setattr(mod, n, timed(n, orig[n]))
     try:
         out = fn()
         torch.cuda.synchronize()
     finally:
         for n in names:
-            setattr(s3, n, orig[n])
-    ms = {n: sum(a.elapsed_time(b) for a, b in v) for n, v in spans.items()}
+            setattr(mod, n, orig[n])
+    ms = {n: [a.elapsed_time(b) for a, b in v] for n, v in spans.items()}
+    return out, ms, {n: v[1] for n, v in kept.items()}
+
+
+def stage_spans(s3, fn):
+    """Run fn() with CUDA events around the stream3 module's stages;
+    returns (fn's result, {stage: summed ms}).  "residual" is the
+    trace_rows_stream3 time outside _run (flagged re-walk, masking)."""
+    names = ("_stage_prep", "stage_emit", "stage_refine",
+             "feats_rows_to_major", "stage_isect", "_stage_glue", "_run",
+             "trace_rows_stream3", "rows_from_aos_fast")
+    out, ms, _ = call_spans(s3, names, fn)
+    ms = {n: sum(v) for n, v in ms.items()}
     ms["residual"] = ms["trace_rows_stream3"] - ms["_run"]
     return out, ms
+
+
+def values_equal(a, b) -> bool:
+    """Equal shapes and dtypes and equal values, NaN matching NaN (+0 and
+    -0 compare equal)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+    return torch.equal(a, b)
 
 
 def pcg3d_words_np(v):
@@ -352,8 +421,9 @@ def make_tracer():
                                sbt=sbt)
 
 
-def city_resources(dev, verts, tris, w, h):
-    """bench._engine_setup's bindings and camera, on the port."""
+def city_resources(dev, verts, tris, w, h, mesh_infos=None):
+    """bench._engine_setup's bindings and camera, on the port; mesh_infos
+    (default: one mesh) map instance ids to the meshes of verts/tris."""
     from radiance_tpu_torch.core import types
     from radiance_tpu_torch.scene import bindings
     from radiance_tpu_torch.shading import camera
@@ -364,7 +434,8 @@ def city_resources(dev, verts, tris, w, h):
     fn /= np.maximum(np.linalg.norm(fn, axis=-1, keepdims=True), 1e-9)
     normals = np.repeat(fn, 3, axis=0).astype(np.float32)
     res = bindings.make_scene_bindings(
-        [types.MeshInfo()], verts, tris, np.zeros_like(verts), normals,
+        mesh_infos or [types.MeshInfo()], verts, tris, np.zeros_like(verts),
+        normals,
         [types.Material(albedo=(0.7, 0.7, 0.7, 1.0), roughness=0.6)],
         types.SceneProperties(lights=[types.DirLight(
             direction=(0.26726124, 0.8017837, 0.5345225, 0.0),
@@ -373,6 +444,48 @@ def city_resources(dev, verts, tris, w, h):
         width_pixel=float(w), height_pixel=float(h), focal_length=0.035,
         sensor_width=0.05, focal_distance=80.0, z=140.0), dev)
     return res
+
+
+def multi64_scene(dev, w, h):
+    """bench._build_multi_tlas's scene on the port's accel (seed 11: 8
+    unique BLASes of MULTI_TRIS / 64 triangles in 40 clusters, each
+    instanced 8 times across a 100-unit extent) and city-style bindings:
+    one mesh entry per instance, pointing at its BLAS's mesh.  Returns
+    (DeviceScene, resources)."""
+    from radiance_tpu_torch.api import accel
+    from radiance_tpu_torch.core import types
+
+    rng = np.random.default_rng(11)
+    n_unique, n_copies, n_cl = 8, 8, 40
+    per = MULTI_TRIS // (n_unique * n_copies) // n_cl
+    meshes = []
+    for _ in range(n_unique):
+        centers = rng.uniform(-6, 6, size=(n_cl, 3)).astype(np.float32)
+        verts_all = []
+        for c in centers:
+            local = rng.uniform(-1.5, 1.5, size=(per, 3)).astype(np.float32)
+            offs = rng.normal(scale=0.08, size=(per, 3, 3)).astype(np.float32)
+            verts_all.append((c + local)[:, None, :] + offs)
+        meshes.append(np.concatenate(verts_all).reshape(-1, 3))
+    blases = [accel.BuildBottomAccelStruct(types.Mesh(
+        v, np.arange(len(v), dtype=np.uint32).reshape(-1, 3))) for v in meshes]
+    instances, infos = [], []
+    for b in range(n_unique):
+        v_off = sum(len(v) for v in meshes[:b])
+        for _ in range(n_copies):
+            tf = np.eye(4, dtype=np.float32)
+            tf[:3, 3] = rng.uniform(-44, 44, 3).astype(np.float32)
+            instances.append(types.Instance(tf, 0, len(instances), blases[b]))
+            # offsets in scalars; a mesh of v vertices has v / 3 triangles
+            infos.append(types.MeshInfo(vertex_offset=3 * v_off,
+                                        index_offset=v_off,
+                                        uv_offset=3 * v_off,
+                                        normal_offset=3 * v_off))
+    scene = accel.BuildTopAccelStruct(instances).device_scene(dev)
+    tris = np.concatenate([np.arange(len(v), dtype=np.uint32).reshape(-1, 3)
+                           for v in meshes])
+    return scene, city_resources(dev, np.concatenate(meshes), tris, w, h,
+                                 mesh_infos=infos)
 
 
 def cornell_inputs(dev, size):
@@ -414,6 +527,7 @@ def main() -> int:
     from radiance_tpu_torch.ops import cuda_build
     from radiance_tpu_torch.ops import packet_trace as pk
     from radiance_tpu_torch.ops import stream3 as s3
+    from radiance_tpu_torch.ops import stream3_multi as s3m
     from radiance_tpu_torch.ops import stream3_stages as stg
     from radiance_tpu_torch.ops.intersect import (FLT_MAX,
                                                   intersect_triangle_soup)
@@ -437,7 +551,7 @@ def main() -> int:
     # ---- 2. build ----------------------------------------------------
     t0 = time.time()
     cuda_build.load_all([pk.KERNEL, *stg.LIBS.values()])
-    log(f"[2] five kernel sources built in parallel and loaded in "
+    log(f"[2] seven kernel sources built in parallel and loaded in "
         f"{time.time() - t0:.1f} s: {' '.join(cuda_build.NVCC_FLAGS)}")
     for name, info in cuda_build.BUILD_INFO.items():
         log(f"    {name}: {info['seconds']:.1f} s, "
@@ -833,10 +947,258 @@ def main() -> int:
             raise AssertionError(f"main path never launched variant {var}")
     if any(city_launches.get(v, 0) <= 0 for v in PATH_VARIANTS):
         raise AssertionError(f"city frame missed a variant: {city_launches}")
-    if any(v <= 0 for v in city_s3.values()):
+    city_keys = ("transpose", "emit", "refine", "isect", "oscal")
+    if any(city_s3[k] <= 0 for k in city_keys):
         raise AssertionError(f"city frame missed a stream3 kernel: {city_s3}")
+    del accum, image, caccum, cimage
 
-    # ---- 7. results --------------------------------------------------
+    # ---- 7. the many-instance stream path, kernels E and F -----------
+    t0 = time.time()
+    # F on the city's 1080p primary rows in object space (padded to whole
+    # groups), unmasked (the bench wave) and masked by the primary hits
+    prep_args = (rows, knode, scene.inst_inv[0])
+    rows_o = s3._stage_prep(*prep_args, stable=stable)[0]
+    npad = rows_o[0].shape[0]
+    npk = npad // stg.PKT
+    live_o = torch.zeros(npad, dtype=torch.bool, device=dev)
+    live_o[:n] = hit1
+    oscal = {}
+    for mode, lv in (("unmasked", None), ("masked", live_o)):
+        f_ms, out_k = cuda_ms(lambda: stg.oscal_cuda(rows_o, lv, npk), 10)
+        f_plain, out_p = cuda_ms(lambda: stg._oscal_plain(rows_o, lv, npk),
+                                 3)
+        same = all(values_equal(a, b) for a, b in zip(out_k, out_p))
+        bitwise = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                      if a.is_floating_point() else torch.equal(a, b)
+                      for a, b in zip(out_k, out_p))
+        nbytes = (sum(r.numel() * 4 for r in rows_o)
+                  + (0 if lv is None else lv.numel())
+                  + sum(x.numel() * x.element_size() for x in out_k))
+        oscal[mode] = dict(ms=f_ms, plain_ms=f_plain, max_abs_err=0.0,
+                           library_ms=None, bound=bound(0, nbytes))
+        log(f"   F oscal {mode}: {npk} packets, equal to plain {same} "
+            f"(bit for bit {bitwise}); kernel {f_ms:.4f} ms, plain "
+            f"{f_plain:.4f} ms, bound {oscal[mode]['bound'][0]:.4f} ms")
+        if not same:
+            raise AssertionError(f"oscal {mode}: kernel differs from plain")
+
+    def prep_ms(plain):
+        s3.octant_scalars = stg._oscal_plain if plain else stg.octant_scalars
+        try:
+            return cuda_ms(lambda: s3._stage_prep(*prep_args, stable=stable),
+                           5)[0]
+        finally:
+            s3.octant_scalars = stg.octant_scalars
+
+    prep = [(prep_ms(True), prep_ms(False)) for _ in range(2)]
+    log(f"   whole _stage_prep on the 1080p primary, plain octant scalars "
+        f"vs kernel F (two turns): "
+        f"{'; '.join(f'{a:.3f} vs {b:.3f} ms' for a, b in prep)}")
+
+    # E on the city's 1080p shadow wave (bench shadow rays from the
+    # primary hits toward light_vec, live = primary hit), on the emitted
+    # (unrefined) word lists as an occlusion wave runs it
+    so, sd = waves["shadow"]
+    srows, slive = s3._pad_wave(s3.park_dead(s3.rows_from_aos_fast(so, sd),
+                                             hit1), hit1)
+    _, sfeats_t, sscal, ssmeta, sbscal, _ = s3._stage_prep(
+        srows, knode, scene.inst_inv[0], live=slive, stable=stable)
+    swords, semeta = stg.emit_cuda(sscal, ssmeta, sbscal, knode, TMAX,
+                                   stg.STEP_CAP, stg.PCAP)
+    e_args = (swords, semeta, ssmeta[:, 0].contiguous(),
+              stg.transpose_cuda(sfeats_t), kleaf, TMIN, TMAX, stg.PCAP,
+              stable)
+    e_ms, out_k = cuda_ms(lambda: stg.isect_occl_cuda(*e_args), 5)
+    e_st = {}
+    e_plain, out_p = cuda_ms(lambda: stg._isect_occl_plain(
+        *e_args, stats=e_st, live=slive), 1, warmup=False)
+    alive = ssmeta[:, 1] > 0
+    # a slot's lanes are its packet's rays; only live ones count
+    lane_live = slive.view(-1, stg.PKT)[ssmeta[:, 0].long()] & alive[:, None]
+    if not bool((out_k == out_p).all(dim=2)[~lane_live].all()):
+        raise AssertionError("isect_occl differs from plain on a dead lane")
+    res_e = hold_occluded("E isect_occl vs plain (live slot lanes)",
+                          out_k[..., 0] == 0, out_p[..., 0] == 0, lane_live)
+    scnt = torch.clamp(semeta[:, 0], max=stg.PCAP) * alive
+    swords_n = int(scnt.sum())
+    valid = torch.arange(stg.PCAP, device=dev)[None, :] < scnt[:, None]
+    sleaves = int(torch.unique((swords[valid] >> 17) - 1).numel())
+    log(f"   E isect_occl: shadow wave {int(hit1.sum())} live rays, "
+        f"{int(alive.sum())} live slots, {swords_n} words over {sleaves} "
+        f"leaves, {e_st['pairs']} (leaf, block) pairs tested under the "
+        f"reference's schedule, {e_st['ray_tests']} live unoccluded rays "
+        f"in them ({e_st['ray_tests'] / (e_st['pairs'] * stg.BLK):.4f} of "
+        f"their lanes); kernel {e_ms:.3f} ms, plain {e_plain:.3f} ms")
+    s3k["isect_occl"] = dict(
+        ms=e_ms, plain_ms=e_plain, library_ms=None,
+        max_abs_err=1.0 - res_e["live_agree"],
+        bound=bound(e_st["ray_tests"] * stg.T * FLOPS_PER_PAIR,
+                    npad * 64 + swords_n * 4
+                    + sleaves * kleaf[0].numel() * 4 + out_k.numel() * 4))
+    s3k["oscal"] = oscal["masked"]
+    del swords, semeta, e_args, out_k, out_p, sfeats_t
+
+    # the whole occlusion wave through stream3 (kernels F, B, A, E)
+    # against the packet kernel's live-masked any-hit: two exact tracers
+    ow_ms, (rec_o, diag_o) = cuda_ms(lambda: s3.trace_rows_stream3(
+        scene, s3.rows_from_aos_fast(so, sd), TMIN, TMAX, live=hit1,
+        occl=True, with_diag=True), 3)
+    pw_ms, rec_a = cuda_ms(lambda: pk.trace_rays_packet(
+        scene, so, sd, TMIN, TMAX, any_hit=True, live=hit1), 3)
+    if bool((rec_o.hit | rec_a.hit)[~hit1].any()):
+        raise AssertionError("a dead lane of the shadow wave is occluded")
+    res_o = hold_occluded("stream3 occlusion wave vs packet any-hit",
+                          rec_o.hit, rec_a.hit, hit1)
+    log(f"[7] stream3 occlusion 1080p shadow wave ({card}): {ow_ms:.3f} ms "
+        f"vs the packet kernel's any-hit {pw_ms:.3f} ms; occluded agreement "
+        f"{res_o['live_agree']:.7f} of live rays, {res_o['occluded_agree']:.7f}"
+        f" of occluded ones; flagged {diag_o['flagged']}, residual rays "
+        f"{diag_o['residual_rays']}")
+    del rec_o, rec_a
+
+    # the 64-instance scene of bench.py --multi on the bench's primary rays
+    tb = time.time()
+    mscene, mres = multi64_scene(dev, W, H)
+    torch.cuda.synchronize()
+    mt = s3m.multi_tables(mscene)
+    log(f"   64-instance scene: {len(mscene.inst_kblas)} instances of "
+        f"{len(mt.uniq)} BLASes, {MULTI_TRIS} triangles; built in "
+        f"{time.time() - tb:.1f} s")
+    # E and F timed at the pipeline's call sites (stream3's dispatchers,
+    # which call nothing but the kernel on the card); the largest call of
+    # each is kept to hold the kernel against its plain version
+    e_f = {"stage_isect": lambda *a: a[0].shape[0],
+           "octant_scalars": lambda *a: a[2]}
+    mrows = s3.rows_from_aos_fast(o1, d1)
+    m_ms, (mrec, mdiag) = cuda_ms(lambda: s3m.trace_rows_multi(
+        mscene, mt, mrows, TMIN, TMAX, with_diag=True), 3)
+    pm_ms, prec = cuda_ms(lambda: pk.trace_rays_packet_multi(
+        mscene, o1, d1, TMIN, TMAX), 3)
+    res_m = hold_prims("64-instance primary vs packet sweeps", mrec.t,
+                       mrec.prim, prec.t, prec.prim)
+    both = mrec.hit & prec.hit
+    slot_agree = float((mrec.slot == prec.slot)[both].float().mean())
+    log(f"[7] 64-instance primary 1080p ({card}): trace_rows_multi "
+        f"{m_ms:.3f} ms ({n / m_ms / 1e3:.2f} Mrays/s) vs "
+        f"trace_rays_packet_multi {pm_ms:.3f} ms ({n / pm_ms / 1e3:.2f} "
+        f"Mrays/s); instance slot agreement {slot_agree:.7f}; diag "
+        f"{json.dumps(mdiag)}, poisoned share {mdiag['poisoned'] / n:.7f}")
+    if slot_agree < BARS["prim"]:
+        raise AssertionError(f"64-instance slots disagree: {slot_agree}")
+    _, m_spans, m_big = call_spans(s3, list(e_f), lambda: s3m.trace_rows_multi(
+        mscene, mt, mrows, TMIN, TMAX), keep=e_f)
+
+    # its shadow wave (bench.py's: from the primary hits toward light_vec)
+    mo2, _ = bounce_rays(rmath, o1, d1, mrec.t, FLT_MAX)
+    mlive = mrec.hit
+    srows_m = s3.rows_from_aos_fast(mo2, light)
+    ms_ms, (mocc, mdiag_s) = cuda_ms(lambda: s3m.trace_rows_multi(
+        mscene, mt, srows_m, TMIN, TMAX, live=mlive, occl=True,
+        with_diag=True), 3)
+    pms_ms, pocc = cuda_ms(lambda: pk.trace_rays_packet_multi(
+        mscene, mo2, light, TMIN, TMAX, any_hit=True), 3)
+    if bool(mocc.hit[~mlive].any()):
+        raise AssertionError("a dead lane of the 64-instance shadow wave is "
+                             "occluded")
+    res_ms = hold_occluded("64-instance shadow wave vs packet sweeps",
+                           mocc.hit, pocc.hit, mlive)
+    log(f"[7] 64-instance shadow wave: trace_rows_multi(occl) {ms_ms:.3f} ms"
+        f" vs trace_rays_packet_multi(any_hit) {pms_ms:.3f} ms; occluded "
+        f"agreement {res_ms['live_agree']:.7f} of live rays, "
+        f"{res_ms['occluded_agree']:.7f} of occluded ones; diag "
+        f"{json.dumps(mdiag_s)}, poisoned share "
+        f"{mdiag_s['poisoned'] / max(int(mlive.sum()), 1):.7f} of live rays")
+    _, s_spans, s_big = call_spans(s3, list(e_f), lambda: s3m.trace_rows_multi(
+        mscene, mt, srows_m, TMIN, TMAX, live=mlive, occl=True), keep=e_f)
+    for wave, sp in (("primary", m_spans), ("shadow", s_spans)):
+        for name, v in sp.items():
+            kern = {"octant_scalars": "F",
+                    "stage_isect": "E" if wave == "shadow" else "D"}[name]
+            if v:
+                log(f"    {wave} {kern} ({name}): {len(v)} launches, "
+                    f"{sum(v) / len(v):.4f} ms mean, {max(v):.4f} ms max")
+    # E and F against their plain versions on the largest launch of each;
+    # trace_rows_multi parks a sub-wave's dead lanes at origin 1e30, so
+    # the live lanes are those with a nearer object-space origin
+    fa = m_big["octant_scalars"]
+    ea = s_big["stage_isect"] + (stg.PCAP, bool(mscene.stable_frames))
+    if not all(values_equal(x, y) for x, y in zip(stg.oscal_cuda(*fa),
+                                                  stg._oscal_plain(*fa))):
+        raise AssertionError("oscal differs from plain on a multi launch")
+    feats_big = ea[3].view(-1, stg.PKT, 16)[ea[2].long()]
+    big_live = feats_big[..., 6:9].abs().amax(dim=2) < 1e29
+    out_bk, out_bp = stg.isect_occl_cuda(*ea), stg._isect_occl_plain(*ea)
+    if not bool((out_bk == out_bp).all(dim=2)[~big_live].all()):
+        raise AssertionError("isect_occl differs from plain on a dead lane")
+    hold_occluded(f"E on the largest multi64 launch ({ea[0].shape[0]} "
+                  f"slots)", out_bk[..., 0] == 0, out_bp[..., 0] == 0,
+                  big_live, need_occluded=False)
+    log(f"    largest launches: oscal {fa[2]} packets, equal to plain; "
+        f"isect_occl {ea[0].shape[0]} slots")
+    del mrec, prec, mocc, pocc, m_big, s_big, fa, ea, out_bk, out_bp
+
+    # the main path on the 64-instance scene: one engine frame
+    stg.reset_launches()
+    tf0 = time.time()
+    maccum, mimage = tracer.render(mscene, mres, torch.zeros(n, 3, device=dev),
+                                   0, W, H, batch=1, depth=2)
+    torch.cuda.synchronize()
+    mframe_ms = (time.time() - tf0) * 1e3
+    m_launches = {k: fn.launches for k, fn in stg.KERNELS.items()}
+    log(f"[7] 64-instance frame 1920x1080 batch 1 depth 2 ({card}): "
+        f"{mframe_ms:.1f} ms; stream3 launches {m_launches}")
+    check_frame("64-instance", maccum, mimage, n)
+    if any(v <= 0 for v in m_launches.values()):
+        raise AssertionError(f"64-instance frame missed a kernel: "
+                             f"{m_launches}")
+    # a second frame, its traces' diagnostics recorded: the share of rays
+    # that the reference's contract poisons (slot -2) in each engine wave
+    waves_diag = []
+    scan = s3m.trace_rows_multi
+
+    def recorded(*a, **k):
+        rec, diag = scan(*a, with_diag=True, **k)
+        waves_diag.append(dict(diag, occl=bool(k.get("occl")),
+                               rays=int(rec.t.shape[0])))
+        return rec
+
+    s3m.trace_rows_multi = recorded
+    try:
+        tracer.render(mscene, mres, maccum, 1, W, H, batch=1, depth=2)
+    finally:
+        s3m.trace_rows_multi = scan
+    for dg in waves_diag:
+        log(f"    engine wave ({'shadow' if dg['occl'] else 'closest'}): "
+            f"{json.dumps(dg)}, poisoned share "
+            f"{dg['poisoned'] / dg['rays']:.7f}")
+    # the same first frame on the route scenes of 2-8 instances take (one
+    # packet sweep per instance): the baseline of the scan's frame, and a
+    # second tracer for its image
+    from radiance_tpu_torch.engine import pathtracer
+    scan_min = pathtracer.MULTI_SCAN_MIN_INSTANCES
+    pathtracer.MULTI_SCAN_MIN_INSTANCES = len(mscene.inst_kblas) + 1
+    try:
+        sweep_ms = []
+        for _ in range(2):
+            tf0 = time.time()
+            _, simage = tracer.render(mscene, mres,
+                                      torch.zeros(n, 3, device=dev), 0, W, H,
+                                      batch=1, depth=2)
+            torch.cuda.synchronize()
+            sweep_ms.append((time.time() - tf0) * 1e3)
+    finally:
+        pathtracer.MULTI_SCAN_MIN_INSTANCES = scan_min
+    rmse = float((simage[..., :3].float() - mimage[..., :3].float())
+                 .pow(2).mean().sqrt())
+    log(f"[7] 64-instance frame on the per-instance sweeps ({card}): "
+        f"{', '.join(f'{m:.1f}' for m in sweep_ms)} ms (the scan's "
+        f"{mframe_ms:.1f} ms); u8 RMSE against the scan's image {rmse:.4f}")
+    if rmse >= 3.0:
+        raise AssertionError(f"64-instance frame: scan and sweeps differ, "
+                             f"RMSE {rmse}")
+    log(f"[7] done in {time.time() - t0:.1f} s")
+
+    # ---- 8. results --------------------------------------------------
     kernels = []
     for var in PATH_VARIANTS:
         errs = [r["max_abs_err"] for k, r in results.items()
@@ -850,10 +1212,12 @@ def main() -> int:
             "library_ms": None})
     for key, (name, src, replaced) in S3_KERNELS.items():
         r = s3k[key]
+        # E and F: the 64-instance frame's run; the others: city + sample1
+        count = m_launches if key in ("isect_occl", "oscal") else s3_launches
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaced[0], "also_replaces": replaced[1:],
-            "launches": s3_launches[key], "max_abs_err": r["max_abs_err"],
+            "launches": count[key], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"]})

@@ -71,6 +71,9 @@ class DeviceScene:
     # frame mode of the BUILT kernel tables: True = leaf-local moments +
     # centroid rows.  Tracers take the kernel variant from here.
     stable_frames: bool = False
+    # the instance scan's tables (ops/stream3_multi.MultiTables), built at
+    # the scene's first many-instance trace by stream3_multi.multi_tables
+    multi: Optional[object] = dataclasses.field(default=None, repr=False)
 
     @property
     def device(self) -> torch.device:

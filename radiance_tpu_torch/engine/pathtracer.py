@@ -22,12 +22,17 @@ on the CPU (where every kernel runs its plain version):
     shadow rays take "gen1_live" (the live-masked packet kernel); bounce
     waves and their shadow rays take "argsort" (coherence_key sort of
     live rays, dead lanes parked, unsorted after);
-  * multi-instance scenes: every wave takes "argsort", and the trace is
-    one packet sweep per instance (trace_rays_packet_multi).
+  * multi-instance scenes: every wave takes "argsort".  A scene with
+    more than 8 instances (and per-BLAS kernel tables) is traced, closest
+    hits and shadows alike, by the instance scan over the stream3
+    pipeline (ops/stream3_multi.trace_rows_multi, as the JAX engine's
+    _trace_dispatch does, :99-120), with its tables built once per scene;
+    a scene with 2-8 instances by one packet sweep per instance
+    (trace_rays_packet_multi).
 
-Not ported yet: the monolithic frame function, temporal t-bounds, the
-stream3 occlusion route and the per-ray traversal walk (custom any-hit
-programs, scenes without kernel tables).
+Not ported yet: the monolithic frame function, temporal t-bounds and the
+per-ray traversal walk (custom any-hit programs, scenes without kernel
+tables).
 """
 
 from __future__ import annotations
@@ -42,7 +47,8 @@ from radiance_tpu_torch.api.sbt import ShaderBindingTable
 from radiance_tpu_torch.bvh.device import DeviceScene
 from radiance_tpu_torch.core import math as rmath
 from radiance_tpu_torch.engine.context import Payload, ShadeContext
-from radiance_tpu_torch.ops import compaction, packet_trace, stream3
+from radiance_tpu_torch.ops import (compaction, packet_trace, stream3,
+                                    stream3_multi)
 from radiance_tpu_torch.ops import tonemap as tonemap_ops
 from radiance_tpu_torch.ops.packet_trace import HitRecord
 
@@ -50,17 +56,29 @@ from radiance_tpu_torch.ops.packet_trace import HitRecord
 # the scene root box on its first step.
 _PARK_ORIGIN = 1e30
 _INT32_MAX = 2 ** 31 - 1
+# Scenes with at least this many instances take the instance scan: the
+# JAX engine's threshold (more than 8, pathtracer.py:772-790), a trade
+# made on the TPU and not yet measured on the card.
+MULTI_SCAN_MIN_INSTANCES = 9
 
 
 def _trace_dispatch(scene, o, d, tmin, tmax, *, any_hit_terminate=False,
                     live=None) -> HitRecord:
     """Single-instance scenes with kernel tables go through the packet
-    kernel (live masks honoured); multi-instance scenes through one
-    packet sweep per instance (live ignored: callers mask dead lanes)."""
+    kernel (live masks honoured); scenes with MULTI_SCAN_MIN_INSTANCES or
+    more instances through the stream3 instance scan, others with several
+    instances through one packet sweep per instance (live ignored:
+    callers mask dead lanes)."""
     if packet_trace.supports(scene):
         return packet_trace.trace_rays_packet(
             scene, o, d, tmin, tmax, any_hit=any_hit_terminate, live=live)
     if packet_trace.supports_multi(scene):
+        if (stream3_multi.supports(scene)
+                and len(scene.inst_kblas) >= MULTI_SCAN_MIN_INSTANCES):
+            return stream3_multi.trace_rows_multi(
+                scene, stream3_multi.multi_tables(scene),
+                stream3.rows_from_aos(o, d), tmin, tmax,
+                occl=any_hit_terminate)
         return packet_trace.trace_rays_packet_multi(
             scene, o, d, tmin, tmax, any_hit=any_hit_terminate)
     raise NotImplementedError(

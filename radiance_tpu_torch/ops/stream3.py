@@ -1,18 +1,21 @@
-"""Stream tracer v6 (stream3): the closest-hit pipeline of the primary wave.
+"""Stream tracer v6 (stream3): the closest-hit and occlusion pipelines.
 
 Port of radiance_tpu/ops/stream3.py::trace_rows_stream3 (:2728) and the
-stages it runs (`_run`, :2459) on the engine's primary wave:
+stages it runs (`_run`, :2459):
 
-  prep    (plain torch) object-space rows, phase-2 features [16, Npad],
-          32-ray sub-frustum scalars, and the slot tables: a packet whose
-          rays share one direction octant is one slot; a mixed packet
-          becomes one slot per present octant, drawn from an EXTRA pool;
+  prep    object-space rows, phase-2 features [16, Npad], 32-ray
+          sub-frustum scalars, and the slot tables: a packet whose rays
+          share one direction octant is one slot; a mixed packet becomes
+          one slot per present octant, drawn from an EXTRA pool.  The
+          octant scalars are kernel F; the rest is plain torch;
   emit    (kernel B) every slot walks the octant node table once with its
           interval frustum and appends one i32 word per overlapped leaf;
   refine  (kernel C) the exact per-ray slab test of every (leaf, 128-ray
-          block) pair; empty words are dropped;
-  isect   (kernel D) the Pluecker tests of every kept pair, per-ray
-          closest hit with the winner's prim and barycentrics;
+          block) pair; empty words are dropped.  Closest-hit waves only:
+          occlusion waves pass the emitted words straight on;
+  isect   the Pluecker tests of every kept pair: per-ray closest hit with
+          the winner's prim and barycentrics (kernel D), or, on occlusion
+          waves, any hit in (tmin, tmax) (kernel E: t = 0 when occluded);
   glue    (plain torch) slot results folded into per-packet winners;
   residual  packets whose walk was cut (STEP_CAP) or whose list
           overflowed (PCAP) are re-traced exactly, ray by ray.
@@ -22,25 +25,30 @@ kernel A.  The kernels and their plain versions live in
 ops/stream3_stages.py; on CPU tensors every stage runs its plain version.
 
 Differences from the JAX module, none visible in a hit record:
+  * the octant scalars take the JAX module's single-pass kernel
+    (_oscal_kernel, opt-in there through RADIANCE_PREP_KERNEL=1) on the
+    card; the reference states that it is bit-identical to the XLA form
+    it runs by default (stream3.py:303-305), which is kernel F's plain
+    version, so no hit can change;
   * the residual drain re-walks flagged packets through the packet
-    tracer (packet_trace.trace_rays_packet, closest hit: the CUDA packet
-    kernel on the card), where the JAX module uses its per-ray traversal
-    walk (ops/traversal.py, not ported yet).  Both are exact tracers.  All
-    flagged packets drain in one call (the JAX drain runs RES_CAP packets
-    a chunk under a while_loop);
+    tracer (packet_trace.trace_rays_packet: the CUDA packet kernel on the
+    card, any-hit on occlusion waves), where the JAX module uses its
+    per-ray traversal walk (ops/traversal.py, not ported yet).  Both are
+    exact tracers.  All flagged packets drain in one call (the JAX drain
+    runs RES_CAP packets a chunk under a while_loop);
   * constants are the compiled-TPU defaults and no environment variable
-    is read: exact refine on, lean isect off, presort off, f32 only, the
-    9-bit tq word format, the lockstep walk's slot order (one GPU warp
-    per slot replaces the TPU's lockstep, treelet and work-stealing walks,
-    which all emit the same words);
+    is read: exact refine on closest-hit waves and off on occlusion
+    waves, lean isect off, presort off, f32 only, the 9-bit tq word
+    format, the lockstep walk's slot order (one GPU warp per slot
+    replaces the TPU's lockstep, treelet and work-stealing walks, which
+    all emit the same words);
   * emeta lane 2 counts each slot's own walk steps (the TPU kernel stamps
     its 8-slot group's count), and diag["steps"] sums them;
   * kernel D keeps no tq occlusion cull (a cull at equal t could change
     which of two tied triangles wins).
 
-Not ported: the occlusion pair kernel (_isect3_occl_kernel), the prep
-kernel (_oscal_kernel), presort (_block_sort), temporal t-bounds,
-trace_rows_cascade, lean isect (_winner_barys) and build_tracer.
+Not ported: presort (_block_sort), temporal t-bounds, trace_rows_cascade,
+lean isect (_winner_barys) and build_tracer.
 """
 
 from __future__ import annotations
@@ -52,8 +60,8 @@ from radiance_tpu_torch.ops.intersect import FLT_MAX
 from radiance_tpu_torch.ops.packet_trace import HitRecord
 from radiance_tpu_torch.ops.stream3_stages import (
     BIG, BLK, EXTRA, FMAX, G, NLANES, PCAP, PKT, REFINE_SUB, STEP_CAP,
-    W_LEAF_MAX, feats_rows_to_major, rows_from_aos_fast, stage_emit,
-    stage_isect, stage_refine)
+    W_LEAF_MAX, feats_rows_to_major, group_scalars, octant_scalars,
+    rows_from_aos_fast, stage_emit, stage_isect, stage_refine)
 
 
 def supports(scene) -> bool:
@@ -97,77 +105,6 @@ def leaf_aabb8(nodef, n_leaves):
 
 
 # ---------------------------------------------------------------- prep
-
-def _interval_scalars(oc, dc, mask=None):
-    """Interval-frustum scalars for one axis over a ray-group axis:
-    oc, dc [ngrp, g] -> (sgn, olo, ohi, ilo, ihi) [ngrp].  With `mask`,
-    rays outside the subset are ignored."""
-    def lo_hi(v, lo_fill, hi_fill):
-        if mask is None:
-            return v.amin(dim=1), v.amax(dim=1)
-        return (torch.where(mask, v, lo_fill).amin(dim=1),
-                torch.where(mask, v, hi_fill).amax(dim=1))
-
-    dmin, dmax = lo_hi(dc, BIG, -BIG)
-    neg = dmax < 0.0
-    sgn = torch.where(dmin > 0.0, 1.0, torch.where(neg, -1.0, 0.0))
-    osn = oc * torch.where(neg, -1.0, 1.0)[:, None]
-    olo, ohi = lo_hi(osn, BIG, -BIG)
-    inv = torch.clamp(1.0 / torch.clamp(dc.abs(), min=1e-30), max=BIG)
-    ilo, ihi = lo_hi(inv, BIG, 0.0)
-    return sgn, olo, ohi, ilo, ihi
-
-
-def _group_scalars(rows, group, mask=None):
-    """[ngrp, 16] scalar rows (sgn3, olo3, ohi3, ilo3, ihi3, pad) for
-    every `group`-ray window of the wave."""
-    ox, oy, oz, dx, dy, dz = rows
-    ngrp = ox.shape[0] // group
-    cols = [[], [], [], [], []]
-    for oc, dc in ((ox, dx), (oy, dy), (oz, dz)):
-        vals = _interval_scalars(oc.reshape(ngrp, group),
-                                 dc.reshape(ngrp, group), mask)
-        for lst, v in zip(cols, vals):
-            lst.append(v)
-    flat = [v for lst in cols for v in lst]
-    flat.append(torch.zeros(ngrp, dtype=torch.float32, device=ox.device))
-    return torch.stack(flat, dim=1)
-
-
-def _octant_scalars(rows, live, npk):
-    """(cand [npk, 8, 16], present [npk, 8], full_pkt [npk, 16]): per
-    (packet, direction octant) interval scalars, octant presence, and the
-    whole-packet scalars (the XLA formulation, stream3.py:411-446)."""
-    ox, oy, oz, dx, dy, dz = rows
-    dev = ox.device
-    oct_of = ((dx < 0).to(torch.int64) + 2 * (dy < 0).to(torch.int64)
-              + 4 * (dz < 0).to(torch.int64)).reshape(npk, 1, PKT)
-    omask = oct_of == torch.arange(8, device=dev)[None, :, None]
-    if live is not None:
-        omask = omask & live.reshape(npk, 1, PKT)
-    present = omask.any(dim=2)
-    cols = []
-    for oc, dc in ((ox, dx), (oy, dy), (oz, dz)):
-        ocp = oc.reshape(npk, 1, PKT)
-        dcp = dc.reshape(npk, 1, PKT)
-        dmin = torch.where(omask, dcp, BIG).amin(dim=2)
-        dmax = torch.where(omask, dcp, -BIG).amax(dim=2)
-        sgn = torch.where(dmin > 0.0, 1.0,
-                          torch.where(dmax < 0.0, -1.0, 0.0))
-        osn = ocp * torch.where(dmax < 0.0, -1.0, 1.0)[:, :, None]
-        olo = torch.where(omask, osn, BIG).amin(dim=2)
-        ohi = torch.where(omask, osn, -BIG).amax(dim=2)
-        inv = torch.clamp(1.0 / torch.clamp(dcp.abs(), min=1e-30), max=BIG)
-        ilo = torch.where(omask, inv, BIG).amin(dim=2)
-        ihi = torch.where(omask, inv, 0.0).amax(dim=2)
-        cols.append((sgn, olo, ohi, ilo, ihi))
-    cand = torch.stack(
-        [cols[k][f] for f in range(5) for k in range(3)]
-        + [torch.zeros(npk, 8, dtype=torch.float32, device=dev)], dim=2)
-    full_pkt = _group_scalars(
-        rows, PKT, mask=None if live is None else live.reshape(npk, PKT))
-    return cand, present, full_pkt
-
 
 def _pad_wave(rows_w, live):
     """Pad rows to whole groups of G packets with copies of ray 0; padded
@@ -223,11 +160,12 @@ def _stage_prep(rows_w, nodef, inv0, live=None, *, stable: bool):
     # block j at row s*8 + j)
     spb = BLK // REFINE_SUB
     sub_mask = None if live is None else live.reshape(-1, REFINE_SUB)
-    bscal = _group_scalars(rows, REFINE_SUB, mask=sub_mask) \
+    bscal = group_scalars(rows, REFINE_SUB, mask=sub_mask) \
         .reshape(npk, 8, spb, 16).transpose(1, 2).reshape(npk * NLANES, 16)
 
     # ----- slot construction -----
-    cand, present, full_pkt = _octant_scalars(rows, live, npk)
+    cand, present, full_pkt = octant_scalars(
+        rows, None if live is None else live.contiguous(), npk)
     pure = present.sum(dim=1) == 1
     oct_idx = torch.argmax(present.to(i32), dim=1)
     full = torch.where(pure[:, None],
@@ -318,12 +256,14 @@ def _stage_glue(out_s, smeta, npk, n) -> HitRecord:
 # ----------------------------------------------------------------- run
 
 def _run(rows_w, tmin, tmax, nodef, kleaf, inv0, *, live=None,
-         stable: bool, with_diag: bool = False):
+         stable: bool, occl: bool = False, with_diag: bool = False):
     """The pipeline on world-space component rows (stream3.py::_run,
     non-work-stealing branch).  Returns a HitRecord, and with with_diag
     (rec, diag): diag["pkt_flag"] [npk] i32 marks packets whose walk was
     cut or whose list overflowed -- the caller must re-trace them.  Dead
-    lanes of `live` come back as garbage for the caller to mask."""
+    lanes of `live` come back as garbage for the caller to mask.  occl
+    runs an occlusion wave: no refine, kernel E, t = 0 on occluded rays
+    (prim 0, no barycentrics)."""
     n = rows_w[0].shape[0]
     rows_w, live = _pad_wave(rows_w, live)
     rows, feats_t, scal, smeta, bscal, order = _stage_prep(
@@ -333,12 +273,16 @@ def _run(rows_w, tmin, tmax, nodef, kleaf, inv0, *, live=None,
     words, emeta = stage_emit(scal, smeta, bscal, nodef, tmax,
                               step_cap=STEP_CAP, pcap=PCAP)
     slot_pkt = smeta[:, 0].contiguous()
-    words_i, emeta_i = stage_refine(
-        words, emeta, slot_pkt, feats_t, leaf_aabb8(nodef, kleaf.shape[0]),
-        tmax, pcap=PCAP)
+    words_i, emeta_i = words, emeta
+    if not occl:
+        # occlusion waves skip the refine (stream3.py:2536-2542): the
+        # occlusion kernel's saturation cull already skips later pairs
+        words_i, emeta_i = stage_refine(
+            words, emeta, slot_pkt, feats_t,
+            leaf_aabb8(nodef, kleaf.shape[0]), tmax, pcap=PCAP)
     feats = feats_rows_to_major(feats_t)
     out_s = stage_isect(words_i, emeta_i, slot_pkt, feats, kleaf, tmin,
-                        tmax, stable=stable, pcap=PCAP)
+                        tmax, stable=stable, pcap=PCAP, occl=occl)
     # back to storage order (slot p == packet p for base slots)
     inv_order = torch.empty_like(order)
     inv_order[order] = torch.arange(order.shape[0], device=order.device)
@@ -363,27 +307,37 @@ def _run(rows_w, tmin, tmax, nodef, kleaf, inv0, *, live=None,
     return rec, diag
 
 
+def park_dead(rows_w, live, park_dir=(1.0, 1.0, 1.0)):
+    """Six f32 rows with the dead lanes of `live` replaced by a ray far
+    outside any scene (origin 1e30, direction park_dir), so that dead
+    lanes holding NaN/Inf stay finite in every stage."""
+    fill = (BIG, BIG, BIG) + tuple(park_dir)
+    return tuple(torch.where(live, r.to(torch.float32), f)
+                 for r, f in zip(rows_w, fill))
+
+
 def trace_rows_stream3(scene, rows_w, tmin, tmax, live=None,
-                       with_diag: bool = False):
+                       occl: bool = False, with_diag: bool = False):
     """Closest-hit trace of a wave given as six world-space [N] rows
     (ox, oy, oz, dx, dy, dz) against a single-instance scene (check
-    supports(scene)).
+    supports(scene)); with occl, an occlusion trace: t = 0 on occluded
+    rays, FLT_MAX otherwise.
 
     Every packet flagged by the pipeline (walk cut at STEP_CAP, word list
-    past PCAP) is re-traced exactly through the packet tracer.  `live`
-    ([N] bool) masks dead lanes out of every frustum (they may hold
-    NaN/Inf: they are parked first); dead lanes report a miss.  With
-    with_diag, returns (rec, diag) with the pipeline's counters plus
-    "flagged" packets and "residual_rays" re-traced."""
+    past PCAP) is re-traced exactly through the packet tracer (any-hit on
+    occlusion waves, its t normalised to 0 / FLT_MAX as stream3.py:2815-
+    2821 does).  `live` ([N] bool) masks dead lanes out of every frustum
+    (they may hold NaN/Inf: they are parked first); dead lanes report a
+    miss.  With with_diag, returns (rec, diag) with the pipeline's
+    counters plus "flagged" packets and "residual_rays" re-traced."""
     n = rows_w[0].shape[0]
     if live is not None:
         live = live.bool()
-        rows_w = tuple(torch.where(live, r.to(torch.float32),
-                                   BIG if k < 3 else 1.0)
-                       for k, r in enumerate(rows_w))
+        rows_w = park_dead(rows_w, live)
     rec, diag = _run(rows_w, tmin, tmax, scene.knode_f, scene.kleaf,
                      scene.inst_inv[0], live=live,
-                     stable=bool(scene.stable_frames), with_diag=True)
+                     stable=bool(scene.stable_frames), occl=occl,
+                     with_diag=True)
     flagged = torch.nonzero(diag["pkt_flag"] > 0).squeeze(1)
     diag["flagged"] = int(flagged.numel())
     diag["residual_rays"] = 0
@@ -394,7 +348,9 @@ def trace_rows_stream3(scene, rows_w, tmin, tmax, live=None,
         ow = torch.stack([r[sel] for r in rows_w[:3]], dim=1)
         dw = torch.stack([r[sel] for r in rows_w[3:]], dim=1)
         sub = packet_trace.trace_rays_packet(scene, ow, dw, tmin, tmax,
-                                             any_hit=False)
+                                             any_hit=occl)
+        if occl:
+            sub.t = torch.where(sub.hit, 0.0, FLT_MAX)
         for f in ("t", "prim", "slot", "b1", "b2"):
             getattr(rec, f)[sel] = getattr(sub, f).to(getattr(rec, f).dtype)
         diag["residual_rays"] = int(sel.numel())
@@ -403,7 +359,9 @@ def trace_rows_stream3(scene, rows_w, tmin, tmax, live=None,
     return (rec, diag) if with_diag else rec
 
 
-def trace_rays_stream3(scene, origin, direction, tmin, tmax) -> HitRecord:
-    """trace_rows_stream3 on [N, 3] world-space rays (one transpose)."""
+def trace_rays_stream3(scene, origin, direction, tmin, tmax,
+                       any_hit: bool = False) -> HitRecord:
+    """trace_rows_stream3 on [N, 3] world-space rays (one transpose);
+    any_hit runs the occlusion wave."""
     return trace_rows_stream3(scene, rows_from_aos_fast(origin, direction),
-                              tmin, tmax)
+                              tmin, tmax, occl=any_hit)

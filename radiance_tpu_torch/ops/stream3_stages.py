@@ -1,23 +1,26 @@
-"""The stream3 pipeline's kernel stages: four CUDA kernels, their plain
+"""The stream3 pipeline's kernel stages: six CUDA kernels, their plain
 PyTorch versions, and the word-format constants they share.
 
-Port of the Pallas kernels of radiance_tpu/ops/stream3.py that the
-closest-hit primary wave runs (ops/stream3.py drives them):
+Port of the Pallas kernels of radiance_tpu/ops/stream3.py (ops/stream3.py
+drives them):
 
-  A  transpose_rows  csrc/s3_transpose.cu  <- _aos2rows_kernel (:1595),
-                                              _transpose_kernel (:1575)
-  B  stage_emit      csrc/s3_emit.cu       <- _emit3_kernel (:595),
-                                              _emit3t_kernel (:753),
-                                              _emit3ws_kernel (:1031),
-                                              _emit3wst_kernel (:1257)
-  C  stage_refine    csrc/s3_refine.cu     <- _refine3_kernel (:1635)
-  D  stage_isect     csrc/s3_isect.cu      <- _isect3_kernel (:1853)
+  A  transpose_rows   csrc/s3_transpose.cu   <- _aos2rows_kernel (:1595),
+                                                _transpose_kernel (:1575)
+  B  stage_emit       csrc/s3_emit.cu        <- _emit3_kernel (:595),
+                                                _emit3t_kernel (:753),
+                                                _emit3ws_kernel (:1031),
+                                                _emit3wst_kernel (:1257)
+  C  stage_refine     csrc/s3_refine.cu      <- _refine3_kernel (:1635)
+  D  stage_isect      csrc/s3_isect.cu       <- _isect3_kernel (:1853)
+  E  stage_isect(occl=True)
+                      csrc/s3_isect_occl.cu  <- _isect3_occl_kernel (:2100)
+  F  octant_scalars   csrc/s3_oscal.cu       <- _oscal_kernel (:294)
 
 Each stage takes its kernel for CUDA tensors (no fallback: a failed
 launch raises) and its plain version for CPU tensors.  The plain
-versions are vectorised over slots: emit is a loop over walk steps,
-refine and isect loops over word positions.  Each kernel wrapper counts
-its launches in `<wrapper>.launches`.
+versions are vectorised over slots or packets: emit is a loop over walk
+steps, refine and both pair intersections loops over word positions.
+Each kernel wrapper counts its launches in `<wrapper>.launches`.
 
 Word format (the compiled-TPU default, 9 tq bits): one i32 per emitted
 (leaf, slot) pair, (leaf + 1) << 17 | keepmask << 9 | tq.  keepmask has
@@ -72,11 +75,20 @@ LIBS = {
     "isect": cuda_build.KernelLib("s3_isect", (
         ("rt_s3_isect", (_P, _P, _P, _P, _P, _I32, _I32, _F32, _F32, _I32,
                          _P, _P)),)),
+    "isect_occl": cuda_build.KernelLib("s3_isect_occl", (
+        ("rt_s3_isect_occl", (_P, _P, _P, _P, _P, _I32, _I32, _F32, _F32,
+                              _I32, _P, _P)),)),
+    # oscal: minima, maxima, |d| and an IEEE division, built as emit and
+    # refine are so that no contraction creeps in: its scalars must equal
+    # the plain version's
+    "oscal": cuda_build.KernelLib("s3_oscal", (
+        ("rt_s3_oscal", (_P, _P, _P, _P, _P, _P, _P, _I32, _P, _P, _P,
+                         _P)),), ("-fmad=false",)),
 }
 
 
 def load_kernels():
-    """Build (in parallel, where stale) and load the four libraries."""
+    """Build (in parallel, where stale) and load the six libraries."""
     return cuda_build.load_all(list(LIBS.values()))
 
 
@@ -156,6 +168,119 @@ def rows_from_aos_fast(origin: torch.Tensor, direction: torch.Tensor):
 def feats_rows_to_major(feats_t: torch.Tensor) -> torch.Tensor:
     """[16, Npad] phase-2 features -> ray-major [Npad, 16]."""
     return transpose_rows(feats_t.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# F. prep octant scalars
+# ---------------------------------------------------------------------------
+
+def _interval_scalars(oc, dc, mask=None):
+    """Interval-frustum scalars for one axis over a ray-group axis:
+    oc, dc [ngrp, g] -> (sgn, olo, ohi, ilo, ihi) [ngrp].  With `mask`,
+    rays outside the subset are ignored."""
+    def lo_hi(v, lo_fill, hi_fill):
+        if mask is None:
+            return v.amin(dim=1), v.amax(dim=1)
+        return (torch.where(mask, v, lo_fill).amin(dim=1),
+                torch.where(mask, v, hi_fill).amax(dim=1))
+
+    dmin, dmax = lo_hi(dc, BIG, -BIG)
+    neg = dmax < 0.0
+    sgn = torch.where(dmin > 0.0, 1.0, torch.where(neg, -1.0, 0.0))
+    osn = oc * torch.where(neg, -1.0, 1.0)[:, None]
+    olo, ohi = lo_hi(osn, BIG, -BIG)
+    inv = torch.clamp(1.0 / torch.clamp(dc.abs(), min=1e-30), max=BIG)
+    ilo, ihi = lo_hi(inv, BIG, 0.0)
+    return sgn, olo, ohi, ilo, ihi
+
+
+def group_scalars(rows, group, mask=None):
+    """[ngrp, 16] scalar rows (sgn3, olo3, ohi3, ilo3, ihi3, pad) for
+    every `group`-ray window of the six component rows."""
+    ox, oy, oz, dx, dy, dz = rows
+    ngrp = ox.shape[0] // group
+    cols = [[], [], [], [], []]
+    for oc, dc in ((ox, dx), (oy, dy), (oz, dz)):
+        vals = _interval_scalars(oc.reshape(ngrp, group),
+                                 dc.reshape(ngrp, group), mask)
+        for lst, v in zip(cols, vals):
+            lst.append(v)
+    flat = [v for lst in cols for v in lst]
+    flat.append(torch.zeros(ngrp, dtype=torch.float32, device=ox.device))
+    return torch.stack(flat, dim=1)
+
+
+def _oscal_plain(rows, live, npk):
+    """Plain version of kernel F: the XLA formulation of the octant
+    scalars (stream3.py::_octant_scalars, :411-446), [npk, 8, PKT]
+    broadcasts reduced over the packet axis."""
+    ox, oy, oz, dx, dy, dz = rows
+    dev = ox.device
+    oct_of = ((dx < 0).to(torch.int64) + 2 * (dy < 0).to(torch.int64)
+              + 4 * (dz < 0).to(torch.int64)).reshape(npk, 1, PKT)
+    omask = oct_of == torch.arange(8, device=dev)[None, :, None]
+    if live is not None:
+        omask = omask & live.reshape(npk, 1, PKT)
+    present = omask.any(dim=2)
+    cols = []
+    for oc, dc in ((ox, dx), (oy, dy), (oz, dz)):
+        ocp = oc.reshape(npk, 1, PKT)
+        dcp = dc.reshape(npk, 1, PKT)
+        dmin = torch.where(omask, dcp, BIG).amin(dim=2)
+        dmax = torch.where(omask, dcp, -BIG).amax(dim=2)
+        sgn = torch.where(dmin > 0.0, 1.0,
+                          torch.where(dmax < 0.0, -1.0, 0.0))
+        osn = ocp * torch.where(dmax < 0.0, -1.0, 1.0)[:, :, None]
+        olo = torch.where(omask, osn, BIG).amin(dim=2)
+        ohi = torch.where(omask, osn, -BIG).amax(dim=2)
+        inv = torch.clamp(1.0 / torch.clamp(dcp.abs(), min=1e-30), max=BIG)
+        ilo = torch.where(omask, inv, BIG).amin(dim=2)
+        ihi = torch.where(omask, inv, 0.0).amax(dim=2)
+        cols.append((sgn, olo, ohi, ilo, ihi))
+    cand = torch.stack(
+        [cols[k][f] for f in range(5) for k in range(3)]
+        + [torch.zeros(npk, 8, dtype=torch.float32, device=dev)], dim=2)
+    full_pkt = group_scalars(
+        rows, PKT, mask=None if live is None else live.reshape(npk, PKT))
+    return cand, present, full_pkt
+
+
+def oscal_cuda(rows, live, npk):
+    """Kernel F: (cand [npk, 8, 16] f32, present [npk, 8] bool, full_pkt
+    [npk, 16] f32) from six contiguous [npk * PKT] f32 rows and an
+    optional [npk * PKT] bool live mask."""
+    dev = _cuda_only("oscal_cuda", rows[0])
+    chk = functools.partial(cuda_build.check_tensor, "oscal_cuda", dev=dev)
+    for k, r in enumerate(rows):
+        chk(f"rows[{k}]", r, torch.float32, (npk * PKT,))
+    if live is not None:
+        chk("live", live, torch.bool, (npk * PKT,))
+    cand = torch.empty(npk, 8, 16, dtype=torch.float32, device=dev)
+    present = torch.empty(npk, 8, dtype=torch.bool, device=dev)
+    full = torch.empty(npk, 16, dtype=torch.float32, device=dev)
+    if npk:
+        cuda_build.check_launch("s3_oscal", _lib("oscal").rt_s3_oscal(
+            *(r.data_ptr() for r in rows),
+            None if live is None else live.data_ptr(), int(npk),
+            cand.data_ptr(), present.data_ptr(), full.data_ptr(),
+            _stream(dev)))
+        oscal_cuda.launches += 1
+    return cand, present, full
+
+
+oscal_cuda.launches = 0
+
+
+def octant_scalars(rows, live, npk):
+    """(cand [npk, 8, 16], present [npk, 8] bool, full_pkt [npk, 16]):
+    per (packet, direction octant) interval scalars with lane 15 zero,
+    octant presence, and the whole-packet scalars, over the member rays
+    of `live` (all rays if None).  Kernel F on CUDA tensors -- the JAX
+    package's opt-in single-pass form, bit-identical to its XLA form by
+    the reference's own statement (stream3.py:303-305) -- and the XLA
+    form on CPU tensors."""
+    fn = oscal_cuda if _route(rows[0]) == "cuda" else _oscal_plain
+    return fn(rows, live, npk)
 
 
 # ---------------------------------------------------------------------------
@@ -363,11 +488,38 @@ def stage_refine(words, emeta, slot_pkt, feats_t, aabb8, tmax, *,
 _ISECT_CHUNK = 256          # (slot, block) pairs per batched leaf product
 
 
+def _pair_tests(x, wf, stable, tmin_t, tmax_t):
+    """The Pluecker tests of c (block, leaf) pairs: rays x [c, BLK, 16]
+    against leaf matrices wf [c, 16, 4T] -> (s0, s2, rv, t, ok), each
+    [c, BLK, T]: the [BLK, 16] x [16, 4T] product, the stable-frame
+    correction (o - c) x d, the sign test and the (tmin, tmax) window.
+    The correction is added after the product, as the reference does:
+    the side products cancel, so the order of their terms shows in t."""
+    nt = wf.shape[2] // 4
+    m = torch.bmm(x, wf)
+    if stable:
+        lo = x[:, :, 6:9] - wf[:, 12:15, 0][:, None, :]
+        dv = x[:, :, 0:3]
+        rm0 = lo[..., 1:2] * dv[..., 2:3] - lo[..., 2:3] * dv[..., 1:2]
+        rm1 = lo[..., 2:3] * dv[..., 0:1] - lo[..., 0:1] * dv[..., 2:3]
+        rm2 = lo[..., 0:1] * dv[..., 1:2] - lo[..., 1:2] * dv[..., 0:1]
+        m = (m + rm0 * wf[:, 3:4, :] + rm1 * wf[:, 4:5, :]
+             + rm2 * wf[:, 5:6, :])
+    s0, s1, s2 = m[..., :nt], m[..., nt:2 * nt], m[..., 2 * nt:3 * nt]
+    num = m[..., 3 * nt:]
+    ssum = s0 + s1 + s2
+    # the kernels' bitcast test ((i0 ^ i1) | (i1 ^ i2)) >= 0: equal signs
+    g1 = torch.signbit(s1)
+    inside = (torch.signbit(s0) == g1) & (g1 == torch.signbit(s2))
+    rv = 1.0 / ssum                         # ssum == 0 -> inf/nan -> miss
+    t = -num * rv
+    return s0, s2, rv, t, inside & (t > tmin_t) & (t < tmax_t)
+
+
 def _isect_plain(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
                  stable):
-    """Plain version of kernel D: for each word position, the [BLK, 16] x
-    [16, 4T] Pluecker product of every kept (slot, block) pair, the
-    stable-frame correction, the sign test and t window, then a running
+    """Plain version of kernel D: for each word position, the Pluecker
+    tests of every kept (slot, block) pair (_pair_tests), then a running
     per-ray best with the reference's tie rule (lower t, then lower leaf
     lane, then the earlier word)."""
     dev = words.device
@@ -397,23 +549,7 @@ def _isect_plain(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
             leaf = torch.clamp((w[q] >> W_LEAF_SHIFT) - 1, min=0).to(i64)
             x = xs[slot_pkt[slot].to(i64), b]                  # [c, BLK, 16]
             wf = kleaf[leaf]                                   # [c, 16, 4T]
-            m = torch.bmm(x, wf)
-            if stable:
-                lo = x[:, :, 6:9] - wf[:, 12:15, 0][:, None, :]
-                dv = x[:, :, 0:3]
-                rm0 = lo[..., 1:2] * dv[..., 2:3] - lo[..., 2:3] * dv[..., 1:2]
-                rm1 = lo[..., 2:3] * dv[..., 0:1] - lo[..., 0:1] * dv[..., 2:3]
-                rm2 = lo[..., 0:1] * dv[..., 1:2] - lo[..., 1:2] * dv[..., 0:1]
-                m = (m + rm0 * wf[:, 3:4, :] + rm1 * wf[:, 4:5, :]
-                     + rm2 * wf[:, 5:6, :])
-            s0, s1, s2 = m[..., :nt], m[..., nt:2 * nt], m[..., 2 * nt:3 * nt]
-            num = m[..., 3 * nt:]
-            ssum = s0 + s1 + s2
-            i0, i1, i2 = (v.contiguous().view(i32) for v in (s0, s1, s2))
-            inside = ((i0 ^ i1) | (i1 ^ i2)) >= 0
-            rv = 1.0 / ssum                 # ssum == 0 -> inf/nan -> miss
-            t = -num * rv
-            ok = inside & (t > tmin_t) & (t < tmax_t)
+            s0, s2, rv, t, ok = _pair_tests(x, wf, stable, tmin_t, tmax_t)
             tt = torch.where(ok, t, FMAX)                      # [c, BLK, T]
             tw = tt.amin(dim=2)
             lw = torch.where(tt == tw[..., None], lanes, nt).amin(dim=2)
@@ -433,13 +569,9 @@ def _isect_plain(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
     return torch.stack([best_t, best_prim, best_b1, best_b2], dim=2)
 
 
-def isect_cuda(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
-               stable):
-    """Kernel D: out [nslot, PKT, 4] f32 (t, prim, b1, b2); rays with no
-    hit hold (FLT_MAX, -1, 0, 0)."""
-    dev = _cuda_only("isect_cuda", words)
-    chk = functools.partial(cuda_build.check_tensor, "isect_cuda",
-                            dev=dev)
+def _check_isect_args(fn, words, emeta, slot_pkt, feats, kleaf, pcap):
+    dev = _cuda_only(fn, words)
+    chk = functools.partial(cuda_build.check_tensor, fn, dev=dev)
     nslot = words.shape[0]
     chk("words", words, torch.int32, (nslot, pcap))
     chk("emeta", emeta, torch.int32, (nslot, 8))
@@ -447,7 +579,17 @@ def isect_cuda(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
     chk("feats", feats, torch.float32, (None, 16))
     chk("kleaf", kleaf, torch.float32, (None, 16, 4 * T))
     if feats.shape[0] % PKT:
-        raise ValueError("isect_cuda: feats must hold whole packets")
+        raise ValueError(f"{fn}: feats must hold whole packets")
+    return dev
+
+
+def isect_cuda(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
+               stable):
+    """Kernel D: out [nslot, PKT, 4] f32 (t, prim, b1, b2); rays with no
+    hit hold (FLT_MAX, -1, 0, 0)."""
+    dev = _check_isect_args("isect_cuda", words, emeta, slot_pkt, feats,
+                            kleaf, pcap)
+    nslot = words.shape[0]
     out = torch.empty(nslot, PKT, 4, dtype=torch.float32, device=dev)
     if nslot:
         cuda_build.check_launch("s3_isect", _lib("isect").rt_s3_isect(
@@ -462,17 +604,100 @@ def isect_cuda(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
 isect_cuda.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# E. pair intersection (occlusion)
+# ---------------------------------------------------------------------------
+
+def _isect_occl_plain(words, emeta, slot_pkt, feats, kleaf, tmin, tmax,
+                      pcap, stable, stats=None, live=None):
+    """Plain version of kernel E under the reference's schedule: words in
+    list order, each kept (slot, block) pair tested (_pair_tests) unless
+    every ray of its block is already occluded, a slot's list left once
+    all its rays are.  A ray is occluded by any accepted triangle, so the
+    culls change no result.  stats, if a dict, receives "pairs": the
+    (leaf, block) pairs tested, and "ray_tests": the rays of those pairs
+    that the function needs tested, those not yet occluded and, with
+    `live` ([Npad] bool, ray-major like feats), live."""
+    dev = words.device
+    f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    nslot = words.shape[0]
+    tmin_t = torch.tensor(tmin, dtype=f32, device=dev)
+    tmax_t = torch.tensor(tmax, dtype=f32, device=dev)
+    cnt = torch.clamp(emeta[:, 0], max=pcap).to(i64)
+    occ = torch.zeros(nslot, PKT, dtype=torch.bool, device=dev)
+    xs = feats.view(-1, 8, BLK, 16)
+    in_blk = torch.arange(BLK, dtype=i64, device=dev)
+    bits = torch.arange(8, dtype=i32, device=dev)
+    lv = None if live is None else live.view(-1, 8, BLK)
+    pairs = 0
+    ray_tests = torch.zeros((), dtype=i64, device=dev)
+    for j in range(int(cnt.max()) if nslot else 0):
+        sat = occ.view(nslot, 8, BLK).all(dim=2)            # [nslot, 8]
+        sel = torch.nonzero((cnt > j) & ~sat.all(dim=1)).squeeze(1)
+        w = words[sel, j]
+        kept = (((w >> W_KEEP_SHIFT)[:, None] >> bits) & 1).bool()
+        ps, pb = torch.nonzero(kept & ~sat[sel], as_tuple=True)
+        pairs += ps.numel()
+        for c in range(0, ps.numel(), _ISECT_CHUNK):
+            q, b = ps[c:c + _ISECT_CHUNK], pb[c:c + _ISECT_CHUNK]
+            slot = sel[q]
+            leaf = torch.clamp((w[q] >> W_LEAF_SHIFT) - 1, min=0).to(i64)
+            pk = slot_pkt[slot].to(i64)
+            x = xs[pk, b]                                      # [c, BLK, 16]
+            ok = _pair_tests(x, kleaf[leaf], stable, tmin_t, tmax_t)[4]
+            rr = (b * BLK)[:, None] + in_blk                   # [c, BLK]
+            ss = slot[:, None].expand_as(rr)
+            if stats is not None:
+                need = ~occ[ss, rr]
+                ray_tests += (need if lv is None else need & lv[pk, b]).sum()
+            occ[ss, rr] = occ[ss, rr] | ok.any(dim=2)
+    if stats is not None:
+        stats["pairs"] = pairs
+        stats["ray_tests"] = int(ray_tests)
+    out = torch.zeros(nslot, PKT, 4, dtype=f32, device=dev)
+    out[..., 0] = torch.where(occ, 0.0, FMAX)
+    out[..., 1] = torch.where(occ, 0.0, -1.0)
+    return out
+
+
+def isect_occl_cuda(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
+                    stable):
+    """Kernel E: out [nslot, PKT, 4] f32, (0, 0, 0, 0) on an occluded ray,
+    (FLT_MAX, -1, 0, 0) otherwise."""
+    dev = _check_isect_args("isect_occl_cuda", words, emeta, slot_pkt,
+                            feats, kleaf, pcap)
+    nslot = words.shape[0]
+    out = torch.empty(nslot, PKT, 4, dtype=torch.float32, device=dev)
+    if nslot:
+        cuda_build.check_launch("s3_isect_occl", _lib("isect_occl")
+                                .rt_s3_isect_occl(
+            words.data_ptr(), emeta.data_ptr(), slot_pkt.data_ptr(),
+            feats.data_ptr(), kleaf.data_ptr(), nslot, int(pcap),
+            float(tmin), float(tmax), int(bool(stable)), out.data_ptr(),
+            _stream(dev)))
+        isect_occl_cuda.launches += 1
+    return out
+
+
+isect_occl_cuda.launches = 0
+
+
 def stage_isect(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, *,
-                stable: bool, pcap=PCAP):
-    """Closest-hit pair intersection of every slot's word list against
-    its packet's rays (ray-major feats [Npad, 16])."""
-    fn = isect_cuda if _route(words) == "cuda" else _isect_plain
+                stable: bool, pcap=PCAP, occl: bool = False):
+    """Pair intersection of every slot's word list against its packet's
+    rays (ray-major feats [Npad, 16]): closest hit (kernel D, on refined
+    lists) or, with occl, occlusion (kernel E, on the emitted lists)."""
+    if _route(words) == "cuda":
+        fn = isect_occl_cuda if occl else isect_cuda
+    else:
+        fn = _isect_occl_plain if occl else _isect_plain
     return fn(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
               stable)
 
 
 KERNELS = {"transpose": transpose_cuda, "emit": emit_cuda,
-           "refine": refine_cuda, "isect": isect_cuda}
+           "refine": refine_cuda, "isect": isect_cuda,
+           "isect_occl": isect_occl_cuda, "oscal": oscal_cuda}
 
 
 def reset_launches() -> None:

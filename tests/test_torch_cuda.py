@@ -1,6 +1,8 @@
 """The CUDA kernels vs their plain PyTorch versions, on the card: the
-packet-trace kernel and the stream3 pipeline's four kernels (transpose,
-emit walk, exact refine, pair intersection).
+packet-trace kernel and the stream3 pipeline's six kernels (transpose,
+emit walk, exact refine, closest-hit and occlusion pair intersection,
+prep octant scalars), and the many-instance scan on the card against its
+CPU route.
 
 Every case is marked `gpu` and skips (with the reason) where no CUDA
 card is present; the `cuda` fixture decides at run time, never at
@@ -16,7 +18,11 @@ order, with FMAs, than the plain version's matmul; near-cancelling side
 products amplify that on a few rays); any-hit variants are compared on
 occluded or not.  Stream3: the transposes are bit-exact, emit and
 refine give identical word lists (no FMA contraction in either), the
-pair intersection and the whole wave hold the traversal bars.
+pair intersection and the whole wave hold the traversal bars.  The
+octant scalars equal the plain version's value for value (a minimum or
+maximum over +0 and -0 may return either zero); the occlusion pair
+kernel's out lanes equal the plain version's on >= 0.999 of rays (FMA
+contraction may move a hit at t ~ tmin or tmax, or on an edge).
 """
 
 import numpy as np
@@ -31,6 +37,7 @@ from radiance_tpu_torch.engine import shaders
 from radiance_tpu_torch.engine.pathtracer import WavefrontPathTracer
 from radiance_tpu_torch.ops import packet_trace as pk
 from radiance_tpu_torch.ops import stream3 as s3
+from radiance_tpu_torch.ops import stream3_multi as s3m
 from radiance_tpu_torch.ops import stream3_stages as stg
 from radiance_tpu_torch.ops.intersect import FLT_MAX, intersect_triangle_soup
 from radiance_tpu_torch.scene import procedural
@@ -290,8 +297,115 @@ def test_s3_wave_matches_packet_kernel(cuda, masked):
                                 1e3, live=live)
     ref = pk.trace_rays_packet(ds, o_t, d_t, 1e-3, 1e3, live=live)
     torch.cuda.synchronize()
-    assert all(fn.launches >= 1 for fn in stg.KERNELS.values())
+    closest = ("transpose", "emit", "refine", "isect", "oscal")
+    assert all(stg.KERNELS[k].launches >= 1 for k in closest)
+    assert stg.isect_occl_cuda.launches == 0
     hit = _agree(ref, got, False)
     assert hit.mean() > 0.05
     if masked:
         assert not hit[~live.cpu().numpy()].any()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_s3_oscal_matches_plain(cuda, masked):
+    rng = np.random.default_rng(5)
+    n = 8 * stg.PKT
+    o, d = _rays(5, n, 6.0)
+    d[: n // 8, 0] = 0.0
+    d[n // 8: n // 4, 1] = -0.0
+    o[n // 4: n // 2, 0] = np.where(np.arange(n // 4) % 2, 0.0, -0.0)
+    rows = tuple(torch.from_numpy(np.ascontiguousarray(v)).to(cuda)
+                 for v in (*o.T, *d.T))
+    live = (torch.from_numpy(rng.uniform(size=n) < 0.6).to(cuda)
+            if masked else None)
+    got = stg.oscal_cuda(rows, live, 8)
+    ref = stg._oscal_plain(rows, live, 8)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a, b)
+    assert stg.oscal_cuda.launches >= 1
+
+
+def test_s3_isect_occl_matches_plain(cuda):
+    """Kernel E against its plain version on the UNREFINED word lists of
+    a mixed wave, in both frame modes."""
+    for stable in (True, False):
+        ds = _scene(_mesh(10, 3000, 8.0)).device_scene(cuda,
+                                                       stable_frames=stable)
+        o, d = _rays(7, 8192, 10.0)
+        rows = s3.rows_from_aos(torch.from_numpy(o).to(cuda),
+                                torch.from_numpy(d).to(cuda))
+        _, feats_t, scal, smeta, bscal, _ = s3._stage_prep(
+            rows, ds.knode_f, ds.inst_inv[0], stable=stable)
+        words, emeta = stg.emit_cuda(scal, smeta, bscal, ds.knode_f, 1e3,
+                                     stg.STEP_CAP, stg.PCAP)
+        args = (words, emeta, smeta[:, 0].contiguous(),
+                feats_t.t().contiguous(), ds.kleaf, 1e-3, 1e3, stg.PCAP,
+                stable)
+        ok = stg.isect_occl_cuda(*args)
+        op = stg._isect_occl_plain(*args)
+        same = (ok == op).all(dim=2).float().mean()
+        assert float(same) >= 0.999
+        occ = ok[..., 0] == 0
+        assert 0.02 < float(occ.float().mean()) < 0.98
+
+
+def test_s3_occl_wave_matches_packet_kernel(cuda):
+    """trace_rays_stream3(any_hit=True) on the card (kernels F, B, A, E;
+    no refine) against the packet kernel's any-hit, two exact tracers:
+    occluded-or-not agreement."""
+    ds = _scene(_mesh(11, 4000, 8.0)).device_scene(cuda)
+    o, d = _rays(3, 20000, 10.0)
+    o_t, d_t = torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda)
+    stg.reset_launches()
+    got = s3.trace_rays_stream3(ds, o_t, d_t, 1e-3, 1e3, any_hit=True)
+    ref = pk.trace_rays_packet(ds, o_t, d_t, 1e-3, 1e3, any_hit=True)
+    torch.cuda.synchronize()
+    assert _agree(ref, got, True).mean() > 0.05
+    assert stg.isect_occl_cuda.launches >= 1
+    assert stg.refine_cuda.launches == stg.isect_cuda.launches == 0
+    assert set(np.unique(got.t.cpu().numpy())) <= {0.0, np.float32(FLT_MAX)}
+
+
+def _multi_scene(dev, n_inst=12, tris_per=200, seed=4):
+    rng = np.random.default_rng(seed)
+    insts = []
+    for i in range(n_inst):
+        c = rng.uniform(-2, 2, (tris_per, 3)).astype(np.float32)
+        v = (c[:, None, :] + rng.normal(scale=0.3, size=(tris_per, 3, 3))
+             .astype(np.float32)).reshape(-1, 3)
+        tf = np.eye(4, dtype=np.float32)
+        tf[:3, 3] = rng.uniform(-8, 8, 3)
+        insts.append(types.Instance(tf, 0, i, accel.BuildBottomAccelStruct(
+            types.Mesh(v, np.arange(len(v), dtype=np.uint32)
+                       .reshape(-1, 3)))))
+    return accel.BuildTopAccelStruct(insts).device_scene(dev)
+
+
+@pytest.mark.parametrize("occl", [False, True])
+def test_trace_rows_multi_on_card_matches_cpu(cuda, occl):
+    """The instance scan on the card (kernels F, B, A and C + D or E)
+    against its CPU route (the plain versions) and against the packet
+    kernel's per-instance sweeps; the same poisoned rays."""
+    o, d = _rays(6, 20000, 12.0)
+    out = {}
+    for dev in ("cpu", cuda):
+        ds = _multi_scene(dev)
+        stg.reset_launches()
+        rows = s3.rows_from_aos(torch.from_numpy(o).to(dev),
+                                torch.from_numpy(d).to(dev))
+        out[str(dev)] = s3m.trace_rows_multi(ds, s3m.multi_tables(ds), rows,
+                                             1e-3, 1e3, occl=occl)
+    torch.cuda.synchronize()
+    assert stg.oscal_cuda.launches >= 1
+    assert (stg.isect_occl_cuda.launches >= 1) == occl
+    got, ref = out["cuda"], out["cpu"]
+    assert torch.equal(got.slot.cpu() == -2, ref.slot == -2)
+    hit = _agree(ref, got, occl)
+    assert hit.mean() > 0.01
+    sweeps = pk.trace_rays_packet_multi(ds, torch.from_numpy(o).to(cuda),
+                                        torch.from_numpy(d).to(cuda), 1e-3,
+                                        1e3, any_hit=occl)
+    ok = (got.slot != -2).cpu().numpy()
+    assert ((sweeps.t.cpu().numpy() < FLT_MAX)
+            == (got.t.cpu().numpy() < FLT_MAX))[ok].mean() >= 0.999
