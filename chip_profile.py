@@ -53,10 +53,10 @@ KINDS = (  # (kind, substrings of a kernel's name), first match wins
     ("packet_trace", ("packet_trace",)),
     ("stream3_emit", ("emit_kernel",)),
     ("stream3_refine", ("refine_kernel",)),
-    ("stream3_isect_occl", ("isect_occl_kernel",)),
+    ("stream3_isect_occl", ("isect_occl_kernel", "fill_miss")),
     ("stream3_isect", ("isect_kernel",)),
     ("stream3_oscal", ("oscal_kernel",)),
-    ("stream3_transpose", ("transpose_kernel",)),
+    ("stream3_transpose", ("aos_rows_kernel", "rows16_kernel")),
     ("sort", ("sort", "Radix", "radix")),
     ("copy/cat", ("Cat", "copy", "Memcpy", "Memset")),
     ("reduce", ("reduce",)),

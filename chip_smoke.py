@@ -26,10 +26,12 @@ prints no result):
      plain version's walk counts give each variant's bound;
   5. stream3 on the city's 1920x1080 primary wave (2,073,600 rays): each
      of its four closest-hit kernels against its plain version on the
-     card at the wave's shapes (transposes bit-exact, emit and refine
-     word lists identical, pair intersection per ray to the parity
-     bars), each timed; the whole wave against the packet kernel (two
-     exact tracers, the same bars), its stage times and diagnostics;
+     card at the wave's shapes (transposes bit-exact, also at odd sizes,
+     emit and refine word lists identical, pair intersection per ray to
+     the parity bars), each timed (the transposes' two launches each
+     alone and together, beside .t().contiguous()); the whole wave
+     against the packet kernel (two exact tracers, the same bars), its
+     stage times and diagnostics;
   6. the main path: WavefrontPathTracer.render on the city at 1920x1080,
      batch=4, depth=4 (primary waves through stream3), then sample1's
      Cornell box at 512x512, batch=16, depth=4, with launch counts reset
@@ -38,16 +40,19 @@ prints no result):
      city's 1080p primary rows, masked and unmasked, equal to its plain
      version value for value, and the whole prep timed with F and with
      the plain form; kernel E (occlusion pairs) on the city's 1080p
-     shadow wave against its plain version, and that wave through
-     trace_rows_stream3(occl=True) against the packet kernel's any-hit;
-     the 64-instance, 1M-triangle scene of bench.py --multi (built here
-     with the port's accel) traced on the bench's tile-ordered 1080p
-     primary rays through trace_rows_multi against the packet kernel's
-     per-instance sweeps, then its shadow wave as occlusion, both timed,
-     E and F per launch and held against their plain versions on the
-     largest launch of each wave; then an engine frame on that scene at
-     1920x1080, batch=1, depth=2 (depth cut for time, not the width),
-     with launch counts reset just before and read just after;
+     shadow wave against its plain version, on the emitted lists and on
+     the lists refined by kernel C, each timed with its bound, and that
+     wave through trace_rows_stream3(occl=True) against the packet
+     kernel's any-hit; the 64-instance, 1M-triangle scene of bench.py
+     --multi (built here with the port's accel) traced on the bench's
+     tile-ordered 1080p primary rays through trace_rows_multi against the
+     packet kernel's per-instance sweeps, then its shadow wave as
+     occlusion, both timed, E and F per launch and held against their
+     plain versions on the largest launch of each wave; then an engine
+     frame on that scene at 1920x1080, batch=1, depth=2 (depth cut for
+     time, not the width), with launch counts reset just before and read
+     just after, and a second frame with E held against its plain
+     version, timed and bounded on every launch (the kernels' line);
   8. the kernels' JSON line, the card line, and the contract's last line.
 
 Imports nothing of JAX or radiance_tpu (bench.py's numpy-only scene
@@ -268,6 +273,46 @@ def bound(flops, nbytes):
     and `nbytes` of device-memory traffic at the card's peaks."""
     f_ms, b_ms = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (f_ms, "operations") if f_ms > b_ms else (b_ms, "bytes")
+
+
+def occl_bound(stg, args, st, out):
+    """Kernel E's (bound, words, leaves) on one launch: the ray-triangle
+    tests the function needs (the plain version's stats["tri_tests"]: each
+    live ray not yet occluded, under the reference's schedule, against its
+    leaf's triangle lanes) at 22 FMAs each, and the bytes of the features,
+    the valid words, the leaves they name (each once) and the output."""
+    words, emeta, _, feats, kleaf = args[:5]
+    cnt = torch.clamp(emeta[:, 0], max=stg.PCAP)
+    valid = (torch.arange(words.shape[1], device=words.device)[None, :]
+             < cnt[:, None])
+    nwords = int(cnt.sum())
+    nleaves = int(torch.unique(
+        (words[valid] >> stg.W_LEAF_SHIFT) - 1).numel())
+    return (bound(st["tri_tests"] * FLOPS_PER_PAIR,
+                  feats.numel() * 4 + nwords * 4
+                  + nleaves * kleaf[0].numel() * 4 + out.numel() * 4),
+            nwords, nleaves)
+
+
+def occl_launch(stg, args):
+    """Kernel E on one launch's arguments (stage_isect's, then pcap and
+    stable) against its plain version: times (CUDA events), the plain
+    version's stats, the bound, and occluded-or-not of both with the live
+    slot lanes.  trace_rows_multi parks a sub-wave's dead lanes at origin
+    1e30, so the live lanes are those with a nearer object-space origin;
+    fails if a dead lane differs from the plain version."""
+    live_rows = args[3][:, 6:9].abs().amax(dim=1) < 1e29
+    live = live_rows.view(-1, stg.PKT)[args[2].long()]
+    ms, out_k = cuda_ms(lambda: stg.isect_occl_cuda(*args), 5)
+    st = {}
+    plain_ms, out_p = cuda_ms(lambda: stg._isect_occl_plain(
+        *args, stats=st, live=live_rows), 1, warmup=False)
+    if not bool((out_k == out_p).all(dim=2)[~live].all()):
+        raise AssertionError("isect_occl differs from plain on a dead lane")
+    b, nwords, nleaves = occl_bound(stg, args, st, out_k)
+    return dict(st, ms=ms, plain_ms=plain_ms, bound=b, words=nwords,
+                leaves=nleaves, live=live, occ_k=out_k[..., 0] == 0,
+                occ_p=out_p[..., 0] == 0)
 
 
 def hold_prims(name, t_k, prim_k, t_p, prim_p):
@@ -800,7 +845,9 @@ def main() -> int:
         if not same:
             raise AssertionError(f"{name}: transpose not bit-exact")
 
-    # A: the wave's AoS -> rows and the features' rows -> ray-major
+    # A: the wave's AoS -> rows (one launch for o and d) and the
+    # features' rows -> ray-major, bit-exact against .t().contiguous() at
+    # the wave's shapes and at odd ones
     rows = s3.rows_from_aos_fast(o1, d1)
     exact("A rows_from_aos_fast", torch.stack(rows),
           torch.cat([o1.t().contiguous(), d1.t().contiguous()]))
@@ -810,13 +857,38 @@ def main() -> int:
     exact("A feats_rows_to_major", feats, feats_t.t().contiguous())
     npad = feats_t.shape[1]
     nslot = scal.shape[0]
-    a_ms, _ = cuda_ms(lambda: (stg.transpose_cuda(o1), stg.transpose_cuda(d1),
-                               stg.transpose_cuda(feats_t)), 10)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for m in (1, 31, 1025, 5000, 3 * stg.PKT + 7):
+        x = torch.randn(m, 6, device=dev, generator=gen)
+        xo, xd = x[:, :3].contiguous(), x[:, 3:].contiguous()
+        exact(f"A aos_rows n={m}", stg.aos_rows_cuda(xo, xd),
+              torch.cat([xo.t(), xd.t()]).contiguous())
+    exact("A aos_rows on views offset by one ray (scalar path)",
+          stg.aos_rows_cuda(o1[1:], d1[1:]),
+          torch.cat([o1[1:].t(), d1[1:].t()]).contiguous())
+    # past a 256-column tile boundary: a ragged last tile, then no float4
+    for c in (npad + 4, npad + 1, 3):
+        x = torch.randn(16, c, device=dev, generator=gen)
+        exact(f"A transpose [16, {c}]", stg.transpose_cuda(x),
+              x.t().contiguous())
+    del x, xo, xd
+    a_rows_ms, _ = cuda_ms(lambda: stg.aos_rows_cuda(o1, d1), 20)
+    a_feats_ms, _ = cuda_ms(lambda: stg.transpose_cuda(feats_t), 20)
+    a_ms, _ = cuda_ms(lambda: (stg.aos_rows_cuda(o1, d1),
+                               stg.transpose_cuda(feats_t)), 20)
     a_plain, _ = cuda_ms(lambda: (o1.t().contiguous(), d1.t().contiguous(),
-                                  feats_t.t().contiguous()), 10)
+                                  feats_t.t().contiguous()), 20)
+    # the kernels' line counts A's launches, two a wave: its numbers are
+    # per launch, half the wave's
     s3k["transpose"] = dict(
-        ms=a_ms, plain_ms=a_plain, library_ms=a_plain, max_abs_err=0.0,
-        bound=bound(0, 2 * 4 * (6 * n + 16 * npad)))
+        ms=a_ms / 2, plain_ms=a_plain / 2, library_ms=a_plain / 2,
+        max_abs_err=0.0, bound=bound(0, 4 * (6 * n + 16 * npad)))
+    log(f"   A ({card}): AoS -> rows {a_rows_ms:.4f} ms (bound "
+        f"{bound(0, 2 * 4 * 6 * n)[0]:.4f}), features -> ray-major "
+        f"{a_feats_ms:.4f} ms (bound {bound(0, 2 * 4 * 16 * npad)[0]:.4f}),"
+        f" both {a_ms:.4f} ms in 2 launches (bound "
+        f"{2 * s3k['transpose']['bound'][0]:.4f}); .t().contiguous() x 3 "
+        f"{a_plain:.4f} ms")
 
     # B: emit, kernel vs plain on the same slot tables
     emit_args = (scal, smeta, bscal, knode, TMAX, stg.STEP_CAP, stg.PCAP)
@@ -900,7 +972,9 @@ def main() -> int:
     log(f"    stage ms (CUDA events): "
         f"{json.dumps({k: round(v, 3) for k, v in spans.items()})}")
     for key, r in s3k.items():
-        log(f"    {key}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} "
+        per = " (per launch)" if key == "transpose" else ""
+        log(f"    {key}{per}: kernel {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} "
             f"ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
     log(f"[5] done in {time.time() - t0:.1f} s")
     del rec3, rec_pk, feats, feats_t
@@ -947,7 +1021,7 @@ def main() -> int:
             raise AssertionError(f"main path never launched variant {var}")
     if any(city_launches.get(v, 0) <= 0 for v in PATH_VARIANTS):
         raise AssertionError(f"city frame missed a variant: {city_launches}")
-    city_keys = ("transpose", "emit", "refine", "isect", "oscal")
+    city_keys = ("aos_rows", "transpose", "emit", "refine", "isect", "oscal")
     if any(city_s3[k] <= 0 for k in city_keys):
         raise AssertionError(f"city frame missed a stream3 kernel: {city_s3}")
     del accum, image, caccum, cimage
@@ -996,8 +1070,8 @@ def main() -> int:
         f"{'; '.join(f'{a:.3f} vs {b:.3f} ms' for a, b in prep)}")
 
     # E on the city's 1080p shadow wave (bench shadow rays from the
-    # primary hits toward light_vec, live = primary hit), on the emitted
-    # (unrefined) word lists as an occlusion wave runs it
+    # primary hits toward light_vec, live = primary hit), on both list
+    # forms: the emitted lists, and the lists refined by kernel C
     so, sd = waves["shadow"]
     srows, slive = s3._pad_wave(s3.park_dead(s3.rows_from_aos_fast(so, sd),
                                              hit1), hit1)
@@ -1005,40 +1079,53 @@ def main() -> int:
         srows, knode, scene.inst_inv[0], live=slive, stable=stable)
     swords, semeta = stg.emit_cuda(sscal, ssmeta, sbscal, knode, TMAX,
                                    stg.STEP_CAP, stg.PCAP)
-    e_args = (swords, semeta, ssmeta[:, 0].contiguous(),
-              stg.transpose_cuda(sfeats_t), kleaf, TMIN, TMAX, stg.PCAP,
-              stable)
-    e_ms, out_k = cuda_ms(lambda: stg.isect_occl_cuda(*e_args), 5)
-    e_st = {}
-    e_plain, out_p = cuda_ms(lambda: stg._isect_occl_plain(
-        *e_args, stats=e_st, live=slive), 1, warmup=False)
+    sslot = ssmeta[:, 0].contiguous()
+    c_args = (swords, semeta, sslot, sfeats_t,
+              s3.leaf_aabb8(knode, kleaf.shape[0]), TMAX, stg.PCAP)
+    sc_ms, (rwords, remeta) = cuda_ms(lambda: stg.refine_cuda(*c_args), 5)
+    sfeats = stg.transpose_cuda(sfeats_t)
     alive = ssmeta[:, 1] > 0
     # a slot's lanes are its packet's rays; only live ones count
     lane_live = slive.view(-1, stg.PKT)[ssmeta[:, 0].long()] & alive[:, None]
-    if not bool((out_k == out_p).all(dim=2)[~lane_live].all()):
-        raise AssertionError("isect_occl differs from plain on a dead lane")
-    res_e = hold_occluded("E isect_occl vs plain (live slot lanes)",
-                          out_k[..., 0] == 0, out_p[..., 0] == 0, lane_live)
-    scnt = torch.clamp(semeta[:, 0], max=stg.PCAP) * alive
-    swords_n = int(scnt.sum())
-    valid = torch.arange(stg.PCAP, device=dev)[None, :] < scnt[:, None]
-    sleaves = int(torch.unique((swords[valid] >> 17) - 1).numel())
-    log(f"   E isect_occl: shadow wave {int(hit1.sum())} live rays, "
-        f"{int(alive.sum())} live slots, {swords_n} words over {sleaves} "
-        f"leaves, {e_st['pairs']} (leaf, block) pairs tested under the "
-        f"reference's schedule, {e_st['ray_tests']} live unoccluded rays "
-        f"in them ({e_st['ray_tests'] / (e_st['pairs'] * stg.BLK):.4f} of "
-        f"their lanes); kernel {e_ms:.3f} ms, plain {e_plain:.3f} ms")
-    s3k["isect_occl"] = dict(
-        ms=e_ms, plain_ms=e_plain, library_ms=None,
-        max_abs_err=1.0 - res_e["live_agree"],
-        bound=bound(e_st["ray_tests"] * stg.T * FLOPS_PER_PAIR,
-                    npad * 64 + swords_n * 4
-                    + sleaves * kleaf[0].numel() * 4 + out_k.numel() * 4))
+    e_city = {}
+    for form, (ww, ee) in (("emitted", (swords, semeta)),
+                           ("refined", (rwords, remeta))):
+        e_args = (ww, ee, sslot, sfeats, kleaf, TMIN, TMAX, stg.PCAP, stable)
+        e_ms, out_k = cuda_ms(lambda: stg.isect_occl_cuda(*e_args), 5)
+        e_st = {}
+        e_plain, out_p = cuda_ms(lambda: stg._isect_occl_plain(
+            *e_args, stats=e_st, live=slive), 1, warmup=False)
+        if not bool((out_k == out_p).all(dim=2)[~lane_live].all()):
+            raise AssertionError(f"isect_occl differs from plain on a dead "
+                                 f"lane ({form} lists)")
+        res_e = hold_occluded(f"E isect_occl vs plain, {form} lists (live "
+                              f"slot lanes)", out_k[..., 0] == 0,
+                              out_p[..., 0] == 0, lane_live)
+        e_bound, nwords, nleaves = occl_bound(stg, e_args, e_st, out_k)
+        e_city[form] = dict(ms=e_ms, plain_ms=e_plain, library_ms=None,
+                            max_abs_err=1.0 - res_e["live_agree"],
+                            bound=e_bound, occ=out_k[..., 0] == 0)
+        log(f"   E isect_occl ({card}), {form} lists: shadow wave "
+            f"{int(hit1.sum())} live rays, {int(alive.sum())} live slots, "
+            f"{nwords} words over {nleaves} leaves, {e_st['pairs']} (leaf, "
+            f"block) pairs tested under the reference's schedule, "
+            f"{e_st['ray_tests']} live unoccluded rays in them "
+            f"({e_st['ray_tests'] / max(e_st['pairs'] * stg.BLK, 1):.4f} of "
+            f"their lanes) against {e_st['tri_tests']} triangles "
+            f"({e_st['tri_tests'] / max(e_st['ray_tests'], 1):.2f} a ray); "
+            f"kernel {e_ms:.3f} ms, plain {e_plain:.3f} ms, "
+            f"bound {e_bound[0]:.4f} ms ({e_bound[1]}), "
+            f"{e_bound[0] / e_ms:.3f} of it")
+        del out_k, out_p
+    hold_occluded("E on refined vs emitted lists", e_city["refined"]["occ"],
+                  e_city["emitted"]["occ"], lane_live)
+    log(f"   C refine on the shadow wave's lists: {sc_ms:.3f} ms; C + E "
+        f"{sc_ms + e_city['refined']['ms']:.3f} ms vs E alone on the emitted "
+        f"lists {e_city['emitted']['ms']:.3f} ms")
     s3k["oscal"] = oscal["masked"]
-    del swords, semeta, e_args, out_k, out_p, sfeats_t
+    del swords, semeta, rwords, remeta, e_args, sfeats_t, sfeats
 
-    # the whole occlusion wave through stream3 (kernels F, B, A, E)
+    # the whole occlusion wave through stream3 (kernels F, B, C, A and E)
     # against the packet kernel's live-masked any-hit: two exact tracers
     ow_ms, (rec_o, diag_o) = cuda_ms(lambda: s3.trace_rows_stream3(
         scene, s3.rows_from_aos_fast(so, sd), TMIN, TMAX, live=hit1,
@@ -1050,9 +1137,10 @@ def main() -> int:
     res_o = hold_occluded("stream3 occlusion wave vs packet any-hit",
                           rec_o.hit, rec_a.hit, hit1)
     log(f"[7] stream3 occlusion 1080p shadow wave ({card}): {ow_ms:.3f} ms "
-        f"vs the packet kernel's any-hit {pw_ms:.3f} ms; occluded agreement "
-        f"{res_o['live_agree']:.7f} of live rays, {res_o['occluded_agree']:.7f}"
-        f" of occluded ones; flagged {diag_o['flagged']}, residual rays "
+        f"vs the packet kernel's any-hit "
+        f"{pw_ms:.3f} ms; occluded agreement {res_o['live_agree']:.7f} of "
+        f"live rays, {res_o['occluded_agree']:.7f} of occluded ones; "
+        f"flagged {diag_o['flagged']}, residual rays "
         f"{diag_o['residual_rays']}")
     del rec_o, rec_a
 
@@ -1092,9 +1180,9 @@ def main() -> int:
     mo2, _ = bounce_rays(rmath, o1, d1, mrec.t, FLT_MAX)
     mlive = mrec.hit
     srows_m = s3.rows_from_aos_fast(mo2, light)
-    ms_ms, (mocc, mdiag_s) = cuda_ms(lambda: s3m.trace_rows_multi(
+    mso_ms, (mocc, mdiag_s) = cuda_ms(lambda: s3m.trace_rows_multi(
         mscene, mt, srows_m, TMIN, TMAX, live=mlive, occl=True,
-        with_diag=True), 3)
+        with_diag=True), 2)
     pms_ms, pocc = cuda_ms(lambda: pk.trace_rays_packet_multi(
         mscene, mo2, light, TMIN, TMAX, any_hit=True), 3)
     if bool(mocc.hit[~mlive].any()):
@@ -1102,8 +1190,9 @@ def main() -> int:
                              "occluded")
     res_ms = hold_occluded("64-instance shadow wave vs packet sweeps",
                            mocc.hit, pocc.hit, mlive)
-    log(f"[7] 64-instance shadow wave: trace_rows_multi(occl) {ms_ms:.3f} ms"
-        f" vs trace_rays_packet_multi(any_hit) {pms_ms:.3f} ms; occluded "
+    log(f"[7] 64-instance shadow wave ({card}): trace_rows_multi(occl) "
+        f"{mso_ms:.3f} ms vs trace_rays_packet_multi(any_hit) "
+        f"{pms_ms:.3f} ms; occluded "
         f"agreement {res_ms['live_agree']:.7f} of live rays, "
         f"{res_ms['occluded_agree']:.7f} of occluded ones; diag "
         f"{json.dumps(mdiag_s)}, poisoned share "
@@ -1125,17 +1214,19 @@ def main() -> int:
     if not all(values_equal(x, y) for x, y in zip(stg.oscal_cuda(*fa),
                                                   stg._oscal_plain(*fa))):
         raise AssertionError("oscal differs from plain on a multi launch")
-    feats_big = ea[3].view(-1, stg.PKT, 16)[ea[2].long()]
-    big_live = feats_big[..., 6:9].abs().amax(dim=2) < 1e29
-    out_bk, out_bp = stg.isect_occl_cuda(*ea), stg._isect_occl_plain(*ea)
-    if not bool((out_bk == out_bp).all(dim=2)[~big_live].all()):
-        raise AssertionError("isect_occl differs from plain on a dead lane")
+    e_big = occl_launch(stg, ea)
     hold_occluded(f"E on the largest multi64 launch ({ea[0].shape[0]} "
-                  f"slots)", out_bk[..., 0] == 0, out_bp[..., 0] == 0,
-                  big_live, need_occluded=False)
+                  f"slots)", e_big["occ_k"], e_big["occ_p"], e_big["live"],
+                  need_occluded=False)
     log(f"    largest launches: oscal {fa[2]} packets, equal to plain; "
-        f"isect_occl {ea[0].shape[0]} slots")
-    del mrec, prec, mocc, pocc, m_big, s_big, fa, ea, out_bk, out_bp
+        f"isect_occl {ea[0].shape[0]} slots ({card}): {e_big['words']} "
+        f"words over {e_big['leaves']} leaves, {e_big['pairs']} pairs, "
+        f"{e_big['ray_tests']} live unoccluded rays in them against "
+        f"{e_big['tri_tests']} triangles; kernel {e_big['ms']:.4f} ms, "
+        f"plain {e_big['plain_ms']:.3f} ms, bound {e_big['bound'][0]:.4f} "
+        f"ms ({e_big['bound'][1]}), {e_big['bound'][0] / e_big['ms']:.3f} "
+        f"of it")
+    del mrec, prec, mocc, pocc, m_big, s_big, fa, ea, e_big
 
     # the main path on the 64-instance scene: one engine frame
     stg.reset_launches()
@@ -1148,13 +1239,17 @@ def main() -> int:
     log(f"[7] 64-instance frame 1920x1080 batch 1 depth 2 ({card}): "
         f"{mframe_ms:.1f} ms; stream3 launches {m_launches}")
     check_frame("64-instance", maccum, mimage, n)
-    if any(v <= 0 for v in m_launches.values()):
+    # the scan takes column views of the engine's rays, so no AoS -> rows
+    if any(v <= 0 for k, v in m_launches.items() if k != "aos_rows"):
         raise AssertionError(f"64-instance frame missed a kernel: "
                              f"{m_launches}")
     # a second frame, its traces' diagnostics recorded: the share of rays
-    # that the reference's contract poisons (slot -2) in each engine wave
-    waves_diag = []
-    scan = s3m.trace_rows_multi
+    # that the reference's contract poisons (slot -2) in each engine wave;
+    # and kernel E held against its plain version on each launch's
+    # arguments, with its time and bound: E's numbers for the kernels'
+    # line, on the shapes an engine frame gives it
+    waves_diag, e_frame = [], []
+    scan, isect = s3m.trace_rows_multi, s3.stage_isect
 
     def recorded(*a, **k):
         rec, diag = scan(*a, with_diag=True, **k)
@@ -1162,15 +1257,48 @@ def main() -> int:
                                rays=int(rec.t.shape[0])))
         return rec
 
-    s3m.trace_rows_multi = recorded
+    def isect_held(*a, **k):
+        out = isect(*a, **k)
+        if k.get("occl") and a[0].shape[0]:
+            r = occl_launch(stg, a + (k["pcap"], k["stable"]))
+            lv = r["live"]
+            e_frame.append((r["ms"], r["plain_ms"], r["bound"],
+                            int(lv.sum()),
+                            int(((r["occ_k"] == r["occ_p"]) & lv).sum())))
+        return out
+
+    s3m.trace_rows_multi, s3.stage_isect = recorded, isect_held
     try:
         tracer.render(mscene, mres, maccum, 1, W, H, batch=1, depth=2)
     finally:
-        s3m.trace_rows_multi = scan
+        s3m.trace_rows_multi, s3.stage_isect = scan, isect
     for dg in waves_diag:
         log(f"    engine wave ({'shadow' if dg['occl'] else 'closest'}): "
             f"{json.dumps(dg)}, poisoned share "
             f"{dg['poisoned'] / dg['rays']:.7f}")
+    ne = len(e_frame)
+    if not ne:
+        raise AssertionError("the second 64-instance frame launched no E")
+    e_live = sum(x[3] for x in e_frame)
+    e_agree = sum(x[4] for x in e_frame) / max(e_live, 1)
+    if e_agree < BARS["hit"]:
+        raise AssertionError(f"E disagrees with plain over a frame: "
+                             f"{e_agree} of {e_live} live lanes")
+    by = {k: sum(x[2][0] for x in e_frame if x[2][1] == k)
+          for k in ("bytes", "operations")}
+    s3k["isect_occl"] = dict(
+        ms=sum(x[0] for x in e_frame) / ne,
+        plain_ms=sum(x[1] for x in e_frame) / ne, library_ms=None,
+        max_abs_err=1.0 - e_agree,
+        bound=(sum(by.values()) / ne, max(by, key=by.get)))
+    r = s3k["isect_occl"]
+    log(f"    E over the second frame's {ne} launches ({card}; the main "
+        f"path's frame made {m_launches['isect_occl']}): kernel "
+        f"{r['ms']:.4f} ms a launch, plain {r['plain_ms']:.3f} ms, bound "
+        f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), "
+        f"{r['bound'][0] / r['ms']:.3f} of it, the slowest launch "
+        f"{max(x[0] for x in e_frame):.4f} ms; occluded agreement "
+        f"{e_agree:.7f} of {e_live} live lanes")
     # the same first frame on the route scenes of 2-8 instances take (one
     # packet sweep per instance): the baseline of the scan's frame, and a
     # second tracer for its image
@@ -1212,12 +1340,15 @@ def main() -> int:
             "library_ms": None})
     for key, (name, src, replaced) in S3_KERNELS.items():
         r = s3k[key]
-        # E and F: the 64-instance frame's run; the others: city + sample1
+        # E and F: the 64-instance frame's run; the others: city + sample1.
+        # A's two wrappers (AoS -> rows, features) are one entry
         count = m_launches if key in ("isect_occl", "oscal") else s3_launches
+        launched = count[key] + (count["aos_rows"] if key == "transpose"
+                                 else 0)
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaced[0], "also_replaces": replaced[1:],
-            "launches": count[key], "max_abs_err": r["max_abs_err"],
+            "launches": launched, "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"]})

@@ -11,8 +11,9 @@ stages it runs (`_run`, :2459):
   emit    (kernel B) every slot walks the octant node table once with its
           interval frustum and appends one i32 word per overlapped leaf;
   refine  (kernel C) the exact per-ray slab test of every (leaf, 128-ray
-          block) pair; empty words are dropped.  Closest-hit waves only:
-          occlusion waves pass the emitted words straight on;
+          block) pair; empty words are dropped.  Closest-hit and occlusion
+          waves both refine: on the card the refine costs less than the
+          pairs it drops save kernel E (PERF.md, section 6);
   isect   the Pluecker tests of every kept pair: per-ray closest hit with
           the winner's prim and barycentrics (kernel D), or, on occlusion
           waves, any hit in (tmin, tmax) (kernel E: t = 0 when occluded);
@@ -36,12 +37,14 @@ Differences from the JAX module, none visible in a hit record:
     per-ray traversal walk (ops/traversal.py, not ported yet).  Both are
     exact tracers.  All flagged packets drain in one call (the JAX drain
     runs RES_CAP packets a chunk under a while_loop);
-  * constants are the compiled-TPU defaults and no environment variable
-    is read: exact refine on closest-hit waves and off on occlusion
-    waves, lean isect off, presort off, f32 only, the 9-bit tq word
-    format, the lockstep walk's slot order (one GPU warp per slot
-    replaces the TPU's lockstep, treelet and work-stealing walks, which
-    all emit the same words);
+  * occlusion waves refine their word lists, the JAX module's
+    exact_refine=True (its default skips the refine there, a TPU trade);
+    both forms are exact, so no occluded-or-not can change;
+  * the other constants are the compiled-TPU defaults and no environment
+    variable is read: exact refine on closest-hit waves, lean isect off,
+    presort off, f32 only, the 9-bit tq word format, the lockstep
+    walk's slot order (one GPU warp per slot replaces the TPU's lockstep,
+    treelet and work-stealing walks, which all emit the same words);
   * emeta lane 2 counts each slot's own walk steps (the TPU kernel stamps
     its 8-slot group's count), and diag["steps"] sums them;
   * kernel D keeps no tq occlusion cull (a cull at equal t could change
@@ -262,8 +265,10 @@ def _run(rows_w, tmin, tmax, nodef, kleaf, inv0, *, live=None,
     (rec, diag): diag["pkt_flag"] [npk] i32 marks packets whose walk was
     cut or whose list overflowed -- the caller must re-trace them.  Dead
     lanes of `live` come back as garbage for the caller to mask.  occl
-    runs an occlusion wave: no refine, kernel E, t = 0 on occluded rays
-    (prim 0, no barycentrics)."""
+    runs an occlusion wave: kernel E, t = 0 on occluded rays (prim 0, no
+    barycentrics).  Kernel C refines the word lists of both kinds of wave
+    (on occlusion waves the JAX module's exact_refine=True,
+    stream3.py:2536-2543; its default, a TPU trade, skips it there)."""
     n = rows_w[0].shape[0]
     rows_w, live = _pad_wave(rows_w, live)
     rows, feats_t, scal, smeta, bscal, order = _stage_prep(
@@ -273,13 +278,9 @@ def _run(rows_w, tmin, tmax, nodef, kleaf, inv0, *, live=None,
     words, emeta = stage_emit(scal, smeta, bscal, nodef, tmax,
                               step_cap=STEP_CAP, pcap=PCAP)
     slot_pkt = smeta[:, 0].contiguous()
-    words_i, emeta_i = words, emeta
-    if not occl:
-        # occlusion waves skip the refine (stream3.py:2536-2542): the
-        # occlusion kernel's saturation cull already skips later pairs
-        words_i, emeta_i = stage_refine(
-            words, emeta, slot_pkt, feats_t,
-            leaf_aabb8(nodef, kleaf.shape[0]), tmax, pcap=PCAP)
+    words_i, emeta_i = stage_refine(
+        words, emeta, slot_pkt, feats_t,
+        leaf_aabb8(nodef, kleaf.shape[0]), tmax, pcap=PCAP)
     feats = feats_rows_to_major(feats_t)
     out_s = stage_isect(words_i, emeta_i, slot_pkt, feats, kleaf, tmin,
                         tmax, stable=stable, pcap=PCAP, occl=occl)

@@ -24,7 +24,9 @@ Differences from the JAX module, none visible in a hit record:
     dropped packets hold only dead lanes, which emit nothing, so the
     hits, the flags and the poisoning are the reference's;
   * no environment variable is read: the scan route (not
-    RADIANCE_MULTI=native), f32, no refine on occlusion waves.
+    RADIANCE_MULTI=native), f32; occlusion sub-waves refine their word
+    lists before kernel E (stream3._run, the JAX module's
+    exact_refine=True), an exact change that no hit can show.
 
 The reference's contract is kept: there is no residual re-walk.  A ray of
 a sub-wave packet that was step-capped or word-overflowed, or of a block

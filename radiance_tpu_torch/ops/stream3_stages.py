@@ -4,7 +4,8 @@ PyTorch versions, and the word-format constants they share.
 Port of the Pallas kernels of radiance_tpu/ops/stream3.py (ops/stream3.py
 drives them):
 
-  A  transpose_rows   csrc/s3_transpose.cu   <- _aos2rows_kernel (:1595),
+  A  rows_from_aos_fast,
+     transpose_rows   csrc/s3_transpose.cu   <- _aos2rows_kernel (:1595),
                                                 _transpose_kernel (:1575)
   B  stage_emit       csrc/s3_emit.cu        <- _emit3_kernel (:595),
                                                 _emit3t_kernel (:753),
@@ -62,7 +63,8 @@ _P, _I32, _I64, _F32 = cuda_build.P, cuda_build.I32, cuda_build.I64, \
     cuda_build.F32
 LIBS = {
     "transpose": cuda_build.KernelLib("s3_transpose", (
-        ("rt_s3_transpose", (_P, _I64, _I64, _P, _I64, _P)),)),
+        ("rt_s3_aos_rows", (_P, _P, _I64, _P, _I32, _P)),
+        ("rt_s3_rows16_major", (_P, _I64, _P, _I32, _P)))),
     # emit and refine: only products, differences and comparisons; without
     # FMA contraction their word lists are bit-identical to the plain
     # versions'
@@ -116,23 +118,50 @@ def _route(x: torch.Tensor) -> str:
 # A. transpose
 # ---------------------------------------------------------------------------
 
+def _aligned(*xs) -> bool:
+    return all(x.data_ptr() % 16 == 0 for x in xs)
+
+
+def aos_rows_cuda(o: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Kernel A, AoS -> rows: [N, 3] f32 o and d -> one [6, N] f32 buffer
+    (ox, oy, oz, dx, dy, dz) in one launch, bit-exact with
+    torch.cat([o.t(), d.t()])."""
+    dev = _cuda_only("aos_rows_cuda", o)
+    chk = functools.partial(cuda_build.check_tensor, "aos_rows_cuda",
+                            dev=dev)
+    chk("o", o, torch.float32, (None, 3))
+    n = o.shape[0]
+    chk("d", d, torch.float32, (n, 3))
+    out = torch.empty(6, n, dtype=torch.float32, device=dev)
+    if n:
+        cuda_build.check_launch("s3_aos_rows", _lib("transpose").rt_s3_aos_rows(
+            o.data_ptr(), d.data_ptr(), n, out.data_ptr(),
+            int(_aligned(o, d, out)), _stream(dev)))
+        aos_rows_cuda.launches += 1
+    return out
+
+
+aos_rows_cuda.launches = 0
+
+
 def transpose_cuda(src: torch.Tensor, out: torch.Tensor = None
                    ) -> torch.Tensor:
-    """Kernel A: [R, C] f32 -> [C, R] f32 (bit-exact .t().contiguous()).
-    out, if given, is a contiguous [C, R] f32 tensor to write into."""
+    """Kernel A, rows -> ray-major: [16, C] f32 -> [C, 16] f32 (bit-exact
+    .t().contiguous()).  out, if given, is a contiguous [C, 16] f32
+    tensor to write into."""
     dev = _cuda_only("transpose_cuda", src)
     chk = functools.partial(cuda_build.check_tensor, "transpose_cuda",
                             dev=dev)
-    chk("src", src, torch.float32, (None, None))
-    r, c = src.shape
+    chk("src", src, torch.float32, (16, None))
+    c = src.shape[1]
     if out is None:
-        out = torch.empty(c, r, dtype=torch.float32, device=dev)
-    chk("out", out, torch.float32, (c, r))
-    if src.numel():
-        cuda_build.check_launch("s3_transpose", _lib("transpose")
-                                .rt_s3_transpose(src.data_ptr(), r, c,
-                                                 out.data_ptr(), r,
-                                                 _stream(dev)))
+        out = torch.empty(c, 16, dtype=torch.float32, device=dev)
+    chk("out", out, torch.float32, (c, 16))
+    if c:
+        cuda_build.check_launch("s3_rows16_major", _lib("transpose")
+                                .rt_s3_rows16_major(
+            src.data_ptr(), c, out.data_ptr(),
+            int(c % 4 == 0 and _aligned(src, out)), _stream(dev)))
         transpose_cuda.launches += 1
     return out
 
@@ -142,8 +171,8 @@ transpose_cuda.launches = 0
 
 def transpose_rows(src: torch.Tensor, out: torch.Tensor = None
                    ) -> torch.Tensor:
-    """[R, C] -> [C, R]: kernel A on CUDA tensors, .t().contiguous() (its
-    plain version) on CPU tensors."""
+    """[R, C] -> [C, R]: kernel A on CUDA tensors (R = 16, the phase-2
+    features), .t().contiguous() (its plain version) on CPU tensors."""
     if _route(src) == "cuda":
         return transpose_cuda(src, out)
     res = src.t().contiguous()
@@ -155,9 +184,12 @@ def transpose_rows(src: torch.Tensor, out: torch.Tensor = None
 
 def rows_from_aos_fast(origin: torch.Tensor, direction: torch.Tensor):
     """[N, 3] o/d -> six contiguous [N] f32 rows (ox, oy, oz, dx, dy, dz)
-    by two transposes into one [6, N] buffer."""
+    of one [6, N] buffer: kernel A's one launch on CUDA tensors, two
+    transposes on CPU tensors."""
     o = origin.to(torch.float32).contiguous()
     d = direction.to(torch.float32).contiguous()
+    if _route(o) == "cuda":
+        return tuple(aos_rows_cuda(o, d))
     n = o.shape[0]
     out = torch.empty(6, n, dtype=torch.float32, device=o.device)
     transpose_rows(o, out[0:3])
@@ -615,9 +647,11 @@ def _isect_occl_plain(words, emeta, slot_pkt, feats, kleaf, tmin, tmax,
     every ray of its block is already occluded, a slot's list left once
     all its rays are.  A ray is occluded by any accepted triangle, so the
     culls change no result.  stats, if a dict, receives "pairs": the
-    (leaf, block) pairs tested, and "ray_tests": the rays of those pairs
+    (leaf, block) pairs tested, "ray_tests": the rays of those pairs
     that the function needs tested, those not yet occluded and, with
-    `live` ([Npad] bool, ray-major like feats), live."""
+    `live` ([Npad] bool, ray-major like feats), live, and "tri_tests":
+    each such ray times its leaf's triangle lanes (a padded lane, zero
+    edge rows 3-5, can never occlude)."""
     dev = words.device
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
     nslot = words.shape[0]
@@ -631,6 +665,10 @@ def _isect_occl_plain(words, emeta, slot_pkt, feats, kleaf, tmin, tmax,
     lv = None if live is None else live.view(-1, 8, BLK)
     pairs = 0
     ray_tests = torch.zeros((), dtype=i64, device=dev)
+    tri_tests = torch.zeros((), dtype=i64, device=dev)
+    if stats is not None:
+        tri_lanes = (kleaf[:, 3:6, :3 * T].reshape(-1, 3, 3, T) != 0) \
+            .any(dim=2).any(dim=1).sum(dim=1)                   # [Nl]
     for j in range(int(cnt.max()) if nslot else 0):
         sat = occ.view(nslot, 8, BLK).all(dim=2)            # [nslot, 8]
         sel = torch.nonzero((cnt > j) & ~sat.all(dim=1)).squeeze(1)
@@ -649,11 +687,14 @@ def _isect_occl_plain(words, emeta, slot_pkt, feats, kleaf, tmin, tmax,
             ss = slot[:, None].expand_as(rr)
             if stats is not None:
                 need = ~occ[ss, rr]
-                ray_tests += (need if lv is None else need & lv[pk, b]).sum()
+                need = (need if lv is None else need & lv[pk, b]).sum(dim=1)
+                ray_tests += need.sum()
+                tri_tests += (need * tri_lanes[leaf]).sum()
             occ[ss, rr] = occ[ss, rr] | ok.any(dim=2)
     if stats is not None:
         stats["pairs"] = pairs
         stats["ray_tests"] = int(ray_tests)
+        stats["tri_tests"] = int(tri_tests)
     out = torch.zeros(nslot, PKT, 4, dtype=f32, device=dev)
     out[..., 0] = torch.where(occ, 0.0, FMAX)
     out[..., 1] = torch.where(occ, 0.0, -1.0)
@@ -663,9 +704,12 @@ def _isect_occl_plain(words, emeta, slot_pkt, feats, kleaf, tmin, tmax,
 def isect_occl_cuda(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
                     stable):
     """Kernel E: out [nslot, PKT, 4] f32, (0, 0, 0, 0) on an occluded ray,
-    (FLT_MAX, -1, 0, 0) otherwise."""
+    (FLT_MAX, -1, 0, 0) otherwise, on refined or emitted word lists."""
     dev = _check_isect_args("isect_occl_cuda", words, emeta, slot_pkt,
                             feats, kleaf, pcap)
+    if not _aligned(feats, kleaf):
+        raise ValueError("isect_occl_cuda: feats and kleaf must be 16-byte "
+                         "aligned")
     nslot = words.shape[0]
     out = torch.empty(nslot, PKT, 4, dtype=torch.float32, device=dev)
     if nslot:
@@ -686,7 +730,8 @@ def stage_isect(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, *,
                 stable: bool, pcap=PCAP, occl: bool = False):
     """Pair intersection of every slot's word list against its packet's
     rays (ray-major feats [Npad, 16]): closest hit (kernel D, on refined
-    lists) or, with occl, occlusion (kernel E, on the emitted lists)."""
+    lists) or, with occl, occlusion (kernel E, on refined or emitted
+    lists)."""
     if _route(words) == "cuda":
         fn = isect_occl_cuda if occl else isect_cuda
     else:
@@ -695,7 +740,8 @@ def stage_isect(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, *,
               stable)
 
 
-KERNELS = {"transpose": transpose_cuda, "emit": emit_cuda,
+KERNELS = {"aos_rows": aos_rows_cuda, "transpose": transpose_cuda,
+           "emit": emit_cuda,
            "refine": refine_cuda, "isect": isect_cuda,
            "isect_occl": isect_occl_cuda, "oscal": oscal_cuda}
 

@@ -1,8 +1,8 @@
 """The CUDA kernels vs their plain PyTorch versions, on the card: the
-packet-trace kernel and the stream3 pipeline's six kernels (transpose,
-emit walk, exact refine, closest-hit and occlusion pair intersection,
-prep octant scalars), and the many-instance scan on the card against its
-CPU route.
+packet-trace kernel and the stream3 pipeline's six kernels (the two
+transposes, emit walk, exact refine, closest-hit and occlusion pair
+intersection, prep octant scalars), and the many-instance scan on the
+card against its CPU route.
 
 Every case is marked `gpu` and skips (with the reason) where no CUDA
 card is present; the `cuda` fixture decides at run time, never at
@@ -216,16 +216,33 @@ def test_render_on_card_matches_cpu(cuda, scene):
 
 
 def test_s3_transpose_bit_exact(cuda):
+    """Kernel A's two launches bit-exact with .t().contiguous(): AoS ->
+    rows at odd n (a ragged last warp, n < 32, a view off 16-byte
+    alignment), [16, C] -> [C, 16] just past a 256-column tile and at a
+    width that is no multiple of 4."""
     rng = np.random.default_rng(0)
-    for shape in ((5000, 3), (16, 8192), (37, 70)):
-        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
-        got = stg.transpose_cuda(x.to(cuda)).cpu()
-        assert got.numpy().tobytes() == x.t().contiguous().numpy().tobytes()
-    rows = s3.rows_from_aos_fast(x[:, :3].contiguous().to(cuda),
-                                 x[:, 3:6].contiguous().to(cuda))
-    for k in range(6):
-        assert torch.equal(rows[k].cpu(), x[:, k])
-    assert stg.transpose_cuda.launches >= 5
+    stg.reset_launches()
+
+    def same(got, ref):
+        return got.cpu().numpy().tobytes() == ref.numpy().tobytes()
+
+    for n in (1, 31, 1025, 5000, 3 * stg.PKT + 7):
+        x = torch.from_numpy(rng.standard_normal((n + 1, 6))
+                             .astype(np.float32))
+        for lo in (0, 1):              # lo = 1: offset views, scalar path
+            o, d = x[lo:, :3].contiguous(), x[lo:, 3:].contiguous()
+            o_c, d_c = o.to(cuda), d.to(cuda)
+            if lo:
+                o_c, d_c = x[:, :3].to(cuda)[1:], x[:, 3:].to(cuda)[1:]
+            ref = torch.cat([o.t(), d.t()]).contiguous()
+            assert same(stg.aos_rows_cuda(o_c, d_c), ref), (n, lo)
+            rows = s3.rows_from_aos_fast(o_c, d_c)
+            assert same(torch.stack(rows), ref)
+    for c in (8192, 8192 + 4, 8192 + 1, 3):
+        x = torch.from_numpy(rng.standard_normal((16, c)).astype(np.float32))
+        assert same(stg.transpose_cuda(x.to(cuda)), x.t().contiguous()), c
+    assert stg.aos_rows_cuda.launches == 20
+    assert stg.transpose_cuda.launches == 4
 
 
 def _s3_stages(dev, tlas, n=8192, seed=7):
@@ -327,8 +344,9 @@ def test_s3_oscal_matches_plain(cuda, masked):
 
 
 def test_s3_isect_occl_matches_plain(cuda):
-    """Kernel E against its plain version on the UNREFINED word lists of
-    a mixed wave, in both frame modes."""
+    """Kernel E against its plain version on the emitted (unrefined) word
+    lists of a mixed wave and on the same lists refined by kernel C, in
+    both frame modes; the two list forms give the same occluded-or-not."""
     for stable in (True, False):
         ds = _scene(_mesh(10, 3000, 8.0)).device_scene(cuda,
                                                        stable_frames=stable)
@@ -339,21 +357,131 @@ def test_s3_isect_occl_matches_plain(cuda):
             rows, ds.knode_f, ds.inst_inv[0], stable=stable)
         words, emeta = stg.emit_cuda(scal, smeta, bscal, ds.knode_f, 1e3,
                                      stg.STEP_CAP, stg.PCAP)
-        args = (words, emeta, smeta[:, 0].contiguous(),
-                feats_t.t().contiguous(), ds.kleaf, 1e-3, 1e3, stg.PCAP,
-                stable)
+        slot_pkt = smeta[:, 0].contiguous()
+        refined = stg.refine_cuda(words, emeta, slot_pkt, feats_t,
+                                  s3.leaf_aabb8(ds.knode_f,
+                                                ds.kleaf.shape[0]),
+                                  1e3, stg.PCAP)
+        occ = {}
+        for form, (w, e) in (("emitted", (words, emeta)),
+                             ("refined", refined)):
+            args = (w, e, slot_pkt, feats_t.t().contiguous(), ds.kleaf,
+                    1e-3, 1e3, stg.PCAP, stable)
+            ok = stg.isect_occl_cuda(*args)
+            op = stg._isect_occl_plain(*args)
+            same = (ok == op).all(dim=2).float().mean()
+            assert float(same) >= 0.999, form
+            occ[form] = ok[..., 0] == 0
+            assert 0.02 < float(occ[form].float().mean()) < 0.98
+        assert _pairs(*refined) <= _pairs(words, emeta)
+        assert float((occ["emitted"] == occ["refined"]).float().mean()) \
+            >= 0.999
+
+
+def _pairs(words, emeta):
+    """The (leaf, block) pairs of word lists: their keep bits set."""
+    cnt = torch.clamp(emeta[:, 0], max=stg.PCAP)
+    valid = torch.arange(words.shape[1], device=words.device) < cnt[:, None]
+    km = (words[valid] >> stg.W_KEEP_SHIFT) & 255
+    return sum(int(((km >> b) & 1).sum()) for b in range(8))
+
+
+def _wall_scene(dev, stable):
+    """3000 small triangles under a wall at z = 0, one triangle (prim 0)
+    that covers [-60, 30]^2: a ray from above the middle pointing down is
+    occluded by the wall's leaf."""
+    rng = np.random.default_rng(12)
+    wall = np.array([[-60, -60, 0], [120, -60, 0], [-60, 120, 0]],
+                    np.float32)
+    c = rng.uniform(-8, 8, (3000, 3)).astype(np.float32)
+    c[:, 2] = rng.uniform(-6, -1, 3000)
+    v = (c[:, None, :] + rng.normal(scale=0.5, size=(3000, 3, 3))
+         .astype(np.float32)).reshape(-1, 3)
+    verts = np.concatenate([wall, v]).astype(np.float32)
+    mesh = types.Mesh(verts, np.arange(len(verts), dtype=np.uint32)
+                      .reshape(-1, 3))
+    return _scene(mesh).device_scene(dev, stable_frames=stable)
+
+
+@pytest.mark.parametrize("stable", [True, False])
+def test_s3_isect_occl_edge_cases(cuda, stable):
+    """Kernel E against its plain version on hand-made word lists over 8
+    packets of rays from above a wall, pointing down: packet 0 entirely
+    parked (origin 1e30), packet 1 half parked.  Each packet has two
+    slots: one whose list starts with the wall's leaf, all keep bits set
+    (every live ray occluded after one word), then 20 other leaves; one
+    of 30 other leaves, each word's keep mask a single bit.  Every case
+    on the hand-made lists and on the same lists refined by kernel C:
+    dead lanes equal the plain version's miss, live lanes agree, and the
+    two forms give the same occluded-or-not."""
+    ds = _wall_scene(cuda, stable)
+    npk = 8
+    n = npk * stg.PKT
+    rng = np.random.default_rng(8)
+    o = rng.uniform(-6, 6, (n, 3)).astype(np.float32)
+    o[:, 2] = rng.uniform(2, 8, n)
+    d = np.concatenate([0.3 * rng.normal(size=(n, 2)), -np.ones((n, 1))],
+                       axis=1).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    live = np.ones(n, bool)
+    live[:stg.PKT] = False
+    live[stg.PKT:2 * stg.PKT] = rng.uniform(size=stg.PKT) < 0.5
+    live_t = torch.from_numpy(live).to(cuda)
+    rows = s3.park_dead(tuple(torch.from_numpy(np.ascontiguousarray(v))
+                              .to(cuda) for v in (*o.T, *d.T)), live_t)
+    _, feats_t, *_ = s3._stage_prep(rows, ds.knode_f, ds.inst_inv[0],
+                                    live=live_t, stable=stable)
+    feats = feats_t.t().contiguous()
+
+    nl = ds.kleaf.shape[0]
+    wall = int(torch.nonzero((ds.kleaf[:, 10, :stg.T] == 0).any(dim=1))[0])
+    others = np.array([leaf for leaf in range(nl) if leaf != wall])
+    nslot = 2 * npk
+    words = np.zeros((nslot, stg.PCAP), np.int32)
+    cnt = np.zeros(nslot, np.int32)
+    for s in range(nslot):
+        if s < npk:          # the wall first, every block kept
+            leaves = np.concatenate([[wall], rng.choice(others, 20)])
+            keep = np.full(len(leaves), 255)
+        else:                # single-bit keep masks, no wall
+            leaves = rng.choice(others, 30)
+            keep = 1 << rng.integers(0, 8, len(leaves))
+        words[s, :len(leaves)] = ((leaves + 1) << stg.W_LEAF_SHIFT) \
+            | (keep << stg.W_KEEP_SHIFT)
+        cnt[s] = len(leaves)
+    emeta = np.zeros((nslot, 8), np.int32)
+    emeta[:, 0] = cnt
+    words_t = torch.from_numpy(words).to(cuda)
+    emeta_t = torch.from_numpy(emeta).to(cuda)
+    slot_pkt = torch.arange(nslot, dtype=torch.int32, device=cuda) % npk
+    refined = stg.refine_cuda(words_t, emeta_t, slot_pkt, feats_t,
+                              s3.leaf_aabb8(ds.knode_f, nl), 1e3, stg.PCAP)
+    assert _pairs(*refined) < _pairs(words_t, emeta_t)
+    lane_live = live_t.view(npk, stg.PKT)[slot_pkt.long()]
+    miss = torch.tensor([FLT_MAX, -1.0, 0.0, 0.0], device=cuda)
+    occ = {}
+    for form, (w, e) in (("hand-made", (words_t, emeta_t)),
+                         ("refined", refined)):
+        args = (w, e, slot_pkt, feats, ds.kleaf, 1e-3, 1e3, stg.PCAP, stable)
         ok = stg.isect_occl_cuda(*args)
         op = stg._isect_occl_plain(*args)
-        same = (ok == op).all(dim=2).float().mean()
-        assert float(same) >= 0.999
-        occ = ok[..., 0] == 0
-        assert 0.02 < float(occ.float().mean()) < 0.98
+        assert torch.equal(ok[~lane_live], op[~lane_live]), form
+        assert bool((ok[~lane_live] == miss).all()), form
+        agree = (ok == op).all(dim=2)[lane_live].float().mean()
+        assert float(agree) >= 0.999, form
+        occ[form] = ok[..., 0] == 0
+        # after the wall's word every live ray is occluded
+        assert bool(occ[form][:npk][lane_live[:npk]].all()), form
+        single = occ[form][npk:][lane_live[npk:]]
+        assert 0 < int(single.sum()) < single.numel(), form
+    assert (occ["hand-made"] == occ["refined"])[lane_live].float().mean() \
+        >= 0.999
 
 
 def test_s3_occl_wave_matches_packet_kernel(cuda):
-    """trace_rays_stream3(any_hit=True) on the card (kernels F, B, A, E;
-    no refine) against the packet kernel's any-hit, two exact tracers:
-    occluded-or-not agreement."""
+    """trace_rays_stream3(any_hit=True) on the card (kernels F, B, C, A
+    and E: occlusion waves refine) against the packet kernel's any-hit,
+    two exact tracers: occluded-or-not agreement."""
     ds = _scene(_mesh(11, 4000, 8.0)).device_scene(cuda)
     o, d = _rays(3, 20000, 10.0)
     o_t, d_t = torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda)
@@ -363,7 +491,8 @@ def test_s3_occl_wave_matches_packet_kernel(cuda):
     torch.cuda.synchronize()
     assert _agree(ref, got, True).mean() > 0.05
     assert stg.isect_occl_cuda.launches >= 1
-    assert stg.refine_cuda.launches == stg.isect_cuda.launches == 0
+    assert stg.refine_cuda.launches == 1
+    assert stg.isect_cuda.launches == 0
     assert set(np.unique(got.t.cpu().numpy())) <= {0.0, np.float32(FLT_MAX)}
 
 

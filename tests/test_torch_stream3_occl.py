@@ -2,9 +2,11 @@
 radiance_tpu's.
 
 The plain versions of kernel F (the octant scalars) and kernel E (the
-occlusion pair intersection), and trace_rows_stream3(occl=True), against
-the JAX module (ops/stream3.py) with its Pallas kernels in interpret mode,
-or against the JAX traversal walk as an exact oracle.  Scenes and rays as
+occlusion pair intersection), the occlusion _run (against the JAX _run
+with and without its refine), trace_rows_stream3(occl=True) and the
+plain route of rows_from_aos_fast, against the JAX module
+(ops/stream3.py) with its Pallas kernels in interpret mode, or against
+the JAX traversal walk as an exact oracle.  Scenes and rays as
 in test_torch_stream3.py (each package builds its own scene from the same
 mesh; inputs are made from a seed with numpy).
 
@@ -176,6 +178,29 @@ def test_isect_occl_plain_counts_needed_ray_tests(occl_words):
     assert 0.3 < n["half"] / n["all"] < 0.7
 
 
+def test_isect_occl_plain_counts_triangle_lane_tests(occl_words):
+    """stats["tri_tests"] weights each needed ray by its leaf's triangle
+    lanes: between the fewest and the most lanes of a leaf times
+    ray_tests, below all T lanes where leaves are padded, 0 when no ray
+    is live."""
+    tds, t, _ = occl_words
+    args = (t["words"], t["emeta"], t["smeta"][:, 0].contiguous(),
+            stg.feats_rows_to_major(t["feats_t"]), tds.kleaf, TMIN, TMAX,
+            stg.PCAP, tds.stable_frames)
+    npad = t["feats_t"].shape[1]
+    lanes = (tds.kleaf[:, 3:6, :3 * stg.T].reshape(-1, 3, 3, stg.T) != 0) \
+        .any(dim=2).any(dim=1).sum(dim=1)
+    assert int(lanes.min()) >= 1 and int(lanes.sum()) < lanes.numel() * stg.T
+    st, dead = {}, {}
+    stg._isect_occl_plain(*args, stats=st)
+    stg._isect_occl_plain(*args, stats=dead,
+                          live=torch.zeros(npad, dtype=torch.bool))
+    assert st["ray_tests"] > 0 and dead["tri_tests"] == 0
+    assert (int(lanes.min()) * st["ray_tests"] <= st["tri_tests"]
+            <= int(lanes.max()) * st["ray_tests"])
+    assert st["tri_tests"] < stg.T * st["ray_tests"]
+
+
 # ------------------------------------------------------ whole waves
 
 @pytest.mark.parametrize("window", ["full", "short"])
@@ -229,6 +254,70 @@ def test_forced_occlusion_residual_rewalks_every_packet(monkeypatch):
     occ = occluded_agree(ref.t, got.t.numpy())
     assert occ.mean() > 0.05
     assert np.isin(got.t.numpy(), [0.0, np.float32(FLT_MAX)]).all()
+
+
+@pytest.fixture(scope="module")
+def occl_run():
+    """The mini city's 2-packet wave with 30% dead lanes, parked as
+    trace_rows_stream3 parks them, through the port's _run(occl=True),
+    which refines the word lists before kernel E."""
+    jds, tds = mini_city_pair()
+    o, d = camera_wave(2 * js3.PKT, 64, 60.0)
+    live = np.random.default_rng(3).uniform(size=len(o)) > 0.3
+    o[~live] = 1e30
+    d[~live] = 1.0
+    got = ts3._run(trows(o, d), TMIN, TMAX, tds.knode_f, tds.kleaf,
+                   tds.inst_inv[0], live=torch.from_numpy(live),
+                   stable=tds.stable_frames, occl=True)
+    return jds, o, d, live, got
+
+
+@pytest.mark.parametrize("jax_refine", [True, None])
+def test_run_occl_matches_jax_refined_and_default(occl_run, jax_refine):
+    """The port's occlusion _run against the JAX _run with its refine on
+    (exact_refine=True) and in its default form (no refine on occlusion
+    waves), interpret mode: both are exact, so occluded-or-not agrees on
+    the live rays and dead lanes miss."""
+    jds, o, d, live, got = occl_run
+    tstart, _ = js3.leaf_tables(jds.knode_f, jds.kleaf.shape[0])
+    ref = js3._run(jrows(o, d), TMIN, TMAX, jds.knode_f, jds.kleaf,
+                   jds.kprim, jds.ktri_geo, jds.inst_inv[0], tstart,
+                   precision="f32", interpret=True, live=jnp.asarray(live),
+                   occl=True, exact_refine=jax_refine,
+                   stable=jds.stable_frames)
+    ref_t = np.where(live, np.asarray(ref.t), FLT_MAX)
+    t = got.t.numpy()
+    assert np.isin(t, [0.0, np.float32(FLT_MAX)]).all()
+    occ = occluded_agree(ref_t, np.where(live, t, FLT_MAX))
+    assert occ[live].sum() >= 10
+    assert not (t[~live] < FLT_MAX).any()
+
+
+@pytest.mark.parametrize("n", [1, 31, 1025, 5000])
+def test_rows_from_aos_fast_plain_matches_jax_rows(n):
+    """rows_from_aos_fast on CPU tensors (its plain route, two
+    transposes) against JAX rows_from_aos, bit for bit, at odd n."""
+    rng = np.random.default_rng(n)
+    o = rng.standard_normal((n, 3)).astype(np.float32)
+    d = rng.standard_normal((n, 3)).astype(np.float32)
+    got = ts3.rows_from_aos_fast(torch.from_numpy(o), torch.from_numpy(d))
+    ref = js3.rows_from_aos(jnp.asarray(o), jnp.asarray(d))
+    assert len(got) == 6
+    for g, r in zip(got, ref):
+        assert g.is_contiguous() and g.shape == (n,)
+        assert g.numpy().tobytes() == np.asarray(r).tobytes()
+
+
+def test_kernel_a_wrappers_refuse_cpu_tensors():
+    """Kernel A's two wrappers never run on CPU tensors (the stages route
+    those to .t().contiguous()); the features kernel takes 16 rows only."""
+    x = torch.zeros(5, 3)
+    with pytest.raises(ValueError):
+        stg.aos_rows_cuda(x, x)
+    with pytest.raises(ValueError):
+        stg.transpose_cuda(torch.zeros(16, 8))
+    f = torch.arange(16 * 5, dtype=torch.float32).reshape(16, 5)
+    assert torch.equal(stg.feats_rows_to_major(f), f.t())
 
 
 def test_trace_rays_stream3_any_hit_zero_directions():
