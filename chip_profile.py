@@ -30,6 +30,9 @@ and prints:
     kind, the device's busy ms (union of its kernel and copy intervals)
     and its idle share of the profiled frame's host-clock time;
   * the 30 kernels with the most device time;
+  * the packet kernel's device ms and launches per variant (and packet
+    size), and kernel D's per kernel (its key fill, pair kernel and
+    finishing pass);
   * as its last line, one JSON object with those numbers.
 
 Writes nothing to disk but the kernel build in radiance_tpu_torch/_build/.
@@ -38,6 +41,7 @@ Exits 2 without a CUDA card, 1 if the profiler saw no device activity.
 
 import json
 import os
+import re
 import sys
 import time
 
@@ -54,7 +58,7 @@ KINDS = (  # (kind, substrings of a kernel's name), first match wins
     ("stream3_emit", ("emit_kernel",)),
     ("stream3_refine", ("refine_kernel",)),
     ("stream3_isect_occl", ("isect_occl_kernel", "fill_miss")),
-    ("stream3_isect", ("isect_kernel",)),
+    ("stream3_isect", ("isect_kernel", "isect_keys", "isect_finish")),
     ("stream3_oscal", ("oscal_kernel",)),
     ("stream3_transpose", ("aos_rows_kernel", "rows16_kernel")),
     ("sort", ("sort", "Radix", "radix")),
@@ -70,6 +74,23 @@ def kind_of(name: str) -> str:
         if any(k in name for k in keys):
             return kind
     return "other"
+
+
+def variant_of(name: str):
+    """The packet kernel's variant of a kernel record, as the wrapper's
+    launch counts name it (packet_trace.variant); kernel D's three
+    kernels by their own names; None for the rest."""
+    m = re.search(r"packet_trace_kernel<([^,>]+),([^,>]+),([^,>]+)>", name)
+    if m:
+        on = [v.strip() in ("true", "1", "(bool)1") for v in m.groups()]
+        var = (("masked_" if on[1] else "") + ("any_hit" if on[0] else
+                                                "closest")
+               + ("" if on[2] else "_legacy"))
+        return f"packet_trace[{var}]"
+    for k in ("isect_keys", "isect_finish", "isect_kernel"):
+        if k in name and "isect_occl" not in name:
+            return f"stream3_isect[{k}]"
+    return None
 
 
 def busy_us(intervals) -> float:
@@ -207,10 +228,14 @@ def main() -> int:
         print("chip_profile: the profiler recorded no device activity",
               file=sys.stderr)
         return 1
-    by_kind, by_name, spans = {}, {}, []
+    by_kind, by_name, by_variant, spans = {}, {}, {}, []
     for e in events:
         us = e.duration_ns() / 1e3
         by_kind[kind_of(e.name())] = by_kind.get(kind_of(e.name()), 0.0) + us
+        var = variant_of(e.name())
+        if var:
+            tot, cnt = by_variant.get(var, (0.0, 0))
+            by_variant[var] = (tot + us, cnt + 1)
         tot, cnt = by_name.get(e.name(), (0.0, 0))
         by_name[e.name()] = (tot + us, cnt + 1)
         spans.append((e.start_ns() / 1e3, e.start_ns() / 1e3 + us))
@@ -221,6 +246,10 @@ def main() -> int:
     for name, (us, cnt) in sorted(by_name.items(),
                                   key=lambda kv: -kv[1][0])[:30]:
         print(f"  {us / 1e3:10.3f} ms {cnt:6d}  {name[:110]}")
+    print("the packet kernel by variant and kernel D by kernel (device ms, "
+          "launches):", flush=True)
+    for var, (us, cnt) in sorted(by_variant.items()):
+        print(f"  {us / 1e3:10.3f} ms {cnt:6d}  {var}")
     out = dict(
         card=card, scene="multi64" if MULTI else "city", width=W, height=H,
         batch=BATCH, depth=DEPTH,
@@ -231,6 +260,8 @@ def main() -> int:
         idle_share=1 - busy_ms / wall_ms,
         device_ms_by_kind={k: v / 1e3 for k, v in
                            sorted(by_kind.items(), key=lambda kv: -kv[1])},
+        device_ms_by_variant={k: dict(ms=us / 1e3, launches=cnt) for k, (
+            us, cnt) in sorted(by_variant.items())},
         packet_trace_launches=sum(c for n, (_, c) in by_name.items()
                                   if "packet_trace" in n))
     print(json.dumps(out))

@@ -28,14 +28,20 @@ prints no result):
      of its four closest-hit kernels against its plain version on the
      card at the wave's shapes (transposes bit-exact, also at odd sizes,
      emit and refine word lists identical, pair intersection per ray to
-     the parity bars), each timed (the transposes' two launches each
-     alone and together, beside .t().contiguous()); the whole wave
-     against the packet kernel (two exact tracers, the same bars), its
-     stage times and diagnostics;
+     the parity bars, with D's bound from the plain version's counts),
+     each timed (the transposes' two launches each alone and together,
+     beside .t().contiguous()); the whole wave against the packet kernel
+     (two exact tracers, the same bars), its stage times and diagnostics;
   6. the main path: WavefrontPathTracer.render on the city at 1920x1080,
      batch=4, depth=4 (primary waves through stream3), then sample1's
      Cornell box at 512x512, batch=16, depth=4, with launch counts reset
-     just before and read just after;
+     just before and read just after, under torch.profiler with every
+     call of the packet kernel and D recorded; then each launch's kernel
+     ms from the profiler's kernel records, its bound from plain runs on
+     its recorded arguments (the packet kernel: sampled packets of each
+     launch group, one walk a group, held against the kernel's recorded
+     output on the same rays), D held against its plain version on each
+     launch;
   7. the many-instance stream path: kernel F (prep octant scalars) on the
      city's 1080p primary rows, masked and unmasked, equal to its plain
      version value for value, and the whole prep timed with F and with
@@ -51,9 +57,14 @@ prints no result):
      plain versions on the largest launch of each wave; then an engine
      frame on that scene at 1920x1080, batch=1, depth=2 (depth cut for
      time, not the width), with launch counts reset just before and read
-     just after, and a second frame with E held against its plain
-     version, timed and bounded on every launch (the kernels' line);
-  8. the kernels' JSON line, the card line, and the contract's last line.
+     just after, under torch.profiler with every call of D, E and F
+     recorded, each launch timed from the kernel records, held against
+     its plain version and bounded; and a second frame whose waves' shares
+     of poisoned rays are logged;
+  8. the kernels' JSON line (per kernel: the main path's launches, the
+     per-launch means of kernel ms, plain ms and bound and their sums;
+     A, B and C from phase 5), the card line, and the contract's last
+     line.
 
 Imports nothing of JAX or radiance_tpu (bench.py's numpy-only scene
 helpers are reused).  Needs one CUDA card; exits 2 without one.
@@ -72,6 +83,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 W, H = 1920, 1080
 CW = 512                      # sample1's Cornell-box image side
 PROBE = 65536
+# the plain walks that bound the main path's packet launches take one
+# 1024-ray packet in PLAIN_STRIDE of each (the whole walk of an
+# incoherent city bounce wave takes tens of seconds)
+PLAIN_STRIDE = {"city": 32, "cornell": 8}
 TMIN, TMAX = 1e-3, 1e4
 BARS = dict(hit=0.999, prim=0.999, rel_t_p99=1e-5)
 WITNESS_RATIO = 2.0
@@ -173,7 +188,8 @@ def judge(name, t_k, tri_k, t_p, tri_p, o, d, live, kprim, *, any_hit,
     |o| * eps / cos(incidence) there.  It holds p99 |dt| / (|o| + t) to
     the bar, or, where that misses, requires the float64 witness to show
     the kernel no further from the true t than the plain version.
-    mesh=(verts, tris) runs that witness (closest hit only)."""
+    mesh=(verts, tris) runs that witness (closest hit only).  kprim=None
+    holds the face rows themselves."""
     hk, hp = t_k < 3.4e38, t_p < 3.4e38
     both = hk & hp
     res = dict(name=name, rays=int(t_k.shape[0]),
@@ -184,8 +200,9 @@ def judge(name, t_k, tri_k, t_p, tri_p, o, d, live, kprim, *, any_hit,
         assert res["dead_hits"] == 0, res
     ok = res["hit_agree"] >= BARS["hit"]
     if not any_hit:
-        prim_k = kprim[tri_k.clamp(min=0).long()]
-        prim_p = kprim[tri_p.clamp(min=0).long()]
+        prim_k, prim_p = ((tri_k, tri_p) if kprim is None else
+                          (kprim[tri_k.clamp(min=0).long()],
+                           kprim[tri_p.clamp(min=0).long()]))
         same = both & (prim_k == prim_p)
         nb = int(both.sum())
         res["prim_agree"] = float(same.sum()) / nb if nb else 1.0
@@ -275,12 +292,14 @@ def bound(flops, nbytes):
     return (f_ms, "operations") if f_ms > b_ms else (b_ms, "bytes")
 
 
-def occl_bound(stg, args, st, out):
-    """Kernel E's (bound, words, leaves) on one launch: the ray-triangle
-    tests the function needs (the plain version's stats["tri_tests"]: each
-    live ray not yet occluded, under the reference's schedule, against its
-    leaf's triangle lanes) at 22 FMAs each, and the bytes of the features,
-    the valid words, the leaves they name (each once) and the output."""
+def pair_bound(stg, args, st, out):
+    """Kernel D's or E's (bound, words, leaves) on one launch: the
+    ray-triangle tests the function needs (the plain version's
+    stats["tri_tests"]: D, the unparked rays of each kept (leaf, block)
+    pair; E, each live ray not yet occluded under the reference's
+    schedule; each against its leaf's triangle lanes) at 22 FMAs each,
+    and the bytes of the features, the valid words, the leaves they name
+    (each once) and the output."""
     words, emeta, _, feats, kleaf = args[:5]
     cnt = torch.clamp(emeta[:, 0], max=stg.PCAP)
     valid = (torch.arange(words.shape[1], device=words.device)[None, :]
@@ -294,25 +313,190 @@ def occl_bound(stg, args, st, out):
             nwords, nleaves)
 
 
-def occl_launch(stg, args):
+def occl_launch(stg, args, out_k=None):
     """Kernel E on one launch's arguments (stage_isect's, then pcap and
-    stable) against its plain version: times (CUDA events), the plain
+    stable) against its plain version: times (CUDA events; none if out_k,
+    the kernel's output of a recorded launch, is given), the plain
     version's stats, the bound, and occluded-or-not of both with the live
     slot lanes.  trace_rows_multi parks a sub-wave's dead lanes at origin
     1e30, so the live lanes are those with a nearer object-space origin;
     fails if a dead lane differs from the plain version."""
-    live_rows = args[3][:, 6:9].abs().amax(dim=1) < 1e29
+    live_rows = stg.unparked(args[3])
     live = live_rows.view(-1, stg.PKT)[args[2].long()]
-    ms, out_k = cuda_ms(lambda: stg.isect_occl_cuda(*args), 5)
+    ms = None
+    if out_k is None:
+        ms, out_k = cuda_ms(lambda: stg.isect_occl_cuda(*args), 5)
     st = {}
     plain_ms, out_p = cuda_ms(lambda: stg._isect_occl_plain(
         *args, stats=st, live=live_rows), 1, warmup=False)
     if not bool((out_k == out_p).all(dim=2)[~live].all()):
         raise AssertionError("isect_occl differs from plain on a dead lane")
-    b, nwords, nleaves = occl_bound(stg, args, st, out_k)
+    b, nwords, nleaves = pair_bound(stg, args, st, out_k)
     return dict(st, ms=ms, plain_ms=plain_ms, bound=b, words=nwords,
                 leaves=nleaves, live=live, occ_k=out_k[..., 0] == 0,
                 occ_p=out_p[..., 0] == 0)
+
+
+def isect_launch(stg, args, out_k=None):
+    """Kernel D on one launch's arguments (stage_isect's, then pcap and
+    stable) against its plain version: times (CUDA events; none if out_k,
+    the kernel's output of a recorded launch, is given), the plain
+    version's stats and the bound; both outputs' t and prim ([lanes])."""
+    ms = None
+    if out_k is None:
+        ms, out_k = cuda_ms(lambda: stg.isect_cuda(*args), 5)
+    st = {}
+    plain_ms, out_p = cuda_ms(lambda: stg._isect_plain(*args, stats=st), 1,
+                              warmup=False)
+    b, nwords, nleaves = pair_bound(stg, args, st, out_k)
+    return dict(st, ms=ms, plain_ms=plain_ms, bound=b, words=nwords,
+                leaves=nleaves, t_k=out_k[..., 0].reshape(-1),
+                prim_k=out_k[..., 1].reshape(-1),
+                t_p=out_p[..., 0].reshape(-1),
+                prim_p=out_p[..., 1].reshape(-1))
+
+
+def hold_launches(name, runs):
+    """hold_prims over the lanes of many isect_launch() results."""
+    return hold_prims(name, *(torch.cat([r[k] for r in runs]) for k in
+                              ("t_k", "prim_k", "t_p", "prim_p")))
+
+
+# the kernels of each counted wrapper, by a substring of their names, in
+# the order one call launches them
+FAMILIES = {
+    "packet_trace": ("packet_trace_kernel",),
+    "isect": ("isect_keys", "isect_kernel<", "isect_finish"),
+    "isect_occl": ("fill_miss", "isect_occl_kernel"),
+    "oscal": ("oscal_kernel",),
+}
+
+
+class Calls:
+    """Record the calls of the port's kernel dispatchers that launch a
+    kernel (packet_trace.packet_trace; stream3's stage_isect, by occl,
+    and octant_scalars): per wrapper key, a list of (tag, args, kwargs,
+    output).  `tag` is set by the caller (the scene being rendered)."""
+
+    def __init__(self, pk, s3):
+        self.sites = ((pk, "packet_trace"), (s3, "stage_isect"),
+                      (s3, "octant_scalars"))
+        self.calls = {k: [] for k in FAMILIES}
+        self.tag = None
+
+    @staticmethod
+    def key(name, a, k):
+        if name == "packet_trace":
+            return "packet_trace" if a[0].shape[0] else None
+        if name == "stage_isect":
+            return (("isect_occl" if k.get("occl") else "isect")
+                    if a[0].shape[0] else None)
+        return "oscal" if a[2] else None
+
+    def __enter__(self):
+        self.orig = [getattr(m, n) for m, n in self.sites]
+
+        def hook(name, fn):
+            def wrapper(*a, **k):
+                out = fn(*a, **k)
+                key = self.key(name, a, k)
+                if key:     # masks copied: a caller may reuse its own
+                    a = tuple(x.clone() if isinstance(x, torch.Tensor)
+                              and x.dtype == torch.bool else x for x in a)
+                    self.calls[key].append((self.tag, a, dict(k), out))
+                return out
+            return wrapper
+
+        for (m, n), fn in zip(self.sites, self.orig):
+            setattr(m, n, hook(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n), fn in zip(self.sites, self.orig):
+            setattr(m, n, fn)
+
+
+def kernel_records(prof):
+    """torch.profiler's device records: (name, start ns, duration ns) in
+    launch order."""
+    return sorted(((e.name(), e.start_ns(), e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA),
+                  key=lambda r: r[1])
+
+
+def launch_ms(prof, calls):
+    """Device ms of each recorded call's kernels, from torch.profiler's
+    kernel records in launch order: {wrapper key: [ms per call]}; fails
+    unless every call has its kernels."""
+    recs = kernel_records(prof)
+    out = {}
+    for key in calls:
+        subs = FAMILIES[key]
+        mine = [r for r in recs if any(x in r[0] for x in subs)]
+        k = len(subs)
+        if len(mine) != k * len(calls[key]):
+            raise AssertionError(f"{key}: {len(mine)} kernel records for "
+                                 f"{len(calls[key])} calls")
+        out[key] = [sum(r[2] for r in mine[i:i + k]) / 1e6
+                    for i in range(0, len(mine), k)]
+    return out
+
+
+def summary(ms, plain_ms, bounds):
+    """Per-launch means and sums of kernel ms, plain ms and bounds."""
+    n = max(len(ms), 1)
+    by = {}
+    for b in bounds:
+        by[b[1]] = by.get(b[1], 0.0) + b[0]
+    return dict(launches=len(ms), ms=sum(ms) / n, ms_sum=sum(ms),
+                plain_ms=sum(plain_ms) / n, plain_ms_sum=sum(plain_ms),
+                bound_ms=sum(by.values()) / n, bound_ms_sum=sum(by.values()),
+                bound_by=max(by, key=by.get) if by else "operations")
+
+
+def log_summary(name, r, card):
+    log(f"    {name} ({card}): {r['launches']} launches, {r['ms']:.4f} ms "
+        f"mean ({r['ms_sum']:.3f} ms in all), plain {r['plain_ms']:.3f} ms "
+        f"mean, bound {r['bound_ms']:.4f} ms mean ({r['bound_ms_sum']:.3f} "
+        f"in all, {r['bound_by']}), "
+        f"{r['bound_ms_sum'] / max(r['ms_sum'], 1e-12):.3f} of it")
+
+
+def packet_bounds(name, pk, calls, stride):
+    """The packet kernel's plain version on a group of recorded launches
+    that share a variant and tables: one plain walk over every stride-th
+    whole 1024-ray packet of each launch, concatenated (packets walk
+    independently, so each packet's counts and results are those of its
+    own launch).  The walk's (t, tri) are held by judge() against the
+    kernel's recorded output on the same rays, on |dt| / (|o| + t) (the
+    group may be a bounce wave).  Returns (the walk's ms, the group's
+    summed bound, judge()'s result): the ray-triangle tests scaled by the
+    launches' rays over the rays walked; the bytes of every launch's rays
+    in and out and of the node rows (64 B) and leaf matrices the walked
+    packets touch, once -- a lower bound on the sum of the launches' own
+    bounds."""
+    parts, outs, n_all = [], [], 0
+    for _, a, _, out in calls:
+        n = a[0].shape[0]
+        n_all += n
+        pkt = torch.arange(n, device=a[0].device) // pk.PACKET
+        keep = (pkt % stride == 0) & (pkt < max(n // pk.PACKET, 1))
+        parts.append([None if x is None else x[keep] for x in a[:3]])
+        outs.append([x[keep] for x in out])
+    cols = [None if parts[0][i] is None else torch.cat([p[i] for p in parts])
+            for i in range(3)]
+    t_k, tri_k = (torch.cat([x[i] for x in outs]) for i in range(2))
+    _, a, k, _ = calls[0]
+    st = {}
+    p_ms, (t_p, tri_p) = cuda_ms(lambda: pk._packet_trace_reference(
+        *cols, *a[3:], **k, stats=st), 1, warmup=False)
+    res = judge(name, t_k, tri_k, t_p, tri_p, cols[0], cols[1], cols[2],
+                None, any_hit=k["any_hit"], t_scale="origin")
+    scale = n_all / max(cols[0].shape[0], 1)
+    return p_ms, bound(st["ray_leaf_tris"] * scale * FLOPS_PER_PAIR,
+                       n_all * 32 + st["node_rows"] * 64
+                       + st["leaves"] * a[4][0].numel() * 4), res
 
 
 def hold_prims(name, t_k, prim_k, t_p, prim_p):
@@ -928,27 +1112,25 @@ def main() -> int:
         bound=bound(words * stg.PKT * 12, words * (4 + 32) + kept * 4
                     + live_slots * stg.PKT * 24 + nslot * 64))
 
-    # D: pair intersection, kernel vs plain on the refined lists
+    # D: pair intersection, kernel vs plain on the refined lists; its
+    # bound counts the unparked rays of each kept (leaf, block) pair
+    # against the leaf's triangle lanes (the plain version's stats)
     is_args = (rk, rek, slot_pkt, feats, kleaf, TMIN, TMAX, stg.PCAP, stable)
-    d_ms, out_k = cuda_ms(lambda: stg.isect_cuda(*is_args), 3)
-    d_plain, out_p = cuda_ms(lambda: stg._isect_plain(*is_args), 1,
-                             warmup=False)
-    res_d = hold_prims("D isect", out_k[..., 0].reshape(-1),
-                       out_k[..., 1].reshape(-1), out_p[..., 0].reshape(-1),
-                       out_p[..., 1].reshape(-1))
-    valid = torch.arange(stg.PCAP, device=dev)[None, :] < rep[:, :1]
-    kw_valid = rk[valid]
-    km = (kw_valid >> 9) & 255
-    pairs = int(sum(((km >> b) & 1).sum() for b in range(8)))
-    leaves = int(torch.unique((kw_valid >> 17) - 1).numel())
-    log(f"   D isect: {pairs} (leaf, block) pairs over {leaves} leaves")
+    d_run = isect_launch(stg, is_args)
+    res_d = hold_launches("D isect", [d_run])
+    log(f"   D isect ({card}): {d_run['pairs']} (leaf, block) pairs over "
+        f"{d_run['leaves']} leaves, {d_run['ray_tests']} unparked rays in "
+        f"them against {d_run['tri_tests']} triangles "
+        f"({d_run['tri_tests'] / max(d_run['ray_tests'], 1):.2f} a ray); "
+        f"kernel {d_run['ms']:.3f} ms, plain {d_run['plain_ms']:.3f} ms, "
+        f"bound {d_run['bound'][0]:.4f} ms ({d_run['bound'][1]}; all 128 "
+        f"lanes of every pair: "
+        f"{d_run['pairs'] * stg.BLK * stg.T * FLOPS_PER_PAIR / FP32_FLOPS * 1e3:.4f}"
+        f" ms), {d_run['bound'][0] / d_run['ms']:.3f} of it")
     s3k["isect"] = dict(
-        ms=d_ms, plain_ms=d_plain, library_ms=None,
-        max_abs_err=res_d["max_abs_err"],
-        bound=bound(pairs * stg.BLK * stg.T * FLOPS_PER_PAIR,
-                    npad * 64 + kept * 4 + leaves * kleaf[0].numel() * 4
-                    + out_k.numel() * 4))
-    del wk, wp, rk, rp, out_k, out_p
+        ms=d_run["ms"], plain_ms=d_run["plain_ms"], library_ms=None,
+        max_abs_err=res_d["max_abs_err"], bound=d_run["bound"])
+    del wk, wp, rk, rp, d_run
 
     # the whole wave: stream3 (all four kernels) against the packet
     # kernel, two exact tracers on the same rays, then its stage times
@@ -980,6 +1162,12 @@ def main() -> int:
     del rec3, rec_pk, feats, feats_t
 
     # ---- 6. the main path --------------------------------------------
+    # two city frames and sample1's Cornell box, with the launch counts
+    # reset just before and read just after; every launch of the packet
+    # kernel and of D recorded (arguments and output) and timed on its own
+    # shape from torch.profiler's kernel records
+    from torch.profiler import ProfilerActivity, profile
+
     res = city_resources(dev, verts, tris, W, H)
     cscene, cres = cornell_inputs(dev, CW)
     torch.cuda.synchronize()
@@ -989,25 +1177,30 @@ def main() -> int:
     frame_ms = []
     accum = torch.zeros(n, 3, device=dev)
     ts = 0
-    for _ in range(2):
+    with Calls(pk, s3) as main_calls, profile(
+            activities=[ProfilerActivity.CUDA]) as prof:
+        main_calls.tag = "city"
+        for _ in range(2):
+            t0 = time.time()
+            accum, image = tracer.render(scene, res, accum, ts, W, H,
+                                         batch=4, depth=4)
+            torch.cuda.synchronize()
+            frame_ms.append((time.time() - t0) * 1e3)
+            ts += 4
+        city_launches = dict(pk.packet_trace_cuda.launches)
+        city_s3 = {k: fn.launches for k, fn in stg.KERNELS.items()}
+        main_calls.tag = "cornell"
         t0 = time.time()
-        accum, image = tracer.render(scene, res, accum, ts, W, H, batch=4,
-                                     depth=4)
+        caccum, cimage = tracer.render(cscene, cres,
+                                       torch.zeros(CW * CW, 3, device=dev),
+                                       0, CW, CW, batch=16, depth=4)
         torch.cuda.synchronize()
-        frame_ms.append((time.time() - t0) * 1e3)
-        ts += 4
-    city_launches = dict(pk.packet_trace_cuda.launches)
-    city_s3 = {k: fn.launches for k, fn in stg.KERNELS.items()}
-    t0 = time.time()
-    caccum, cimage = tracer.render(cscene, cres, torch.zeros(CW * CW, 3,
-                                                             device=dev),
-                                   0, CW, CW, batch=16, depth=4)
-    torch.cuda.synchronize()
-    cornell_ms = (time.time() - t0) * 1e3
+        cornell_ms = (time.time() - t0) * 1e3
     launches = dict(pk.packet_trace_cuda.launches)
     s3_launches = {k: fn.launches for k, fn in stg.KERNELS.items()}
 
-    log(f"[6] city 1920x1080 batch 4 depth 4 ({card}): frames "
+    log(f"[6] city 1920x1080 batch 4 depth 4 ({card}; under "
+        f"torch.profiler): frames "
         f"{', '.join(f'{m:.1f}' for m in frame_ms)} ms; "
         f"{4 * 4 * 2 * n / (frame_ms[-1] / 1e3) / 1e6:.3f} Mrays/s "
         f"(batch*depth*2*n / frame time); launches {city_launches}, "
@@ -1025,6 +1218,77 @@ def main() -> int:
     if any(city_s3[k] <= 0 for k in city_keys):
         raise AssertionError(f"city frame missed a stream3 kernel: {city_s3}")
     del accum, image, caccum, cimage
+
+    # each launch's kernel ms, its plain version's ms and bound
+    t0 = time.time()
+    main_ms = launch_ms(prof, main_calls.calls)
+    del prof
+    log(f"    kernel records of {sum(map(len, main_ms.values()))} launches "
+        f"read in {time.time() - t0:.1f} s")
+    groups = {}             # (variant, scene, tables) -> [call]
+    pk_ms = {}              # (variant, scene) -> [kernel ms a launch]
+    for call, ms in zip(main_calls.calls["packet_trace"],
+                        main_ms["packet_trace"]):
+        tag, a, k, _ = call
+        var = pk.variant(k["any_hit"], a[2] is not None, k["stable"])
+        groups.setdefault((var, tag, a[3].data_ptr(), a[4].data_ptr(),
+                           float(a[5]), float(a[6])), []).append(call)
+        pk_ms.setdefault((var, tag), []).append(ms)
+    pk_plain = {}           # (variant, scene) -> [(plain ms, bound)]
+    pk_errs = {}            # variant -> [max_abs_err of a group's hold]
+    for (var, tag, *_), calls in groups.items():
+        p_ms, bnd, held = packet_bounds(
+            f"packet_trace[{var}] on {tag}'s {len(calls)} launches, sampled "
+            f"packets", pk, calls, PLAIN_STRIDE[tag])
+        pk_plain.setdefault((var, tag), []).append((p_ms, bnd))
+        pk_errs.setdefault(var, []).append(held["max_abs_err"])
+    log(f"    {len(groups)} plain walks over the packet launches (one "
+        f"packet in {PLAIN_STRIDE}), each held against the kernel's "
+        f"recorded output, in {time.time() - t0:.1f} s")
+    main_pk = {}
+    for var in PATH_VARIANTS:
+        by_scene = {}
+        for tag in ("city", "cornell"):
+            if (var, tag) not in pk_ms:
+                continue
+            ms = pk_ms[(var, tag)]
+            p_ms, bnds = zip(*pk_plain[(var, tag)])
+            # the groups' plain ms and bounds spread evenly over their
+            # launches, so that sums stay sums
+            nl = len(ms)
+            by_scene[tag] = summary(ms, [sum(p_ms) / nl] * nl,
+                                    [(sum(b[0] for b in bnds) / nl,
+                                      max(bnds)[1])] * nl)
+        runs = sum(r["launches"] for r in by_scene.values())
+        if runs != launches[var]:
+            raise AssertionError(f"{var}: {runs} recorded launches, "
+                                 f"{launches[var]} counted")
+        main_pk[var] = summary(
+            [m for tag in by_scene for m in pk_ms[(var, tag)]],
+            [r["plain_ms_sum"] / r["launches"] for r in by_scene.values()
+             for _ in range(r["launches"])],
+            [(r["bound_ms"], r["bound_by"]) for r in by_scene.values()
+             for _ in range(r["launches"])])
+        main_pk[var]["by_scene"] = by_scene
+        log_summary(f"packet_trace[{var}] over the main path's launches",
+                    main_pk[var], card)
+        for tag, r in by_scene.items():
+            log_summary(f"  {tag}", r, card)
+    t1 = time.time()
+    d_city = [isect_launch(stg, a + (k["pcap"], k["stable"]), out)
+              for _, a, k, out in main_calls.calls["isect"]]
+    log(f"    D's plain runs in {time.time() - t1:.1f} s")
+    if len(d_city) != s3_launches["isect"]:
+        raise AssertionError("D: recorded and counted launches differ")
+    res_dm = hold_launches(f"D over the main path's {len(d_city)} launches",
+                           d_city)
+    d_lists = (main_ms["isect"], [r["plain_ms"] for r in d_city],
+               [r["bound"] for r in d_city])
+    d_main = summary(*d_lists)
+    log_summary("D (stream3_isect) over the city frames' launches", d_main,
+                card)
+    log(f"[6] per-launch plain runs in {time.time() - t0:.1f} s")
+    del main_calls, d_city
 
     # ---- 7. the many-instance stream path, kernels E and F -----------
     t0 = time.time()
@@ -1101,7 +1365,7 @@ def main() -> int:
         res_e = hold_occluded(f"E isect_occl vs plain, {form} lists (live "
                               f"slot lanes)", out_k[..., 0] == 0,
                               out_p[..., 0] == 0, lane_live)
-        e_bound, nwords, nleaves = occl_bound(stg, e_args, e_st, out_k)
+        e_bound, nwords, nleaves = pair_bound(stg, e_args, e_st, out_k)
         e_city[form] = dict(ms=e_ms, plain_ms=e_plain, library_ms=None,
                             max_abs_err=1.0 - res_e["live_agree"],
                             bound=e_bound, occ=out_k[..., 0] == 0)
@@ -1122,7 +1386,6 @@ def main() -> int:
     log(f"   C refine on the shadow wave's lists: {sc_ms:.3f} ms; C + E "
         f"{sc_ms + e_city['refined']['ms']:.3f} ms vs E alone on the emitted "
         f"lists {e_city['emitted']['ms']:.3f} ms")
-    s3k["oscal"] = oscal["masked"]
     del swords, semeta, rwords, remeta, e_args, sfeats_t, sfeats
 
     # the whole occlusion wave through stream3 (kernels F, B, C, A and E)
@@ -1228,28 +1491,79 @@ def main() -> int:
         f"of it")
     del mrec, prec, mocc, pocc, m_big, s_big, fa, ea, e_big
 
-    # the main path on the 64-instance scene: one engine frame
+    # the main path on the 64-instance scene: one engine frame, its
+    # launches of D, E and F recorded and timed on their own shapes from
+    # torch.profiler's kernel records; then each held against its plain
+    # version, which also bounds it
     stg.reset_launches()
-    tf0 = time.time()
-    maccum, mimage = tracer.render(mscene, mres, torch.zeros(n, 3, device=dev),
-                                   0, W, H, batch=1, depth=2)
-    torch.cuda.synchronize()
-    mframe_ms = (time.time() - tf0) * 1e3
+    with Calls(pk, s3) as m_calls, profile(
+            activities=[ProfilerActivity.CUDA]) as prof:
+        m_calls.tag = "multi64"
+        tf0 = time.time()
+        maccum, mimage = tracer.render(mscene, mres,
+                                       torch.zeros(n, 3, device=dev), 0, W, H,
+                                       batch=1, depth=2)
+        torch.cuda.synchronize()
+        mframe_ms = (time.time() - tf0) * 1e3
     m_launches = {k: fn.launches for k, fn in stg.KERNELS.items()}
-    log(f"[7] 64-instance frame 1920x1080 batch 1 depth 2 ({card}): "
-        f"{mframe_ms:.1f} ms; stream3 launches {m_launches}")
+    log(f"[7] 64-instance frame 1920x1080 batch 1 depth 2 ({card}; under "
+        f"torch.profiler): {mframe_ms:.1f} ms; stream3 launches "
+        f"{m_launches}")
     check_frame("64-instance", maccum, mimage, n)
     # the scan takes column views of the engine's rays, so no AoS -> rows
     if any(v <= 0 for k, v in m_launches.items() if k != "aos_rows"):
         raise AssertionError(f"64-instance frame missed a kernel: "
                              f"{m_launches}")
+    t1 = time.time()
+    m_ms = launch_ms(prof, m_calls.calls)
+    del prof
+    for key in ("isect", "isect_occl", "oscal"):
+        if len(m_calls.calls[key]) != m_launches[key]:
+            raise AssertionError(f"{key}: recorded and counted launches "
+                                 f"differ")
+    d_multi = [isect_launch(stg, a + (k["pcap"], k["stable"]), out)
+               for _, a, k, out in m_calls.calls["isect"]]
+    res_dm2 = hold_launches(f"D over the 64-instance frame's "
+                            f"{len(d_multi)} launches", d_multi)
+    dm_lists = (m_ms["isect"], [r["plain_ms"] for r in d_multi],
+                [r["bound"] for r in d_multi])
+    d_frame = summary(*dm_lists)
+    log_summary("D (stream3_isect) over the 64-instance frame's launches",
+                d_frame, card)
+    e_runs = [occl_launch(stg, a + (k["pcap"], k["stable"]), out)
+              for _, a, k, out in m_calls.calls["isect_occl"]]
+    e_live = sum(int(r["live"].sum()) for r in e_runs)
+    e_agree = sum(int(((r["occ_k"] == r["occ_p"]) & r["live"]).sum())
+                  for r in e_runs) / max(e_live, 1)
+    log(f"    E over the 64-instance frame's {len(e_runs)} launches: "
+        f"occluded agreement {e_agree:.7f} of {e_live} live lanes")
+    if e_agree < BARS["hit"]:
+        raise AssertionError(f"E disagrees with plain over a frame: "
+                             f"{e_agree} of {e_live} live lanes")
+    e_frame = summary(m_ms["isect_occl"], [r["plain_ms"] for r in e_runs],
+                      [r["bound"] for r in e_runs])
+    log_summary("E (stream3_isect_occl) over the 64-instance frame's "
+                "launches", e_frame, card)
+    f_plain, f_bounds = [], []
+    for _, a, _, out in m_calls.calls["oscal"]:
+        ms, ref = cuda_ms(lambda: stg._oscal_plain(*a), 1, warmup=False)
+        if not all(values_equal(x, y) for x, y in zip(out, ref)):
+            raise AssertionError("oscal differs from plain on a frame launch")
+        f_plain.append(ms)
+        f_bounds.append(bound(0, sum(r.numel() * 4 for r in a[0])
+                              + (0 if a[1] is None else a[1].numel())
+                              + sum(x.numel() * x.element_size()
+                                    for x in out)))
+    log(f"    the 64-instance frame's plain runs (D, E, F) in "
+        f"{time.time() - t1:.1f} s")
+    f_frame = summary(m_ms["oscal"], f_plain, f_bounds)
+    log_summary("F (stream3_oscal) over the 64-instance frame's launches, "
+                "each equal to plain", f_frame, card)
+    del m_calls, d_multi, e_runs
     # a second frame, its traces' diagnostics recorded: the share of rays
-    # that the reference's contract poisons (slot -2) in each engine wave;
-    # and kernel E held against its plain version on each launch's
-    # arguments, with its time and bound: E's numbers for the kernels'
-    # line, on the shapes an engine frame gives it
-    waves_diag, e_frame = [], []
-    scan, isect = s3m.trace_rows_multi, s3.stage_isect
+    # that the reference's contract poisons (slot -2) in each engine wave
+    waves_diag = []
+    scan = s3m.trace_rows_multi
 
     def recorded(*a, **k):
         rec, diag = scan(*a, with_diag=True, **k)
@@ -1257,48 +1571,15 @@ def main() -> int:
                                rays=int(rec.t.shape[0])))
         return rec
 
-    def isect_held(*a, **k):
-        out = isect(*a, **k)
-        if k.get("occl") and a[0].shape[0]:
-            r = occl_launch(stg, a + (k["pcap"], k["stable"]))
-            lv = r["live"]
-            e_frame.append((r["ms"], r["plain_ms"], r["bound"],
-                            int(lv.sum()),
-                            int(((r["occ_k"] == r["occ_p"]) & lv).sum())))
-        return out
-
-    s3m.trace_rows_multi, s3.stage_isect = recorded, isect_held
+    s3m.trace_rows_multi = recorded
     try:
         tracer.render(mscene, mres, maccum, 1, W, H, batch=1, depth=2)
     finally:
-        s3m.trace_rows_multi, s3.stage_isect = scan, isect
+        s3m.trace_rows_multi = scan
     for dg in waves_diag:
         log(f"    engine wave ({'shadow' if dg['occl'] else 'closest'}): "
             f"{json.dumps(dg)}, poisoned share "
             f"{dg['poisoned'] / dg['rays']:.7f}")
-    ne = len(e_frame)
-    if not ne:
-        raise AssertionError("the second 64-instance frame launched no E")
-    e_live = sum(x[3] for x in e_frame)
-    e_agree = sum(x[4] for x in e_frame) / max(e_live, 1)
-    if e_agree < BARS["hit"]:
-        raise AssertionError(f"E disagrees with plain over a frame: "
-                             f"{e_agree} of {e_live} live lanes")
-    by = {k: sum(x[2][0] for x in e_frame if x[2][1] == k)
-          for k in ("bytes", "operations")}
-    s3k["isect_occl"] = dict(
-        ms=sum(x[0] for x in e_frame) / ne,
-        plain_ms=sum(x[1] for x in e_frame) / ne, library_ms=None,
-        max_abs_err=1.0 - e_agree,
-        bound=(sum(by.values()) / ne, max(by, key=by.get)))
-    r = s3k["isect_occl"]
-    log(f"    E over the second frame's {ne} launches ({card}; the main "
-        f"path's frame made {m_launches['isect_occl']}): kernel "
-        f"{r['ms']:.4f} ms a launch, plain {r['plain_ms']:.3f} ms, bound "
-        f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), "
-        f"{r['bound'][0] / r['ms']:.3f} of it, the slowest launch "
-        f"{max(x[0] for x in e_frame):.4f} ms; occluded agreement "
-        f"{e_agree:.7f} of {e_live} live lanes")
     # the same first frame on the route scenes of 2-8 instances take (one
     # packet sweep per instance): the baseline of the scan's frame, and a
     # second tracer for its image
@@ -1327,31 +1608,51 @@ def main() -> int:
     log(f"[7] done in {time.time() - t0:.1f} s")
 
     # ---- 8. results --------------------------------------------------
+    # per kernel: the main path's launches (the packet kernel and D: the
+    # city frames and sample1; D, E and F: the 64-instance frame), each
+    # timed on its own shape; ms, plain_ms and bound_ms are means a launch
+    # over them, the *_sum keys their sums.  A, B and C: phase [5]'s
+    # 1080p primary wave.
     kernels = []
     for var in PATH_VARIANTS:
         errs = [r["max_abs_err"] for k, r in results.items()
-                if k.rsplit("/", 1)[1] == var]
+                if k.rsplit("/", 1)[1] == var] + pk_errs[var]
+        r = main_pk[var]
         kernels.append({
             "name": f"packet_trace[{var}]", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": REPLACES,
             "launches": launches[var], "max_abs_err": max(errs),
-            "ms": times[var][0], "plain_ms": times[var][1],
-            "bound_ms": pk_bounds[var][0], "bound_by": pk_bounds[var][1],
-            "library_ms": None})
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "ms_sum": r["ms_sum"],
+            "bound_ms_sum": r["bound_ms_sum"], "by_scene": r["by_scene"],
+            "wave_1080p": dict(zip(("ms", "plain_ms"), times[var]),
+                               bound_ms=pk_bounds[var][0]),
+            "packet": pk.PACKET_RAYS, "plain_packet_stride": PLAIN_STRIDE})
+    d_all = summary(*(x + y for x, y in zip(d_lists, dm_lists)))
+    frame_rows = {"isect": dict(d_all, max_abs_err=max(
+        res_dm["max_abs_err"], res_dm2["max_abs_err"],
+        s3k["isect"]["max_abs_err"]), by_scene={
+            "city": d_main, "multi64": d_frame},
+            wave_1080p=dict(ms=s3k["isect"]["ms"],
+                            bound_ms=s3k["isect"]["bound"][0])),
+        "isect_occl": dict(e_frame, max_abs_err=1.0 - e_agree),
+        "oscal": dict(f_frame, max_abs_err=0.0)}
     for key, (name, src, replaced) in S3_KERNELS.items():
-        r = s3k[key]
-        # E and F: the 64-instance frame's run; the others: city + sample1.
-        # A's two wrappers (AoS -> rows, features) are one entry
-        count = m_launches if key in ("isect_occl", "oscal") else s3_launches
-        launched = count[key] + (count["aos_rows"] if key == "transpose"
-                                 else 0)
-        kernels.append({
+        if key in frame_rows:
+            r = dict(frame_rows[key], library_ms=None)
+            launched = r.pop("launches")
+        else:
+            r = s3k[key]
+            r = dict(r, bound_ms=r["bound"][0], bound_by=r["bound"][1])
+            del r["bound"]
+            # A's two wrappers (AoS -> rows, features) are one entry
+            launched = s3_launches[key] + (s3_launches["aos_rows"]
+                                           if key == "transpose" else 0)
+        kernels.append(dict({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaced[0], "also_replaces": replaced[1:],
-            "launches": launched, "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": r["library_ms"]})
+            "launches": launched}, **r))
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -54,6 +54,7 @@
 // against 128 triangles at 22 FMAs (chip_smoke.py counts them with the
 // plain version's stats).  A leaf is read from L2 once per kept block.
 
+#include "leaf_tile.cuh"
 #include "s3_common.cuh"
 
 namespace {
@@ -81,20 +82,9 @@ constexpr int kRayGroups = kThreads / kTriHalf;
 constexpr int kChunk = kThreads;
 constexpr float kParked = 1e29f;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using lt::cp_async16;
+using lt::cp_async_commit;
+using lt::cp_async_wait;
 
 // The float4 of the leaf matrix that a staged leaf's float4 i copies.
 __device__ __forceinline__ int leaf_src(int i) {

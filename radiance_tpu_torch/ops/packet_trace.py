@@ -8,8 +8,10 @@ leaves as [1024, 16] @ [16, 4T] Pluecker matrix products on the MXU.
 Here:
 
   * on a CUDA tensor, `packet_trace_cuda` launches the hand-written
-    kernel csrc/packet_trace.cu (one thread per ray, same tables, same
-    outputs; see the source's header for its design);
+    kernel csrc/packet_trace.cu: the same schedule in packets of
+    PACKET_RAYS rays, one block each, walking the packet-mean octant's
+    table (`packet_bases`) with a vote per node and testing each leaf
+    as a shared-memory tile (see the source's header for its design);
   * on a CPU tensor, `_packet_trace_reference` runs the plain PyTorch
     version.  It keeps the TPU kernel's packet schedule, vectorised over
     packets -- one cursor per packet, a union box test, a batched
@@ -40,6 +42,8 @@ from radiance_tpu_torch.ops import cuda_build
 from radiance_tpu_torch.ops.intersect import FLT_MAX, intersect_triangle
 
 PACKET = 1024                 # rays per packet in the plain version
+PACKET_RAYS = 64              # rays per packet (and block) of the kernel:
+                              # kP in csrc/packet_trace.cu
 _REF_CHUNK = 64               # packets per batched leaf product
 
 
@@ -94,9 +98,10 @@ def supports_multi(scene) -> bool:
 
 KERNEL = cuda_build.KernelLib("packet_trace", (("rt_packet_trace", (
     cuda_build.P, cuda_build.P, cuda_build.P, cuda_build.P, cuda_build.P,
-    cuda_build.I64, cuda_build.I32, cuda_build.I32, cuda_build.F32,
+    cuda_build.P, cuda_build.I64, cuda_build.I32, cuda_build.F32,
     cuda_build.F32, cuda_build.I32, cuda_build.I32, cuda_build.P,
     cuda_build.P, cuda_build.P)),))
+MAX_LANES = 128               # leaf lanes a staged leaf holds
 
 
 def load_kernel():
@@ -113,13 +118,30 @@ def variant(any_hit: bool, masked: bool, stable: bool) -> str:
     return name if stable else name + "_legacy"
 
 
+def packet_bases(d: torch.Tensor, packet: int, nk_local: int
+                 ) -> torch.Tensor:
+    """Each packet's node-table row base: [ceil(n / packet)] i32, octant
+    * nk_local, the octant that of the packet's summed direction (the
+    JAX package's _run, packet_trace.py:522-530); rays past n in the last
+    packet add nothing.  d: [n, 3] f32."""
+    n = d.shape[0]
+    npk = -(-n // packet)
+    dsum = torch.nn.functional.pad(d, (0, 0, 0, npk * packet - n)).view(
+        npk, packet, 3).sum(dim=1)
+    oct_ = ((dsum[:, 0] < 0).to(torch.int32)
+            + 2 * (dsum[:, 1] < 0).to(torch.int32)
+            + 4 * (dsum[:, 2] < 0).to(torch.int32))
+    return oct_ * nk_local
+
+
 def packet_trace_cuda(o, d, live, nodef, kleaf, tmin, tmax, *,
                       any_hit: bool, stable: bool
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel: (t [n] f32, tri [n] i32) on o's device.
 
     o, d: [n, 3] f32 object-space rays; live: [n] bool or None;
-    nodef: [8*Nk, 16] f32; kleaf: [Nl, 16, 4T] f32.
+    nodef: [8*Nk, 16] f32; kleaf: [Nl, 16, 4T] f32, 16-byte aligned, T
+    a multiple of 4 and at most MAX_LANES.  Packets of PACKET_RAYS rays.
     """
     dev = o.device
     if dev.type != "cuda":
@@ -135,6 +157,9 @@ def packet_trace_cuda(o, d, live, nodef, kleaf, tmin, tmax, *,
     if nodef.shape[0] % 8 or kleaf.shape[2] % 4:
         raise ValueError(f"bad table shapes {tuple(nodef.shape)}, "
                          f"{tuple(kleaf.shape)}")
+    if kleaf.shape[2] // 4 > MAX_LANES or kleaf.data_ptr() % 16:
+        raise ValueError(f"{fn}: kleaf must be 16-byte aligned with at most "
+                         f"{MAX_LANES} lanes a leaf")
     live_u8 = None
     if live is not None:
         if live.shape != (n,) or live.device != dev:
@@ -145,12 +170,13 @@ def packet_trace_cuda(o, d, live, nodef, kleaf, tmin, tmax, *,
     out_tri = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return out_t, out_tri
+    base = packet_bases(d, PACKET_RAYS, nodef.shape[0] // 8)
     err = lib.rt_packet_trace(
         o.data_ptr(), d.data_ptr(),
-        None if live_u8 is None else live_u8.data_ptr(),
-        nodef.data_ptr(), kleaf.data_ptr(), n, nodef.shape[0] // 8,
-        kleaf.shape[2] // 4, float(tmin), float(tmax), int(any_hit),
-        int(stable), out_t.data_ptr(), out_tri.data_ptr(),
+        None if live_u8 is None else live_u8.data_ptr(), base.data_ptr(),
+        nodef.data_ptr(), kleaf.data_ptr(), n, kleaf.shape[2] // 4,
+        float(tmin), float(tmax), int(any_hit), int(stable),
+        out_t.data_ptr(), out_tri.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check_launch("packet_trace", err)
     key = variant(any_hit, live is not None, stable)

@@ -76,7 +76,7 @@ LIBS = {
                           _P, _P)),), ("-fmad=false",)),
     "isect": cuda_build.KernelLib("s3_isect", (
         ("rt_s3_isect", (_P, _P, _P, _P, _P, _I32, _I32, _F32, _F32, _I32,
-                         _P, _P)),)),
+                         _P, _P, _P)),)),
     "isect_occl": cuda_build.KernelLib("s3_isect_occl", (
         ("rt_s3_isect_occl", (_P, _P, _P, _P, _P, _I32, _I32, _F32, _F32,
                               _I32, _P, _P)),)),
@@ -548,12 +548,30 @@ def _pair_tests(x, wf, stable, tmin_t, tmax_t):
     return s0, s2, rv, t, inside & (t > tmin_t) & (t < tmax_t)
 
 
+def _tri_lanes(kleaf):
+    """[Nl] i64: each leaf's triangle lanes, those with a non-zero edge
+    row 3-5 (a padded lane's are zero and can never be hit)."""
+    nt = kleaf.shape[2] // 4
+    return (kleaf[:, 3:6, :3 * nt].reshape(-1, 3, 3, nt) != 0) \
+        .any(dim=2).any(dim=1).sum(dim=1)
+
+
+def unparked(feats):
+    """[Npad] bool: the rays of ray-major feats whose origin is nearer
+    than 1e29 in every component; stream3.park_dead parks a dead lane at
+    1e30, where the pair kernels test nothing."""
+    return feats[:, 6:9].abs().amax(dim=1) < 1e29
+
+
 def _isect_plain(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
-                 stable):
+                 stable, stats=None):
     """Plain version of kernel D: for each word position, the Pluecker
     tests of every kept (slot, block) pair (_pair_tests), then a running
     per-ray best with the reference's tie rule (lower t, then lower leaf
-    lane, then the earlier word)."""
+    lane, then the earlier word).  stats, if a dict, receives "pairs":
+    the kept (leaf, block) pairs, "ray_tests": their rays that are not
+    parked (unparked()), and "tri_tests": each such ray times its leaf's
+    triangle lanes -- the ray-triangle tests the function needs."""
     dev = words.device
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
     nslot = words.shape[0]
@@ -561,6 +579,12 @@ def _isect_plain(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
     tmin_t = torch.tensor(tmin, dtype=f32, device=dev)
     tmax_t = torch.tensor(tmax, dtype=f32, device=dev)
     cnt = torch.clamp(emeta[:, 0], max=pcap).to(i64)
+    pairs = 0
+    ray_tests = torch.zeros((), dtype=i64, device=dev)
+    tri_tests = torch.zeros((), dtype=i64, device=dev)
+    if stats is not None:
+        tri_lanes = _tri_lanes(kleaf)
+        act = unparked(feats).view(-1, 8, BLK).sum(dim=2)    # [npk, 8]
     best_t = torch.full((nslot, PKT), FMAX, dtype=f32, device=dev)
     best_lane = torch.full((nslot, PKT), nt, dtype=i64, device=dev)
     best_prim = torch.full((nslot, PKT), -1.0, dtype=f32, device=dev)
@@ -575,10 +599,15 @@ def _isect_plain(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
         w = words[sel, j]
         kmask = (w >> W_KEEP_SHIFT) & 255
         ps, pb = torch.nonzero((kmask[:, None] >> bits) & 1, as_tuple=True)
+        pairs += ps.numel()
         for c in range(0, ps.numel(), _ISECT_CHUNK):
             q, b = ps[c:c + _ISECT_CHUNK], pb[c:c + _ISECT_CHUNK]
             slot = sel[q]
             leaf = torch.clamp((w[q] >> W_LEAF_SHIFT) - 1, min=0).to(i64)
+            if stats is not None:
+                need = act[slot_pkt[slot].to(i64), b]
+                ray_tests += need.sum()
+                tri_tests += (need * tri_lanes[leaf]).sum()
             x = xs[slot_pkt[slot].to(i64), b]                  # [c, BLK, 16]
             wf = kleaf[leaf]                                   # [c, 16, 4T]
             s0, s2, rv, t, ok = _pair_tests(x, wf, stable, tmin_t, tmax_t)
@@ -598,6 +627,10 @@ def _isect_plain(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
             best_prim[ss, rr] = torch.where(imp, prim, best_prim[ss, rr])
             best_b1[ss, rr] = torch.where(imp, b1, best_b1[ss, rr])
             best_b2[ss, rr] = torch.where(imp, b2, best_b2[ss, rr])
+    if stats is not None:
+        stats["pairs"] = pairs
+        stats["ray_tests"] = int(ray_tests)
+        stats["tri_tests"] = int(tri_tests)
     return torch.stack([best_t, best_prim, best_b1, best_b2], dim=2)
 
 
@@ -618,17 +651,24 @@ def _check_isect_args(fn, words, emeta, slot_pkt, feats, kleaf, pcap):
 def isect_cuda(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
                stable):
     """Kernel D: out [nslot, PKT, 4] f32 (t, prim, b1, b2); rays with no
-    hit hold (FLT_MAX, -1, 0, 0)."""
+    hit hold (FLT_MAX, -1, 0, 0).  Its three launches share a [nslot *
+    PKT] i64 scratch of per-ray keys."""
     dev = _check_isect_args("isect_cuda", words, emeta, slot_pkt, feats,
                             kleaf, pcap)
+    if not _aligned(feats, kleaf):
+        raise ValueError("isect_cuda: feats and kleaf must be 16-byte "
+                         "aligned")
+    if pcap > 1 << 16:
+        raise ValueError("isect_cuda: pcap must be at most 65536")
     nslot = words.shape[0]
     out = torch.empty(nslot, PKT, 4, dtype=torch.float32, device=dev)
     if nslot:
+        keys = torch.empty(nslot * PKT, dtype=torch.int64, device=dev)
         cuda_build.check_launch("s3_isect", _lib("isect").rt_s3_isect(
             words.data_ptr(), emeta.data_ptr(), slot_pkt.data_ptr(),
             feats.data_ptr(), kleaf.data_ptr(), nslot, int(pcap),
-            float(tmin), float(tmax), int(bool(stable)), out.data_ptr(),
-            _stream(dev)))
+            float(tmin), float(tmax), int(bool(stable)), keys.data_ptr(),
+            out.data_ptr(), _stream(dev)))
         isect_cuda.launches += 1
     return out
 
@@ -667,8 +707,7 @@ def _isect_occl_plain(words, emeta, slot_pkt, feats, kleaf, tmin, tmax,
     ray_tests = torch.zeros((), dtype=i64, device=dev)
     tri_tests = torch.zeros((), dtype=i64, device=dev)
     if stats is not None:
-        tri_lanes = (kleaf[:, 3:6, :3 * T].reshape(-1, 3, 3, T) != 0) \
-            .any(dim=2).any(dim=1).sum(dim=1)                   # [Nl]
+        tri_lanes = _tri_lanes(kleaf)
     for j in range(int(cnt.max()) if nslot else 0):
         sat = occ.view(nslot, 8, BLK).all(dim=2)            # [nslot, 8]
         sel = torch.nonzero((cnt > j) & ~sat.all(dim=1)).squeeze(1)

@@ -538,3 +538,254 @@ def test_trace_rows_multi_on_card_matches_cpu(cuda, occl):
     ok = (got.slot != -2).cpu().numpy()
     assert ((sweeps.t.cpu().numpy() < FLT_MAX)
             == (got.t.cpu().numpy() < FLT_MAX))[ok].mean() >= 0.999
+
+
+# ------------------------------------------- packet kernel: edge cases
+
+def _pk_pair(cuda, ds, o, d, live=None, any_hit=False, stable=True):
+    """(t, tri) of the packet kernel and of its plain version on the same
+    object-space rays (CUDA tensors)."""
+    args = (o, d, live, ds.knode_f, ds.kleaf, 1e-3, 1e3)
+    kw = dict(any_hit=any_hit, stable=stable)
+    got = pk.packet_trace_cuda(*args, **kw)
+    ref = pk._packet_trace_reference(*args, **kw)
+    torch.cuda.synchronize()
+    return got, ref
+
+
+def _hold_pk(got, ref, kprim, any_hit):
+    rec = [pk.HitRecord(t=t, prim=kprim[tri.clamp(min=0).long()], slot=None,
+                        b1=None, b2=None) for t, tri in (ref, got)]
+    return _agree(rec[0], rec[1], any_hit)
+
+
+@pytest.mark.parametrize("n", [1, 31, 1025, 5000])
+def test_kernel_ragged_mixed_octants(cuda, n):
+    """Ragged wave sizes whose packets mix all eight direction octants
+    (each packet walks one octant's table, exact for every ray), closest
+    and any-hit, against the plain version."""
+    ds = _scene(_mesh(10, 3000, 8.0)).device_scene(cuda)
+    o, d = _rays(1, n, 10.0)
+    o_t, d_t = torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda)
+    for any_hit in (False, True):
+        got, ref = _pk_pair(cuda, ds, o_t, d_t, any_hit=any_hit)
+        if n == 1:
+            assert torch.equal(got[0] < FLT_MAX, ref[0] < FLT_MAX)
+            continue
+        hit = _hold_pk(got, ref, ds.kprim, any_hit)
+        assert hit.mean() > 0.05
+
+
+def test_kernel_dead_lanes_nan(cuda):
+    """Masked packets: whole packets dead, packets half dead, dead lanes
+    carrying NaN and Inf origins and directions, given to the kernel as
+    they are (not parked): dead rays miss, live ones match the plain
+    version, which parks them."""
+    ds = _scene(_mesh(10, 3000, 8.0)).device_scene(cuda)
+    packet = pk.PACKET_RAYS
+    n = 8 * packet + 5
+    o, d = _rays(2, n, 10.0)
+    rng = np.random.default_rng(3)
+    live = rng.uniform(size=n) < 0.5
+    live[:2 * packet] = False                      # two all-dead packets
+    live[4 * packet:5 * packet] = True             # one all-live packet
+    o[~live] = np.where(rng.uniform(size=((~live).sum(), 1)) < 0.5,
+                        np.nan, np.inf)
+    d[~live] = np.nan
+    lv = torch.from_numpy(live).to(cuda)
+    o_t, d_t = torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda)
+    for any_hit in (False, True):
+        got, ref = _pk_pair(cuda, ds, o_t, d_t, live=lv, any_hit=any_hit)
+        t_k = got[0].cpu().numpy()
+        assert (t_k[~live] == np.float32(FLT_MAX)).all()
+        assert (got[1].cpu().numpy()[~live] == -1).all()
+        hit = _hold_pk(got, ref, ds.kprim, any_hit)
+        assert hit[live].mean() > 0.05
+
+
+N_COPIES = 200      # copies of one triangle in _dup_scene (prims 0-199)
+
+
+def _dup_scene(dev, stable):
+    """300 small triangles below z = -2 and N_COPIES copies of one
+    triangle at z = 0, in two or more kernel leaves: every copy at t = 5
+    for a ray from z = 5 straight down -- ties within a leaf and, in
+    legacy frames, across leaves."""
+    rng = np.random.default_rng(0)
+    tri = np.array([[-3, -3, 0], [3, -3, 0], [0, 3, 0]], np.float32)
+    c = rng.uniform(-5, 5, (300, 3)).astype(np.float32)
+    c[:, 2] = rng.uniform(-8, -2, 300)
+    v = (c[:, None, :] + rng.normal(scale=0.5, size=(300, 3, 3))
+         .astype(np.float32)).reshape(-1, 3)
+    verts = np.concatenate([np.tile(tri, (N_COPIES, 1)), v]).astype(np.float32)
+    return _scene(types.Mesh(verts, np.arange(len(verts), dtype=np.uint32)
+                             .reshape(-1, 3))).device_scene(
+                                 dev, stable_frames=stable)
+
+
+def _assert_copies_tie(ds, stable):
+    """The copies' coefficient columns (rows 0-9 of each lane's four
+    quarters) are bit-equal within each leaf, and in legacy frames across
+    the leaves too (stable frames subtract each leaf's own centroid), so
+    every version's per-copy t ties exactly there, whatever its summation
+    order."""
+    kl = ds.kleaf.cpu()
+    T = kl.shape[2] // 4
+    cols = []
+    for leaf in range(kl.shape[0]):
+        prim = kl[leaf, 10, :T]
+        lanes = torch.nonzero((prim >= 0) & (prim < N_COPIES)).squeeze(1)
+        if lanes.numel():
+            c = torch.stack([kl[leaf, :10, e * T + lanes] for e in range(4)])
+            cols.append(c.permute(2, 0, 1).reshape(lanes.numel(), -1))
+    assert len(cols) >= 2 and sum(c.shape[0] for c in cols) == N_COPIES
+    for c in cols:
+        assert torch.equal(c, c[:1].expand_as(c))
+    if not stable:
+        assert all(torch.equal(c[:1], cols[0][:1]) for c in cols)
+
+
+def _down_rays(n):
+    rng = np.random.default_rng(1)
+    o = np.zeros((n, 3), np.float32)
+    o[:, :2] = rng.uniform(-0.5, 0.5, (n, 2))
+    o[:, 2] = 5.0
+    d = np.tile([[0.0, 0.0, -1.0]], (n, 1)).astype(np.float32)
+    return o, d
+
+
+@pytest.mark.parametrize("stable", [True, False])
+def test_kernel_exact_ties(cuda, stable):
+    """Rays that hit N_COPIES copies of one triangle at t = 5 (their
+    per-copy t tie exactly within a leaf, and across leaves in legacy
+    frames): the kernel picks the plain version's face -- the lowest lane,
+    then the earlier leaf -- on every ray (one octant, so both walk the
+    same table); t to f32 rounding (the two sum the products in other
+    orders)."""
+    ds = _dup_scene(cuda, stable)
+    _assert_copies_tie(ds, stable)
+    o, d = _down_rays(4096)
+    got, ref = _pk_pair(cuda, ds, torch.from_numpy(o).to(cuda),
+                        torch.from_numpy(d).to(cuda), stable=stable)
+    assert bool(((ref[0] - 5.0).abs() < 1e-4).all())
+    assert bool((ref[1] >= 0).all())
+    assert torch.equal(got[1], ref[1])
+    assert torch.allclose(got[0], ref[0], rtol=1e-6, atol=0.0)
+
+
+def test_kernel_any_hit_t_is_a_true_hit(cuda):
+    """Any-hit t is the distance of an accepted hit on the face the
+    kernel returns: recomputed from ktri_geo, inside (tmin, tmax)."""
+    from radiance_tpu_torch.ops.intersect import intersect_triangle
+
+    ds = _scene(_mesh(10, 3000, 8.0)).device_scene(cuda)
+    o, d = _rays(4, 6000, 10.0)
+    o_t, d_t = torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda)
+    (t, tri), ref = _pk_pair(cuda, ds, o_t, d_t, any_hit=True)
+    hit = t < FLT_MAX
+    assert torch.equal(hit, ref[0] < FLT_MAX) and float(hit.float().mean()) > 0.1
+    geo = ds.ktri_geo[tri[hit].long()]
+    ok, t64, _, _ = intersect_triangle(o_t[hit].double(), d_t[hit].double(),
+                                       geo[:, 0:3].double(),
+                                       geo[:, 3:6].double(),
+                                       geo[:, 6:9].double())
+    rel = ((t[hit].double() - t64).abs() / t64.abs()).cpu().numpy()
+    assert np.quantile(rel, 0.99) <= 1e-5
+    assert bool((t[hit] > 1e-3).all() and (t[hit] < 1e3).all())
+
+
+# ------------------------------------------------- kernel D: edge cases
+
+def _isect_pair(args):
+    ok = stg.isect_cuda(*args)
+    op = stg._isect_plain(*args)
+    torch.cuda.synchronize()
+    return ok, op
+
+
+@pytest.mark.parametrize("stable", [True, False])
+def test_s3_isect_exact_ties(cuda, stable):
+    """Kernel D on the duplicate-triangle scene's primary wave through
+    the card's own stages (exact ties as in test_kernel_exact_ties): every
+    ray's winner (prim) equal to the plain version's -- the lowest lane,
+    then the earlier word -- and t, b1, b2 to f32 rounding."""
+    ds = _dup_scene(cuda, stable)
+    _assert_copies_tie(ds, stable)
+    o, d = _down_rays(4 * stg.PKT)
+    rows = s3.rows_from_aos(torch.from_numpy(o).to(cuda),
+                            torch.from_numpy(d).to(cuda))
+    _, feats_t, scal, smeta, bscal, _ = s3._stage_prep(
+        rows, ds.knode_f, ds.inst_inv[0], stable=ds.stable_frames)
+    words, emeta = stg.emit_cuda(scal, smeta, bscal, ds.knode_f, 1e3,
+                                 stg.STEP_CAP, stg.PCAP)
+    slot_pkt = smeta[:, 0].contiguous()
+    words, emeta = stg.refine_cuda(words, emeta, slot_pkt, feats_t,
+                                   s3.leaf_aabb8(ds.knode_f,
+                                                 ds.kleaf.shape[0]),
+                                   1e3, stg.PCAP)
+    ok, op = _isect_pair((words, emeta, slot_pkt, feats_t.t().contiguous(),
+                          ds.kleaf, 1e-3, 1e3, stg.PCAP, ds.stable_frames))
+    live = (smeta[:, 1] > 0)
+    assert bool(((op[live][..., 0] - 5.0).abs() < 1e-4).all())
+    assert torch.equal(ok[live][..., 1], op[live][..., 1])
+    assert torch.allclose(ok[live], op[live], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("stable", [True, False])
+def test_s3_isect_edge_cases(cuda, stable):
+    """Kernel D against its plain version on hand-made word lists over 8
+    packets: slots whose every word keeps one ray block of eight, a slot
+    list longer than one 128-word chunk, leaves with padded lanes (every
+    leaf of the scene has fewer than 128 triangles), a half-parked packet
+    and an all-parked one: equal outputs on >= 0.999 of lanes, parked
+    lanes exact misses."""
+    ds = _scene(_mesh(10, 3000, 8.0)).device_scene(cuda,
+                                                   stable_frames=stable)
+    npk = 8
+    n = npk * stg.PKT
+    o, d = _rays(9, n, 10.0)
+    live = np.ones(n, bool)
+    live[:stg.PKT] = False
+    live[stg.PKT:2 * stg.PKT] = np.random.default_rng(2).uniform(
+        size=stg.PKT) < 0.5
+    live_t = torch.from_numpy(live).to(cuda)
+    rows = s3.park_dead(tuple(torch.from_numpy(np.ascontiguousarray(v))
+                              .to(cuda) for v in (*o.T, *d.T)), live_t)
+    _, feats_t, *_ = s3._stage_prep(rows, ds.knode_f, ds.inst_inv[0],
+                                    live=live_t, stable=stable)
+    feats = feats_t.t().contiguous()
+    nl = ds.kleaf.shape[0]
+    prim = ds.kleaf[:, 10, :stg.T]
+    assert bool(((prim < 0) | (prim >= 2 ** 24)).any(dim=1).all())
+    rng = np.random.default_rng(8)
+    nslot = 2 * npk + 1
+    words = np.zeros((nslot, stg.PCAP), np.int32)
+    cnt = np.zeros(nslot, np.int32)
+    for s in range(nslot):
+        m = 300 if s == nslot - 1 else 40
+        leaves = rng.integers(0, nl, m)
+        keep = (1 << rng.integers(0, 8, m) if s < npk
+                else rng.integers(1, 256, m))
+        words[s, :m] = ((leaves + 1) << stg.W_LEAF_SHIFT) \
+            | (keep << stg.W_KEEP_SHIFT)
+        cnt[s] = m
+    emeta = np.zeros((nslot, 8), np.int32)
+    emeta[:, 0] = cnt
+    slot_pkt = torch.arange(nslot, dtype=torch.int32, device=cuda) % npk
+    ok, op = _isect_pair((torch.from_numpy(words).to(cuda),
+                          torch.from_numpy(emeta).to(cuda), slot_pkt, feats,
+                          ds.kleaf, 1e-3, 1e3, stg.PCAP, stable))
+    lane_live = live_t.view(npk, stg.PKT)[slot_pkt.long()]
+    miss = torch.tensor([FLT_MAX, -1.0, 0.0, 0.0], device=cuda)
+    assert bool((ok[~lane_live] == miss).all())
+    assert torch.equal(ok[~lane_live], op[~lane_live])
+    hk, hp = ok[..., 0] < FLT_MAX, op[..., 0] < FLT_MAX
+    assert float((hk == hp)[lane_live].float().mean()) >= 0.999
+    same = hk & hp & (ok[..., 1] == op[..., 1])
+    assert float(same.sum()) >= 0.999 * float((hk & hp).sum())
+    assert float(hp[lane_live].float().mean()) > 0.05
+    rel = ((ok[..., 0] - op[..., 0]).abs() / op[..., 0].abs())[same]
+    assert float(torch.quantile(rel.double(), 0.99)) <= 1e-5
+    for k in (2, 3):
+        assert float((ok[..., k] - op[..., k]).abs()[same].max()) <= 1e-4
+    assert stg.isect_cuda.launches >= 1

@@ -273,3 +273,32 @@ def test_coherence_key_matches_jax():
     ref = np.asarray(jpk.coherence_key(jnp.asarray(o), jnp.asarray(d)))
     got = tpk.coherence_key(torch.from_numpy(o), torch.from_numpy(d))
     np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("packet", [32, 64, 128, 1024])
+@pytest.mark.parametrize("n", [1, 31, 1025, 5000])
+def test_packet_bases_match_plain_form(packet, n):
+    """The kernel's per-packet table bases against a loop over packets:
+    the octant of each packet's summed direction (exact sums: quarter
+    steps), rays past n adding nothing; a zero sum is not negative."""
+    rng = np.random.default_rng(n + packet)
+    d = (rng.integers(-4, 5, (n, 3)) / 4.0).astype(np.float32)
+    d[: n // 3, 2] = 0.0
+    nk = 7
+    got = tpk.packet_bases(torch.from_numpy(d), packet, nk).numpy()
+    ref = []
+    for p in range(-(-n // packet)):
+        s = d[p * packet:(p + 1) * packet].sum(axis=0)
+        ref.append(nk * int((s[0] < 0) + 2 * (s[1] < 0) + 4 * (s[2] < 0)))
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    """packet_trace_cuda never runs on CPU tensors: packet_trace routes
+    those to the plain version."""
+    x = torch.zeros(4, 3)
+    with pytest.raises(ValueError):
+        tpk.packet_trace_cuda(x, x, None, torch.zeros(8, 16),
+                              torch.zeros(1, 16, 512), TMIN, 1e3,
+                              any_hit=False, stable=True)

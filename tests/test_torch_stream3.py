@@ -278,3 +278,45 @@ def test_wrappers_refuse_cpu_tensors():
         stg.transpose_cuda(x)
     with pytest.raises(ValueError):
         stg.emit_cuda(x, x.int(), x, x, TMAX, 4, 8)
+
+
+def test_isect_plain_stats_count_needed_tests(staged):
+    """_isect_plain(stats=) leaves its output bit-identical, and counts
+    what a brute-force loop over the word lists finds: the kept (leaf,
+    block) pairs, their rays that are not parked, and each such ray times
+    its leaf's triangle lanes (non-zero edge rows 3-5).  A third of the
+    rays are parked at origin 1e30 (stream3.park_dead): they miss."""
+    _, tds, j, t = staged
+    feats = stg.feats_rows_to_major(t["feats_t"]).clone()
+    park = np.random.default_rng(3).uniform(size=feats.shape[0]) < 0.3
+    feats[torch.from_numpy(park), 6:9] = 1e30
+    slot_pkt = t["smeta"][:, 0].contiguous()
+    args = (t["words_i"], t["emeta_i"], slot_pkt, feats, tds.kleaf, TMIN,
+            TMAX, stg.PCAP, tds.stable_frames)
+    st = {}
+    counted = stg._isect_plain(*args, stats=st)
+    plain = stg._isect_plain(*args)
+    assert counted.numpy().tobytes() == plain.numpy().tobytes()
+    lanes_of = slot_pkt.numpy().astype(np.int64)[:, None] * stg.PKT \
+        + np.arange(stg.PKT)
+    assert (plain[..., 0].numpy()[park[lanes_of]] == np.float32(FLT_MAX)).all()
+
+    kleaf = tds.kleaf.numpy()
+    nl, T = kleaf.shape[0], stg.T
+    tri_lanes = (kleaf[:, 3:6, :3 * T].reshape(nl, 3, 3, T) != 0).any(
+        axis=(1, 2)).sum(axis=1)
+    words, cnt = j["words_i"], np.minimum(j["emeta_i"][:, 0], stg.PCAP)
+    pairs = rays = tris = 0
+    for s in range(words.shape[0]):
+        for p in range(cnt[s]):
+            w = int(words[s, p])
+            leaf = max((w >> stg.W_LEAF_SHIFT) - 1, 0)
+            for b in range(8):
+                if (w >> (stg.W_KEEP_SHIFT + b)) & 1:
+                    lo = int(slot_pkt[s]) * stg.PKT + b * stg.BLK
+                    r = int((~park[lo:lo + stg.BLK]).sum())
+                    pairs += 1
+                    rays += r
+                    tris += r * int(tri_lanes[leaf])
+    assert st == dict(pairs=pairs, ray_tests=rays, tri_tests=tris)
+    assert 0 < rays < pairs * stg.BLK and tris < rays * T
