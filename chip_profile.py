@@ -33,6 +33,9 @@ and prints:
   * the packet kernel's device ms and launches per variant (and packet
     size), and kernel D's per kernel (its key fill, pair kernel and
     finishing pass);
+  * kernels B and C in the profiled frame: launches, device ms, the
+    longest slot walk and capped slots (B), the longest list, words and
+    kept words (C);
   * as its last line, one JSON object with those numbers.
 
 Writes nothing to disk but the kernel build in radiance_tpu_torch/_build/.
@@ -55,8 +58,9 @@ W, H = chip_smoke.W, chip_smoke.H
 BATCH, DEPTH = (1, 2) if MULTI else (4, 4)
 KINDS = (  # (kind, substrings of a kernel's name), first match wins
     ("packet_trace", ("packet_trace",)),
-    ("stream3_emit", ("emit_kernel",)),
-    ("stream3_refine", ("refine_kernel",)),
+    ("stream3_emit", ("emit_window_kernel",)),
+    ("stream3_refine", ("refine_scan_kernel", "refine_test_kernel",
+                        "refine_compact_kernel")),
     ("stream3_isect_occl", ("isect_occl_kernel", "fill_miss")),
     ("stream3_isect", ("isect_kernel", "isect_keys", "isect_finish")),
     ("stream3_oscal", ("oscal_kernel",)),
@@ -216,8 +220,12 @@ def main() -> int:
     print(f"one engine primary wave (pixel order): "
           f"{json.dumps(primary_diag)}", flush=True)
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the profiled frame's emit and refine outputs, for the chain lengths
+    # of kernels B and C
+    with chip_smoke.Calls(None, stream3, names=("stage_emit", "stage_refine"),
+                          keep_args=False) as calls, \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         frame()
         torch.cuda.synchronize()
@@ -250,6 +258,20 @@ def main() -> int:
           "launches):", flush=True)
     for var, (us, cnt) in sorted(by_variant.items()):
         print(f"  {us / 1e3:10.3f} ms {cnt:6d}  {var}")
+    em, rf = ([c[3][1] for c in calls.calls[k]] for k in ("emit", "refine"))
+    chains = dict(
+        stream3_emit=dict(
+            launches=len(em), device_ms=by_kind.get("stream3_emit", 0) / 1e3,
+            longest_walk=max((int(e[:, 2].max()) for e in em), default=0),
+            capped=sum(int(e[:, 1].sum()) for e in em)),
+        stream3_refine=dict(
+            launches=len(rf),
+            device_ms=by_kind.get("stream3_refine", 0) / 1e3,
+            longest_list=max((int(e[:, 4].max()) for e in rf), default=0),
+            words=sum(int(e[:, 4].sum()) for e in rf),
+            kept=sum(int(e[:, 0].sum()) for e in rf)))
+    print(f"kernels B and C in the profiled frame: {json.dumps(chains)}",
+          flush=True)
     out = dict(
         card=card, scene="multi64" if MULTI else "city", width=W, height=H,
         batch=BATCH, depth=DEPTH,
@@ -263,7 +285,8 @@ def main() -> int:
         device_ms_by_variant={k: dict(ms=us / 1e3, launches=cnt) for k, (
             us, cnt) in sorted(by_variant.items())},
         packet_trace_launches=sum(c for n, (_, c) in by_name.items()
-                                  if "packet_trace" in n))
+                                  if "packet_trace" in n),
+        emit_refine=chains)
     print(json.dumps(out))
     return 0
 

@@ -27,8 +27,9 @@ prints no result):
   5. stream3 on the city's 1920x1080 primary wave (2,073,600 rays): each
      of its four closest-hit kernels against its plain version on the
      card at the wave's shapes (transposes bit-exact, also at odd sizes,
-     emit and refine word lists identical, pair intersection per ray to
-     the parity bars, with D's bound from the plain version's counts),
+     emit and refine word lists and emeta identical, B's window loads
+     counted by the plain walk, pair intersection per ray to the parity
+     bars, with D's bound from the plain version's counts),
      each timed (the transposes' two launches each alone and together,
      beside .t().contiguous()); the whole wave against the packet kernel
      (two exact tracers, the same bars), its stage times and diagnostics;
@@ -36,12 +37,14 @@ prints no result):
      batch=4, depth=4 (primary waves through stream3), then sample1's
      Cornell box at 512x512, batch=16, depth=4, with launch counts reset
      just before and read just after, under torch.profiler with every
-     call of the packet kernel and D recorded; then each launch's kernel
-     ms from the profiler's kernel records, its bound from plain runs on
-     its recorded arguments (the packet kernel: sampled packets of each
-     launch group, one walk a group, held against the kernel's recorded
-     output on the same rays), D held against its plain version on each
-     launch;
+     call of the packet kernel, B, C and D recorded; then each launch's
+     kernel ms from the profiler's kernel records, its bound from plain
+     runs on its recorded arguments or from its counts (the packet
+     kernel: sampled packets of each launch group, one walk a group,
+     held against the kernel's recorded output on the same rays), B, C
+     and D held against their plain versions on each city launch, with
+     B's longest walk, capped slots and window loads and C's longest
+     list;
   7. the many-instance stream path: kernel F (prep octant scalars) on the
      city's 1080p primary rows, masked and unmasked, equal to its plain
      version value for value, and the whole prep timed with F and with
@@ -57,13 +60,16 @@ prints no result):
      plain versions on the largest launch of each wave; then an engine
      frame on that scene at 1920x1080, batch=1, depth=2 (depth cut for
      time, not the width), with launch counts reset just before and read
-     just after, under torch.profiler with every call of D, E and F
-     recorded, each launch timed from the kernel records, held against
-     its plain version and bounded; and a second frame whose waves' shares
-     of poisoned rays are logged;
+     just after, under torch.profiler with every call of B, C, D, E and
+     F recorded, each launch timed from the kernel records and bounded,
+     D, E and F held against their plain versions on every launch, B and
+     C on every MULTI_HOLD_STRIDE-th and on each wave's longest walk and
+     longest list; and a second frame whose waves' shares of poisoned
+     rays are logged;
   8. the kernels' JSON line (per kernel: the main path's launches, the
-     per-launch means of kernel ms, plain ms and bound and their sums;
-     A, B and C from phase 5), the card line, and the contract's last
+     per-launch means of kernel ms, plain ms and bound and their sums,
+     by scene where a kernel runs in several; A from phase 5, B and C
+     also phase 5's 1080p wave), the card line, and the contract's last
      line.
 
 Imports nothing of JAX or radiance_tpu (bench.py's numpy-only scene
@@ -362,25 +368,286 @@ def hold_launches(name, runs):
                               ("t_k", "prim_k", "t_p", "prim_p")))
 
 
+def emit_counts(stg, launches):
+    """Kernel B's needed work on launches that share nodef, tmax and
+    step_cap ((scal, smeta, nodef, tmax, step_cap) each), from one walk of
+    all their slots that makes only the slot-frustum test (the cursor
+    never depends on the sub-frustum tests): per launch, each slot's
+    nodes visited (emeta lane 2), the visited leaves the slot frustum
+    hits (each needs the 32 sub-frustum tests) and the distinct node rows
+    visited.  The slots step together under a mask, with one host sync
+    each 64 steps."""
+    _, _, nodef, tmax, step_cap = launches[0]
+    scal = torch.cat([x[0] for x in launches])
+    smeta = torch.cat([x[1] for x in launches])
+    sizes = [x[0].shape[0] for x in launches]
+    dev, i64 = scal.device, torch.int64
+    lid = torch.repeat_interleave(torch.arange(len(sizes), device=dev),
+                                  torch.tensor(sizes, device=dev))
+    idx = torch.where(smeta[:, 1] > 0, 0, -1).to(i64)
+    base = smeta[:, 2].to(i64)
+    steps, hits = torch.zeros_like(idx), torch.zeros_like(idx)
+    nrows = nodef.shape[0]
+    seen = torch.zeros(len(sizes), nrows + 1, dtype=torch.bool, device=dev)
+    tmax_t = torch.tensor(tmax, dtype=torch.float32, device=dev)
+    for k in range(int(step_cap)):
+        if k % 64 == 0 and not bool((idx >= 0).any()):
+            break
+        on = idx >= 0
+        at = torch.where(on, base + idx, nrows)     # row nrows: no row
+        row = nodef[torch.clamp(at, max=nrows - 1)]
+        tn, tf = stg._interval_test(row[:, 0:3], row[:, 3:6], scal,
+                                    float(tmax))
+        hit = (tf >= tn) & (tn < tmax_t)
+        leaf = row[:, 10] > 0.0
+        hits += on & leaf & hit
+        seen[lid, at] = True
+        steps += on.to(i64)
+        idx = torch.where(on, torch.where(leaf | ~hit, row[:, 9], row[:, 8])
+                          .to(i64), idx)
+    rows = seen[:, :nrows].sum(dim=1).tolist()
+    return [(st, int(h.sum()), r) for st, h, r in
+            zip(steps.split(sizes), hits.split(sizes), rows)]
+
+
+def emit_bound(bscal, emeta, pcap, hit_leaves, rows):
+    """Kernel B's (bound, steps, words) on one launch from its emeta and
+    emit_counts(): an interval test of ~30 FLOPs a visited node and 32
+    more at each visited leaf the slot frustum hits; the 48 bytes B
+    reads of each distinct node row visited, the words written, the slot
+    rows and bscal read."""
+    steps = int(emeta[:, 2].sum())
+    words = int(torch.clamp(emeta[:, 0], max=pcap).sum())
+    return (bound((steps + 32 * hit_leaves) * 30,
+                  rows * 48 + words * 4
+                  + emeta.shape[0] * (16 + 8 + 8) * 4 + bscal.numel() * 4),
+            steps, words)
+
+
+def emit_bounds(stg, runs):
+    """emit_bound() of each of runs ((stage_emit's arguments, then
+    step_cap and pcap), the kernel's emeta), from emit_counts() over the
+    launches that share nodef, tmax and step_cap; fails unless the
+    counted steps are the kernel's."""
+    groups = {}
+    for j, (a, _) in enumerate(runs):
+        groups.setdefault((a[3].data_ptr(), a[3].shape[0], float(a[4]),
+                           int(a[5])), []).append(j)
+    out = [None] * len(runs)
+    for js in groups.values():
+        counts = emit_counts(stg, [runs[j][0][:2] + runs[j][0][3:6]
+                                   for j in js])
+        for j, (steps, hit_leaves, rows) in zip(js, counts):
+            a, emeta = runs[j]
+            if not torch.equal(steps, emeta[:, 2].to(torch.int64)):
+                raise AssertionError("emit: the kernel's steps differ from "
+                                     "a walk of each slot")
+            out[j] = emit_bound(a[2], emeta, a[6], hit_leaves, rows)
+    return out
+
+
+def refine_bound(stg, words_in, emeta, emeta_out, pcap):
+    """Kernel C's (bound, words, kept) on one launch: 12 FLOPs a (ray,
+    word) in the 128-ray blocks the word's keep bits name (the others
+    cannot change the result); a word and its 32-byte box read and a kept
+    word written, 24 bytes a ray of the blocks some word of its slot
+    keeps, the slot rows."""
+    cnt = torch.clamp(emeta[:, 0], max=pcap)
+    valid = (torch.arange(words_in.shape[1], device=words_in.device)[None, :]
+             < cnt[:, None])
+    keep = torch.where(valid, (words_in >> stg.W_KEEP_SHIFT) & 255, 0)
+    tests = blocks = 0
+    for b in range(8):
+        bit = (keep >> b) & 1
+        tests += int(bit.sum())
+        blocks += int(bit.any(dim=1).sum())
+    words, kept = int(cnt.sum()), int(emeta_out[:, 0].sum())
+    return (bound(tests * stg.BLK * 12, words * (4 + 32) + kept * 4
+                  + blocks * stg.BLK * 24 + emeta.shape[0] * 64),
+            words, kept)
+
+
+def emit_hold(stg, args, out_k):
+    """Kernel B's output (words, emeta) on stage_emit's arguments and
+    then step_cap and pcap, against _emit_plain's: emeta identical and
+    the valid words identical, else fail.  Returns (plain ms, the plain
+    walk's stats: steps and kernel B's window loads)."""
+    st = {}
+    p_ms, (wp, ep) = cuda_ms(lambda: stg._emit_plain(*args, stats=st), 1,
+                             warmup=False)
+    wk, ek = out_k
+    diff = first_word_diff(wk, wp, torch.clamp(ep[:, 0], max=args[6]))
+    if not torch.equal(ek, ep) or diff is not None:
+        bad = torch.nonzero((ek != ep).any(1))
+        raise AssertionError(f"emit: kernel and plain differ: first emeta "
+                             f"slot {bad[:1].tolist()}, first word {diff}")
+    return p_ms, st
+
+
+def refine_hold(stg, args, out_k):
+    """Kernel C's output (words', emeta') on stage_refine's arguments and
+    then pcap, against _refine_plain's: emeta' and the kept words
+    identical, else fail.  Returns the plain ms."""
+    p_ms, (rp, rep) = cuda_ms(lambda: stg._refine_plain(*args), 1,
+                              warmup=False)
+    rk, rek = out_k
+    diff = first_word_diff(rk, rp, rep[:, 0])
+    if not torch.equal(rek, rep) or diff is not None:
+        raise AssertionError(f"refine: kernel and plain differ: {diff}")
+    return p_ms
+
+
+def chain_launches(stg, calls, ms, scene, held):
+    """Kernels B and C on every recorded launch of one scene's frames
+    (calls and ms: Calls.calls and launch_ms() of them, tags "scene" or
+    "scene/wave"): each launch's kernel ms and bound, its chain length
+    (B: the longest slot's steps and the capped slots; C: the longest
+    list), and for the launches held(emit rows) picks (indices into the
+    scene's launches), the plain version's ms and B's window stats, each
+    held against its plain version.  Returns {"emit": rows, "refine":
+    rows}, a dict a launch."""
+    pick = [i for i, c in enumerate(calls["emit"])
+            if c[0].split("/")[0] == scene]
+    if pick != [i for i, c in enumerate(calls["refine"])
+                if c[0].split("/")[0] == scene]:
+        raise AssertionError(f"{scene}: emit and refine launches unpaired")
+    out = {"emit": [], "refine": []}
+    bounds = emit_bounds(stg, [
+        (a + (k.get("step_cap", stg.STEP_CAP), k.get("pcap", stg.PCAP)),
+         res[1]) for _, a, k, res in (calls["emit"][i] for i in pick)])
+    for i, (b, steps, words) in zip(pick, bounds):
+        tag, a, k, (wk, ek) = calls["emit"][i]
+        pcap = k.get("pcap", stg.PCAP)
+        out["emit"].append(dict(
+            tag=tag, ms=ms["emit"][i], bound=b, steps=steps, words=words,
+            longest_walk=int(ek[:, 2].max()), capped=int(ek[:, 1].sum()),
+            longest_list=int(torch.clamp(ek[:, 0], max=pcap).max())))
+        tag, ra, rk, (rw, re) = calls["refine"][i]
+        b, words, kept = refine_bound(stg, ra[0], ra[1], re,
+                                      rk.get("pcap", stg.PCAP))
+        out["refine"].append(dict(
+            tag=tag, ms=ms["refine"][i], bound=b, words=words, kept=kept,
+            longest_list=int(re[:, 4].max()),
+            chunks=int(((re[:, 4] + 31) // 32).sum())))
+    for j in held(out["emit"]):
+        i = pick[j]
+        _, a, k, res = calls["emit"][i]
+        p_ms, st = emit_hold(stg, a + (k.get("step_cap", stg.STEP_CAP),
+                                       k.get("pcap", stg.PCAP)), res)
+        out["emit"][j].update(plain_ms=p_ms, **st)
+        _, ra, rk, res = calls["refine"][i]
+        feats_t = torch.zeros(16, ra[3].shape[1], device=ra[3].device)
+        feats_t[REFINE_ROWS] = ra[3]
+        out["refine"][j]["plain_ms"] = refine_hold(
+            stg, ra[:3] + (feats_t,) + ra[4:] + (rk.get("pcap", stg.PCAP),),
+            res)
+    return out
+
+
+def log_chains(scene, bc, card):
+    """Log chain_launches() results: each launch's kernel ms and chain
+    length (B: [ms, longest walk, capped slots]; C: [ms, longest list]),
+    then per wave (tag) and in all, B's and C's summaries."""
+    for kind, name, keys in (
+            ("emit", "B (stream3_emit)", ("longest_walk", "capped")),
+            ("refine", "C (stream3_refine)", ("longest_list",))):
+        rows = bc[kind]
+        log(f"    {name} per launch on {scene}, [ms, {', '.join(keys)}]: "
+            f"{json.dumps([[round(r['ms'], 4)] + [r[k] for k in keys] for r in rows])}")
+        groups = {}
+        for r in rows:
+            groups.setdefault(r["tag"], []).append(r)
+        for tag, grp in [(scene, rows)] + (
+                sorted(groups.items()) if len(groups) > 1 else []):
+            res = chain_summary(grp, kind)
+            log_summary(f"{name} over {tag}'s launches", res, card)
+            log(f"      chain: {json.dumps({k: v for k, v in res.items() if k in CHAIN_KEYS})}")
+
+
+def multi_held(rows):
+    """The multi64 launches held against plain: every MULTI_HOLD_STRIDE-th,
+    and in each wave the longest walk's and the longest list's."""
+    keep = set(range(0, len(rows), MULTI_HOLD_STRIDE))
+    for tag in {r["tag"] for r in rows}:
+        wave = [j for j, r in enumerate(rows) if r["tag"] == tag]
+        keep.add(max(wave, key=lambda j: rows[j]["longest_walk"]))
+        keep.add(max(wave, key=lambda j: rows[j]["longest_list"]))
+    return sorted(keep)
+
+
+def chain_summary(rows, kind):
+    """summary() of chain_launches() rows of one kernel ("emit" or
+    "refine") and the chain lengths: B's longest walk, capped slots and
+    nodes visited a window load (from the held launches' plain walks);
+    C's longest list and kept words.  The plain version's keys are only
+    the held launches': plain_ms their mean, plain_ms_sum their sum,
+    plain_held their number."""
+    held = [r["plain_ms"] for r in rows if "plain_ms" in r]
+    res = summary([r["ms"] for r in rows], [], [r["bound"] for r in rows])
+    res.update(plain_ms=sum(held) / max(len(held), 1),
+               plain_ms_sum=sum(held), plain_held=len(held),
+               words=sum(r["words"] for r in rows),
+               longest_list=max(r["longest_list"] for r in rows))
+    if kind == "refine":    # chunks: C's 32-word work items a launch
+        res.update(kept=sum(r["kept"] for r in rows),
+                   chunks_per_launch=sum(r["chunks"] for r in rows)
+                   / len(rows),
+                   max_chunks=max(r["chunks"] for r in rows))
+        return res
+    held = [r for r in rows if "plain_ms" in r]
+    loads = sum(r["window_loads"] for r in held)
+    res.update(longest_walk=max(r["longest_walk"] for r in rows),
+               capped=sum(r["capped"] for r in rows),
+               steps=sum(r["steps"] for r in rows),
+               held_window_loads=loads,
+               held_max_window_loads=max(r["max_window_loads"]
+                                         for r in held),
+               nodes_per_load=sum(r["steps"] for r in held) / max(loads, 1))
+    return res
+
+
 # the kernels of each counted wrapper, by a substring of their names, in
 # the order one call launches them
 FAMILIES = {
     "packet_trace": ("packet_trace_kernel",),
+    "emit": ("emit_window_kernel",),
+    "refine": ("refine_scan_kernel", "refine_test_kernel",
+               "refine_compact_kernel"),
     "isect": ("isect_keys", "isect_kernel<", "isect_finish"),
     "isect_occl": ("fill_miss", "isect_occl_kernel"),
     "oscal": ("oscal_kernel",),
 }
+# the feature rows kernel C reads (d, then o): a recorded refine call
+# keeps only these
+REFINE_ROWS = [0, 1, 2, 6, 7, 8]
+# the multi64 frame's launches of B and C held against their plain
+# versions (the plain walk takes about a second a launch): every
+# MULTI_HOLD_STRIDE-th, and in each wave the launch with the longest walk
+# and the launch with the longest list
+MULTI_HOLD_STRIDE = 8
+# chain_summary()'s keys beyond summary()'s
+CHAIN_KEYS = ("plain_held", "words", "kept", "longest_list",
+              "chunks_per_launch", "max_chunks", "longest_walk", "capped",
+              "steps", "held_window_loads", "held_max_window_loads",
+              "nodes_per_load")
 
 
 class Calls:
     """Record the calls of the port's kernel dispatchers that launch a
-    kernel (packet_trace.packet_trace; stream3's stage_isect, by occl,
-    and octant_scalars): per wrapper key, a list of (tag, args, kwargs,
-    output).  `tag` is set by the caller (the scene being rendered)."""
+    kernel (packet_trace.packet_trace; stream3's stage_emit,
+    stage_refine, stage_isect, by occl, and octant_scalars): per wrapper
+    key, a list of (tag, args, kwargs, output).  `tag` is set by the
+    caller (the scene being rendered).  A refine call keeps REFINE_ROWS
+    of its features, copied.  names, if given, limits the recorded
+    dispatchers; with keep_args False a call keeps only its output."""
 
-    def __init__(self, pk, s3):
-        self.sites = ((pk, "packet_trace"), (s3, "stage_isect"),
-                      (s3, "octant_scalars"))
+    def __init__(self, pk, s3, names=None, keep_args=True):
+        self.sites = tuple(
+            (m, n) for m, n in ((pk, "packet_trace"), (s3, "stage_emit"),
+                                (s3, "stage_refine"), (s3, "stage_isect"),
+                                (s3, "octant_scalars"))
+            if names is None or n in names)
+        self.keep_args = keep_args
         self.calls = {k: [] for k in FAMILIES}
         self.tag = None
 
@@ -388,6 +655,8 @@ class Calls:
     def key(name, a, k):
         if name == "packet_trace":
             return "packet_trace" if a[0].shape[0] else None
+        if name in ("stage_emit", "stage_refine"):
+            return name[6:] if a[0].shape[0] else None
         if name == "stage_isect":
             return (("isect_occl" if k.get("occl") else "isect")
                     if a[0].shape[0] else None)
@@ -400,9 +669,13 @@ class Calls:
             def wrapper(*a, **k):
                 out = fn(*a, **k)
                 key = self.key(name, a, k)
-                if key:     # masks copied: a caller may reuse its own
+                if key and not self.keep_args:
+                    self.calls[key].append((self.tag, None, None, out))
+                elif key:   # masks copied: a caller may reuse its own
                     a = tuple(x.clone() if isinstance(x, torch.Tensor)
                               and x.dtype == torch.bool else x for x in a)
+                    if key == "refine":
+                        a = a[:3] + (a[3][REFINE_ROWS],) + a[4:]
                     self.calls[key].append((self.tag, a, dict(k), out))
                 return out
             return wrapper
@@ -1074,43 +1347,40 @@ def main() -> int:
         f"{2 * s3k['transpose']['bound'][0]:.4f}); .t().contiguous() x 3 "
         f"{a_plain:.4f} ms")
 
-    # B: emit, kernel vs plain on the same slot tables
+    # B: emit, kernel vs plain on the same slot tables; the plain walk
+    # also counts kernel B's window loads
     emit_args = (scal, smeta, bscal, knode, TMAX, stg.STEP_CAP, stg.PCAP)
     b_ms, (wk, ek) = cuda_ms(lambda: stg.emit_cuda(*emit_args), 5)
-    b_plain, (wp, ep) = cuda_ms(lambda: stg._emit_plain(*emit_args), 1,
-                                warmup=False)
-    cnt = torch.clamp(ep[:, 0], max=stg.PCAP)
-    diff = first_word_diff(wk, wp, cnt)
-    if not torch.equal(ek[:, :3], ep[:, :3]) or diff is not None:
-        bad = torch.nonzero((ek[:, :3] != ep[:, :3]).any(1))
-        raise AssertionError(f"emit: kernel and plain differ: first emeta "
-                             f"slot {bad[:1].tolist()}, first word {diff}")
-    steps = int(ek[:, 2].sum())
-    words = int(cnt.sum())
-    log(f"   B emit: word lists identical on {nslot} slots ({words} words, "
-        f"{steps} steps, {int(ek[:, 1].sum())} capped)")
+    b_plain, b_st = emit_hold(stg, emit_args, (wk, ek))
+    if stg.emit_window() != stg.EMIT_WINDOW:
+        raise AssertionError(f"kernel B's window {stg.emit_window()} is "
+                             f"not EMIT_WINDOW {stg.EMIT_WINDOW}")
+    b_bound, steps, words = emit_bounds(stg, [(emit_args, ek)])[0]
+    cnt = torch.clamp(ek[:, 0], max=stg.PCAP)
+    log(f"   B emit: word lists and emeta identical on {nslot} slots "
+        f"({words} words, {steps} steps, {int(ek[:, 1].sum())} capped; "
+        f"longest walk {b_st['max_steps']} nodes; "
+        f"{b_st['window_loads']} window loads of {stg.EMIT_WINDOW} rows, "
+        f"{steps / max(b_st['window_loads'], 1):.2f} nodes a load, the "
+        f"longest chain {b_st['max_window_loads']} loads)")
     s3k["emit"] = dict(
         ms=b_ms, plain_ms=b_plain, library_ms=None, max_abs_err=0.0,
-        bound=bound(steps * 33 * 30, steps * 64 + words * 4
-                    + nslot * (16 + 8 + 8) * 4 + bscal.numel() * 4))
+        bound=b_bound, longest_walk=b_st["max_steps"],
+        nodes_per_load=steps / max(b_st["window_loads"], 1),
+        max_window_loads=b_st["max_window_loads"])
 
     # C: refine, kernel vs plain on the (identical) emitted lists
     slot_pkt = smeta[:, 0].contiguous()
     aabb8 = s3.leaf_aabb8(knode, kleaf.shape[0])
     ref_args = (slot_pkt, feats_t, aabb8, TMAX, stg.PCAP)
     c_ms, (rk, rek) = cuda_ms(lambda: stg.refine_cuda(wk, ek, *ref_args), 5)
-    c_plain, (rp, rep) = cuda_ms(lambda: stg._refine_plain(wp, ep, *ref_args),
-                                 1, warmup=False)
-    diff = first_word_diff(rk, rp, rep[:, 0])
-    if not torch.equal(rek, rep) or diff is not None:
-        raise AssertionError(f"refine: kernel and plain differ: {diff}")
-    kept = int(rep[:, 0].sum())
-    live_slots = int((cnt > 0).sum())
-    log(f"   C refine: kept lists identical ({kept} of {words} words kept)")
+    c_plain = refine_hold(stg, (wk, ek) + ref_args, (rk, rek))
+    c_bound, words, kept = refine_bound(stg, wk, ek, rek, stg.PCAP)
+    log(f"   C refine: kept lists identical ({kept} of {words} words kept; "
+        f"longest list {int(cnt.max())})")
     s3k["refine"] = dict(
         ms=c_ms, plain_ms=c_plain, library_ms=None, max_abs_err=0.0,
-        bound=bound(words * stg.PKT * 12, words * (4 + 32) + kept * 4
-                    + live_slots * stg.PKT * 24 + nslot * 64))
+        bound=c_bound, longest_list=int(cnt.max()))
 
     # D: pair intersection, kernel vs plain on the refined lists; its
     # bound counts the unparked rays of each kept (leaf, block) pair
@@ -1130,7 +1400,7 @@ def main() -> int:
     s3k["isect"] = dict(
         ms=d_run["ms"], plain_ms=d_run["plain_ms"], library_ms=None,
         max_abs_err=res_d["max_abs_err"], bound=d_run["bound"])
-    del wk, wp, rk, rp, d_run
+    del wk, rk, d_run
 
     # the whole wave: stream3 (all four kernels) against the packet
     # kernel, two exact tracers on the same rays, then its stage times
@@ -1287,6 +1557,18 @@ def main() -> int:
     d_main = summary(*d_lists)
     log_summary("D (stream3_isect) over the city frames' launches", d_main,
                 card)
+    # B and C on each city launch, every one held against its plain
+    # version on its recorded arguments
+    t1 = time.time()
+    bc_city = chain_launches(stg, main_calls.calls, main_ms, "city",
+                             lambda rows: range(len(rows)))
+    if any(len(bc_city[k]) != city_s3[k] for k in bc_city):
+        raise AssertionError("B, C: recorded and counted launches differ")
+    log(f"    B's and C's plain runs on the city launches in "
+        f"{time.time() - t1:.1f} s")
+    log_chains("city", bc_city, card)
+    log(f"    C's test kernel: {stg.refine_grid(dev)} blocks of 256 threads "
+        f"share each launch's chunks")
     log(f"[6] per-launch plain runs in {time.time() - t0:.1f} s")
     del main_calls, d_city
 
@@ -1496,15 +1778,25 @@ def main() -> int:
     # torch.profiler's kernel records; then each held against its plain
     # version, which also bounds it
     stg.reset_launches()
+    scan, waves_seen = s3m.trace_rows_multi, []
+
+    def tagged(*a, **k):    # each engine wave's launches tagged by wave
+        waves_seen.append("shadow" if k.get("occl") else "closest")
+        m_calls.tag = f"multi64/{len(waves_seen)}-{waves_seen[-1]}"
+        return scan(*a, **k)
+
     with Calls(pk, s3) as m_calls, profile(
             activities=[ProfilerActivity.CUDA]) as prof:
-        m_calls.tag = "multi64"
-        tf0 = time.time()
-        maccum, mimage = tracer.render(mscene, mres,
-                                       torch.zeros(n, 3, device=dev), 0, W, H,
-                                       batch=1, depth=2)
-        torch.cuda.synchronize()
-        mframe_ms = (time.time() - tf0) * 1e3
+        s3m.trace_rows_multi = tagged
+        try:
+            tf0 = time.time()
+            maccum, mimage = tracer.render(mscene, mres,
+                                           torch.zeros(n, 3, device=dev), 0,
+                                           W, H, batch=1, depth=2)
+            torch.cuda.synchronize()
+            mframe_ms = (time.time() - tf0) * 1e3
+        finally:
+            s3m.trace_rows_multi = scan
     m_launches = {k: fn.launches for k, fn in stg.KERNELS.items()}
     log(f"[7] 64-instance frame 1920x1080 batch 1 depth 2 ({card}; under "
         f"torch.profiler): {mframe_ms:.1f} ms; stream3 launches "
@@ -1517,7 +1809,7 @@ def main() -> int:
     t1 = time.time()
     m_ms = launch_ms(prof, m_calls.calls)
     del prof
-    for key in ("isect", "isect_occl", "oscal"):
+    for key in ("emit", "refine", "isect", "isect_occl", "oscal"):
         if len(m_calls.calls[key]) != m_launches[key]:
             raise AssertionError(f"{key}: recorded and counted launches "
                                  f"differ")
@@ -1559,6 +1851,13 @@ def main() -> int:
     f_frame = summary(m_ms["oscal"], f_plain, f_bounds)
     log_summary("F (stream3_oscal) over the 64-instance frame's launches, "
                 "each equal to plain", f_frame, card)
+    t1 = time.time()
+    bc_multi = chain_launches(stg, m_calls.calls, m_ms, "multi64", multi_held)
+    log(f"    B's and C's bounds on the 64-instance frame's "
+        f"{len(bc_multi['emit'])} launches, and plain runs on "
+        f"{sum('plain_ms' in r for r in bc_multi['emit'])} of them, in "
+        f"{time.time() - t1:.1f} s")
+    log_chains("multi64", bc_multi, card)
     del m_calls, d_multi, e_runs
     # a second frame, its traces' diagnostics recorded: the share of rays
     # that the reference's contract poisons (slot -2) in each engine wave
@@ -1611,8 +1910,9 @@ def main() -> int:
     # per kernel: the main path's launches (the packet kernel and D: the
     # city frames and sample1; D, E and F: the 64-instance frame), each
     # timed on its own shape; ms, plain_ms and bound_ms are means a launch
-    # over them, the *_sum keys their sums.  A, B and C: phase [5]'s
-    # 1080p primary wave.
+    # over them, the *_sum keys their sums (B and C: the city frames and
+    # the 64-instance frame; their plain keys only the held launches').
+    # A: phase [5]'s 1080p primary wave.
     kernels = []
     for var in PATH_VARIANTS:
         errs = [r["max_abs_err"] for k, r in results.items()
@@ -1638,6 +1938,15 @@ def main() -> int:
                             bound_ms=s3k["isect"]["bound"][0])),
         "isect_occl": dict(e_frame, max_abs_err=1.0 - e_agree),
         "oscal": dict(f_frame, max_abs_err=0.0)}
+    for key in ("emit", "refine"):     # every city and multi64 launch
+        w = s3k[key]
+        frame_rows[key] = dict(
+            chain_summary(bc_city[key] + bc_multi[key], key),
+            max_abs_err=0.0, by_scene={
+                "city": chain_summary(bc_city[key], key),
+                "multi64": chain_summary(bc_multi[key], key)},
+            wave_1080p=dict(ms=w["ms"], plain_ms=w["plain_ms"],
+                            bound_ms=w["bound"][0]))
     for key, (name, src, replaced) in S3_KERNELS.items():
         if key in frame_rows:
             r = dict(frame_rows[key], library_ms=None)

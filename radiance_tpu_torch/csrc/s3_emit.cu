@@ -1,4 +1,5 @@
-// Kernel B of the stream3 pipeline: the emit walk, one warp per slot.
+// Kernel B of the stream3 pipeline: the emit walk, one warp per slot,
+// a window of node rows per dependent load.
 //
 // Replaces the four TPU emit kernels of radiance_tpu/ops/stream3.py,
 // which all produce the same word lists by different TPU schedules:
@@ -15,21 +16,33 @@
 // Bit j of keepmask says whether any of block j's four 32-ray
 // sub-frusta (bscal rows pkt * 32 + s * 8 + j) overlaps the leaf box.
 //
-// Design: the 32 lanes of a warp are the slot's 32 sub-frusta.  Each
-// step every lane reads the same 16-word node row (one broadcast
-// transaction), evaluates the slot's interval test (redundantly, so no
-// shuffle is needed) and its own sub-frustum's; __ballot_sync folds the
-// 32 sub-frustum results and an OR over the four sub-frusta of a block
-// gives keepmask.  Lane 0 appends.  The walk stops when the cursor
-// escapes (-1) or after step_cap steps (the packet is then flagged for
-// the exact residual).  A slot's list may hold pcap words; the count
-// keeps counting past it, which flags the packet too.
+// What bounds it on an H100: the walk is a chain of dependent node
+// reads.  A walk step is a handful of instructions, but the next row's
+// index is known only once the row is read, and an L2 round trip is
+// ~0.5 us; the longest slot's chain sets the launch time (2288 slots at
+// the city's 1080p primary, a few live ones in a 64-instance sub-wave),
+// not bytes (its bound counts a 64-byte row a step) or FLOPs.
 //
-// What bounds it on an H100: the walk is a dependent chain, one 64-byte
-// node row per step (the bound counted is steps * 64 B / 3.35 TB/s, and
-// the rows mostly come from L2).  Latency of that chain and the walk
-// lengths of the longest slots bound it, not bytes or FLOPs; 2288 warps
-// at the city's 1080p primary wave keep each SM busy with ~17 walks.
+// Design: the tables are preorder with escape threading, so a walk only
+// moves forward (an interior hit goes to row my + 1, a leaf or a miss to
+// its escape row, further on, or -1) and a window of consecutive rows
+// resolves without another load.  Lane j of the slot's warp loads row
+// cur + j (48 bytes; one coalesced request for 32 rows, lanes past the
+// octant table or nodef masked), runs the slot-frustum test on it and
+// forms its row's successor; the walk then follows inside the window by
+// __shfl_sync of the successor, a register chain of ~30 cycles a node in
+// place of a round trip, and reloads where the cursor leaves the window.
+// The cursor never depends on keepmask, so the 32 sub-frustum tests
+// (lane s holds sub-frustum s) run only at visited leaves the slot
+// frustum hits: the row's bounds and tn are broadcast from its lane and
+// __ballot_sync folds the results.  Words are kept in lane (count % 32)
+// and stored 32 at a time.  The walk stops when the cursor escapes (-1)
+// or at the step_cap-th node visited, even inside a window (the packet
+// is then flagged for the exact residual); count, capped and steps
+// (nodes visited) are those of the lockstep walk, and a slot's list
+// keeps the first pcap words while the count goes on past it.  (Issuing
+// the next window's loads before making this window's words, and 64-row
+// windows of two rows a lane, measured slower on the H100.)
 //
 // Exactness: the arithmetic is products, differences and comparisons;
 // built with -fmad=false so no product is contracted into an FMA, the
@@ -46,6 +59,8 @@ using s3::nan_max;
 using s3::nan_min;
 
 constexpr int kWarps = 4;
+constexpr int kWindow = 32;     // node rows a load: one a lane
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Frustum {
   float sgn[3], olo[3], ohi[3], ilo[3], ihi[3];
@@ -85,56 +100,92 @@ __device__ __forceinline__ void interval(const Frustum& f, const float* bmn,
 }
 
 __global__ void __launch_bounds__(kWarps * 32)
-emit_kernel(const float* __restrict__ scal, const int* __restrict__ smeta,
-            const float* __restrict__ bscal, const float* __restrict__ nodef,
-            int nslot, float tmax, int step_cap, int pcap,
-            int* __restrict__ words, int* __restrict__ emeta) {
+emit_window_kernel(const float* __restrict__ scal,
+                   const int* __restrict__ smeta,
+                   const float* __restrict__ bscal,
+                   const float* __restrict__ nodef, int nslot, int nrows,
+                   float tmax, int step_cap, int pcap,
+                   int* __restrict__ words, int* __restrict__ emeta) {
   const int lane = threadIdx.x & 31;
   const int slot = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (slot >= nslot) return;  // whole warps only
   const int pkt = smeta[slot * 8];
   const int alive = smeta[slot * 8 + 1];
   const int64_t base = smeta[slot * 8 + 2];
+  // rows of the slot's octant table that lie inside nodef
+  const int64_t left = nrows - base;
+  const int avail = static_cast<int>(left < nrows / 8 ? left : nrows / 8);
   const Frustum fs = load_frustum(scal + static_cast<int64_t>(slot) * 16);
   const Frustum fb = load_frustum(
       bscal + (static_cast<int64_t>(pkt) * s3::kNLanes + lane) * 16);
   int* out = words + static_cast<int64_t>(slot) * pcap;
 
-  int idx = alive > 0 ? 0 : -1;
+  int cur = alive > 0 ? 0 : -1;
   int cnt = 0, steps = 0;
-  while (idx >= 0 && steps < step_cap) {
-    const float4* row =
-        reinterpret_cast<const float4*>(nodef + (base + idx) * 16);
-    const float4 r0 = __ldg(row), r1 = __ldg(row + 1), r2 = __ldg(row + 2);
-    const float bmn[3] = {r0.x, r0.y, r0.z};
-    const float bmx[3] = {r0.w, r1.x, r1.y};
-    const int a = static_cast<int>(r2.x);
-    const int esc = static_cast<int>(r2.y);
-    const bool is_leaf = r2.z > 0.f;
-
-    float tn, tf, tn_b, tf_b;
-    interval(fs, bmn, bmx, tmax, tn, tf);
-    const bool box_hit = (tf >= tn) && (tn < tmax);
-    interval(fb, bmn, bmx, kFltMax, tn_b, tf_b);
-    const unsigned m =
-        __ballot_sync(0xffffffffu, (tf_b >= tn_b) && (tn_b < tmax));
-    const int kmask = static_cast<int>((m | (m >> 8) | (m >> 16) | (m >> 24))
-                                       & 0xffu);
-    if (is_leaf && box_hit && kmask > 0) {
-      if (lane == 0 && cnt < pcap) {
-        const int tq = min(max((__float_as_int(nan_max(tn, 0.f))
-                                >> s3::kTqShift) - s3::kTqBias3, 0),
-                           s3::kTqMask);
-        out[cnt] = ((a + 1) << s3::kLeafShift) | (kmask << s3::kKeepShift)
-                   | tq;
-      }
-      ++cnt;
+  int pend = 0;   // word cnt - cnt % 32 + lane, until its 32 are stored
+  while (cur >= 0 && steps < step_cap && cur < avail) {
+    const int win = cur;
+    const int nvalid = min(kWindow, avail - win);
+    float bmn[3] = {0.f, 0.f, 0.f}, bmx[3] = {0.f, 0.f, 0.f};
+    float tn = 0.f, tf = 0.f;
+    int a = 0, esc = -1;
+    bool leaf = false, hit = false;
+    if (lane < nvalid) {
+      const float4* row =
+          reinterpret_cast<const float4*>(nodef + (base + win + lane) * 16);
+      const float4 r0 = __ldg(row), r1 = __ldg(row + 1), r2 = __ldg(row + 2);
+      bmn[0] = r0.x; bmn[1] = r0.y; bmn[2] = r0.z;
+      bmx[0] = r0.w; bmx[1] = r1.x; bmx[2] = r1.y;
+      a = static_cast<int>(r2.x);
+      esc = static_cast<int>(r2.y);
+      leaf = r2.z > 0.f;
+      interval(fs, bmn, bmx, tmax, tn, tf);
+      hit = (tf >= tn) && (tn < tmax);
     }
-    idx = (is_leaf || !box_hit) ? esc : a;
-    ++steps;
+    const int nxt = (leaf || !hit) ? esc : a;
+    const unsigned cand = __ballot_sync(kFull, leaf && hit);
+    int p = 0;      // the cursor's lane in the window
+    do {
+      const int nx = __shfl_sync(kFull, nxt, p);
+      if ((cand >> p) & 1u) {
+        float qmn[3], qmx[3];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          qmn[k] = __shfl_sync(kFull, bmn[k], p);
+          qmx[k] = __shfl_sync(kFull, bmx[k], p);
+        }
+        const float tn_p = __shfl_sync(kFull, tn, p);
+        const int a_p = __shfl_sync(kFull, a, p);
+        float tn_b, tf_b;
+        interval(fb, qmn, qmx, kFltMax, tn_b, tf_b);
+        const unsigned m =
+            __ballot_sync(kFull, (tf_b >= tn_b) && (tn_b < tmax));
+        const int kmask =
+            static_cast<int>((m | (m >> 8) | (m >> 16) | (m >> 24)) & 0xffu);
+        if (kmask > 0) {
+          const int tq = min(max((__float_as_int(nan_max(tn_p, 0.f))
+                                  >> s3::kTqShift) - s3::kTqBias3, 0),
+                             s3::kTqMask);
+          if (lane == (cnt & 31)) {
+            pend = ((a_p + 1) << s3::kLeafShift)
+                   | (kmask << s3::kKeepShift) | tq;
+          }
+          if ((++cnt & 31) == 0 && cnt - 32 + lane < pcap) {
+            out[cnt - 32 + lane] = pend;
+          }
+        }
+      }
+      ++steps;
+      cur = nx;
+      p = cur - win;
+    } while (cur >= 0 && steps < step_cap
+             && static_cast<unsigned>(p) < static_cast<unsigned>(nvalid));
+  }
+  if (lane < (cnt & 31) && cnt - (cnt & 31) + lane < pcap) {
+    out[cnt - (cnt & 31) + lane] = pend;
   }
   if (lane < 8) {
-    const int v[3] = {cnt, idx >= 0 ? 1 : 0, steps};
+    const int v[3] = {cnt, cur >= 0 ? 1 : 0, steps};
     emeta[slot * 8 + lane] = lane < 3 ? v[lane] : 0;
   }
 }
@@ -144,17 +195,24 @@ emit_kernel(const float* __restrict__ scal, const int* __restrict__ smeta,
 extern "C" {
 
 // scal [nslot, 16] f32, smeta [nslot, 8] i32 (pkt, alive, base row),
-// bscal [npk * 32, 16] f32, nodef [8 * nk, 16] f32 -> words [nslot, pcap]
-// i32 (the first min(count, pcap) of a row defined), emeta [nslot, 8] i32
-// (count, capped, steps, 0...).  Returns cudaGetLastError().
+// bscal [npk * 32, 16] f32, nodef [nrows = 8 * nk, 16] f32 -> words
+// [nslot, pcap] i32 (the first min(count, pcap) of a row defined), emeta
+// [nslot, 8] i32 (count, capped, steps, 0...).  Returns
+// cudaGetLastError().
 int rt_s3_emit(const float* scal, const int* smeta, const float* bscal,
-               const float* nodef, int nslot, float tmax, int step_cap,
-               int pcap, int* words, int* emeta, void* stream) {
+               const float* nodef, int nslot, int nrows, float tmax,
+               int step_cap, int pcap, int* words, int* emeta, void* stream) {
   if (nslot <= 0) return 0;
   const unsigned grid = static_cast<unsigned>((nslot + kWarps - 1) / kWarps);
-  emit_kernel<<<grid, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      scal, smeta, bscal, nodef, nslot, tmax, step_cap, pcap, words, emeta);
+  emit_window_kernel<<<grid, kWarps * 32, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      scal, smeta, bscal, nodef, nslot, nrows, tmax, step_cap, pcap, words,
+      emeta);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The node rows a dependent load brings in (one a lane); the plain walk's
+// statistics count kernel B's loads with the same window.
+int rt_s3_emit_window() { return kWindow; }
 
 }  // extern "C"

@@ -45,6 +45,7 @@ BLK = 128                   # rays per phase-2 block (8 per packet)
 PCAP = 1024                 # emitted words per slot
 EXTRA = 256                 # sub-walk slot pool for mixed-octant packets
 STEP_CAP = 2048             # walk steps per slot before its packet flags
+EMIT_WINDOW = 32            # node rows kernel B loads per dependent load
 REFINE_SUB = 32             # rays per emit-refine sub-frustum
 NLANES = 8 * (BLK // REFINE_SUB)    # sub-frusta per packet (32)
 
@@ -69,11 +70,13 @@ LIBS = {
     # FMA contraction their word lists are bit-identical to the plain
     # versions'
     "emit": cuda_build.KernelLib("s3_emit", (
-        ("rt_s3_emit", (_P, _P, _P, _P, _I32, _F32, _I32, _I32, _P, _P,
-                        _P)),), ("-fmad=false",)),
+        ("rt_s3_emit", (_P, _P, _P, _P, _I32, _I32, _F32, _I32, _I32, _P,
+                        _P, _P)),
+        ("rt_s3_emit_window", ())), ("-fmad=false",)),
     "refine": cuda_build.KernelLib("s3_refine", (
-        ("rt_s3_refine", (_P, _P, _P, _P, _I64, _P, _I32, _I32, _F32, _P,
-                          _P, _P)),), ("-fmad=false",)),
+        ("rt_s3_refine", (_P, _P, _P, _P, _I64, _P, _I32, _I32, _F32, _I32,
+                          _P, _P, _P, _P, _P, _P)),
+        ("rt_s3_refine_grid", ())), ("-fmad=false",)),
     "isect": cuda_build.KernelLib("s3_isect", (
         ("rt_s3_isect", (_P, _P, _P, _P, _P, _I32, _I32, _F32, _F32, _I32,
                          _P, _P, _P)),)),
@@ -341,9 +344,14 @@ def _interval_test(bmn, bmx, s, tf0):
     return tn, tf
 
 
-def _emit_plain(scal, smeta, bscal, nodef, tmax, step_cap, pcap):
+def _emit_plain(scal, smeta, bscal, nodef, tmax, step_cap, pcap,
+                stats=None):
     """Plain version of kernel B: the lockstep walk of _emit3_kernel,
-    every live slot advanced one node per loop step."""
+    every live slot advanced one node per loop step.  stats, if a dict,
+    receives "steps" and "max_steps" (nodes visited, in all and by the
+    longest slot) and "window_loads" and "max_window_loads": the
+    dependent loads of kernel B's walk, which loads EMIT_WINDOW rows from
+    the cursor and follows the walk inside them."""
     dev = scal.device
     i32, i64 = torch.int32, torch.int64
     nslot = scal.shape[0]
@@ -353,6 +361,10 @@ def _emit_plain(scal, smeta, bscal, nodef, tmax, step_cap, pcap):
     steps = torch.zeros(nslot, dtype=i64, device=dev)
     idx = torch.where(smeta[:, 1] > 0, 0, -1).to(i64)
     base = smeta[:, 2].to(i64)
+    # the window's rows: inside the octant table and inside nodef
+    nk, nrows = nodef.shape[0] // 8, nodef.shape[0]
+    win = idx.clone()
+    loads = (idx >= 0).to(i64)
     sub = bscal.view(-1, NLANES, 16)[smeta[:, 0].to(i64)]  # [nslot, 32, 16]
     pow2 = (1 << torch.arange(8, device=dev)).to(i32)
     for _ in range(int(step_cap)):
@@ -378,12 +390,24 @@ def _emit_plain(scal, smeta, bscal, nodef, tmax, step_cap, pcap):
         words[act[wr], c[wr]] = word[wr]
         cnt[act] = c + emit.to(i64)
         steps[act] += 1
-        idx[act] = torch.where(is_leaf | ~box_hit, row[:, 9].to(i64),
-                               a.to(i64))
+        nxt = torch.where(is_leaf | ~box_hit, row[:, 9].to(i64), a.to(i64))
+        if stats is not None:
+            off = nxt - win[act]
+            new = (nxt >= 0) & (steps[act] < step_cap) & (
+                (off < 0) | (off >= EMIT_WINDOW) | (nxt >= nk)
+                | (base[act] + nxt >= nrows))
+            win[act] = torch.where(new, nxt, win[act])
+            loads[act] += new.to(i64)
+        idx[act] = nxt
     emeta = torch.zeros(nslot, 8, dtype=i32, device=dev)
     emeta[:, 0] = cnt.to(i32)
     emeta[:, 1] = (idx >= 0).to(i32)
     emeta[:, 2] = steps.to(i32)
+    if stats is not None:
+        stats.update(steps=int(steps.sum()),
+                     max_steps=int(steps.max()) if nslot else 0,
+                     window_loads=int(loads.sum()),
+                     max_window_loads=int(loads.max()) if nslot else 0)
     return words, emeta
 
 
@@ -401,13 +425,16 @@ def emit_cuda(scal, smeta, bscal, nodef, tmax, step_cap, pcap):
     if bscal.shape[0] % NLANES or nodef.shape[0] % 8:
         raise ValueError("emit_cuda: bscal rows must be a multiple of 32 "
                          "and nodef rows of 8")
+    if not _aligned(nodef):
+        raise ValueError("emit_cuda: nodef must be 16-byte aligned")
     words = torch.empty(nslot, pcap, dtype=torch.int32, device=dev)
     emeta = torch.empty(nslot, 8, dtype=torch.int32, device=dev)
     if nslot:
         cuda_build.check_launch("s3_emit", _lib("emit").rt_s3_emit(
             scal.data_ptr(), smeta.data_ptr(), bscal.data_ptr(),
-            nodef.data_ptr(), nslot, float(tmax), int(step_cap), int(pcap),
-            words.data_ptr(), emeta.data_ptr(), _stream(dev)))
+            nodef.data_ptr(), nslot, nodef.shape[0], float(tmax),
+            int(step_cap), int(pcap), words.data_ptr(), emeta.data_ptr(),
+            _stream(dev)))
         emit_cuda.launches += 1
     return words, emeta
 
@@ -475,9 +502,12 @@ def _refine_plain(words, emeta, slot_pkt, feats_t, aabb8, tmax, pcap):
     return out, emeta_out
 
 
-def refine_cuda(words, emeta, slot_pkt, feats_t, aabb8, tmax, pcap):
+def refine_cuda(words, emeta, slot_pkt, feats_t, aabb8, tmax, pcap,
+                grid=0):
     """Kernel C: (words', emeta'); only the first emeta'[:, 0] words of
-    a row are defined."""
+    a row are defined.  grid: the test kernel's blocks, each taking an
+    equal share of the lists' 32-word chunks; 0 is the kernel's own
+    choice, a full complement of blocks on every SM (refine_grid())."""
     dev = _cuda_only("refine_cuda", words)
     chk = functools.partial(cuda_build.check_tensor, "refine_cuda",
                             dev=dev)
@@ -489,19 +519,43 @@ def refine_cuda(words, emeta, slot_pkt, feats_t, aabb8, tmax, pcap):
     chk("aabb8", aabb8, torch.float32, (None, 8))
     if feats_t.shape[1] % PKT:
         raise ValueError("refine_cuda: feats_t width must be whole packets")
+    if not _aligned(feats_t, aabb8):
+        raise ValueError("refine_cuda: feats_t and aabb8 must be 16-byte "
+                         "aligned")
     out = torch.empty_like(words)
     emeta_out = torch.empty_like(emeta)
     if nslot:
+        # one i32 scratch: the refined, uncompacted lists [nslot, pcap];
+        # each slot's first 32-word chunk [nslot + 1]; each chunk's slot
+        # [nslot * ceil(pcap / 32)]
+        wtmp = nslot * pcap
+        scratch = torch.empty(wtmp + nslot + 1 + nslot * -(-pcap // 32),
+                              dtype=torch.int32, device=dev)
+        at = scratch.data_ptr()
         cuda_build.check_launch("s3_refine", _lib("refine").rt_s3_refine(
             words.data_ptr(), emeta.data_ptr(), slot_pkt.data_ptr(),
             feats_t.data_ptr(), feats_t.shape[1], aabb8.data_ptr(), nslot,
-            int(pcap), float(tmax), out.data_ptr(), emeta_out.data_ptr(),
-            _stream(dev)))
+            int(pcap), float(tmax), int(grid), at,
+            at + 4 * wtmp, at + 4 * (wtmp + nslot + 1), out.data_ptr(),
+            emeta_out.data_ptr(), _stream(dev)))
         refine_cuda.launches += 1
     return out, emeta_out
 
 
 refine_cuda.launches = 0
+
+
+def refine_grid(dev) -> int:
+    """Kernel C's default test grid on `dev`: its blocks an SM times the
+    SMs."""
+    with torch.cuda.device(dev):
+        return _lib("refine").rt_s3_refine_grid()
+
+
+def emit_window() -> int:
+    """The node rows kernel B loads per dependent load (its kWindow, which
+    EMIT_WINDOW copies for the plain walk's statistics)."""
+    return _lib("emit").rt_s3_emit_window()
 
 
 def stage_refine(words, emeta, slot_pkt, feats_t, aabb8, tmax, *,

@@ -278,6 +278,111 @@ def test_s3_emit_and_refine_identical_to_plain(cuda):
     assert torch.equal(rk[valid], rp[valid])
 
 
+def _emit_pair(args):
+    """Kernel B and its plain version on the same arguments: emeta and
+    the valid words identical.  Returns the emeta."""
+    wk, ek = stg.emit_cuda(*args)
+    wp, ep = stg._emit_plain(*args)
+    assert torch.equal(ek, ep)
+    valid = (torch.arange(args[6], device=ek.device)[None, :]
+             < torch.clamp(ek[:, :1], max=args[6]))
+    assert torch.equal(wk[valid], wp[valid])
+    return ek
+
+
+def test_s3_emit_edge_cases(cuda):
+    """Kernel B against its plain version where its windows could go
+    wrong: step caps that cut a walk inside a window and on its edges,
+    list caps the count runs past, dead slots, NaN slot scalars, slots
+    sharing a packet (the mixed-octant pool), every octant table walked
+    to its end (the last one's final window reaches past nodef's rows),
+    and a one-leaf table."""
+    assert stg.emit_window() == stg.EMIT_WINDOW
+    tlas = _scene(_mesh(10, 3000, 8.0))
+    ds, _, scal, smeta, bscal = _s3_stages(cuda, tlas)
+    assert int((smeta[:, 1] > 0).sum()) > smeta.shape[0] // 8
+    assert int(torch.unique(smeta[smeta[:, 1] > 0, 0]).numel()) \
+        < int((smeta[:, 1] > 0).sum())       # packets with several slots
+    for cap in (1, 5, 31, 32, 33, 100, stg.STEP_CAP):
+        ek = _emit_pair((scal, smeta, bscal, ds.knode_f, 1e3, cap,
+                         stg.PCAP))
+        if cap == 33:
+            assert int(ek[:, 1].sum()) > 0 and int((ek[:, 2] == 33).sum())
+        if cap == stg.STEP_CAP:     # walks that reach their table's end
+            assert int(ek[:, 1].sum()) == 0
+            assert int(ek[:, 2].max()) > 32 and int(ek[:, 0].max()) > 7
+    for pcap in (1, 7):
+        ek = _emit_pair((scal, smeta, bscal, ds.knode_f, 1e3, stg.STEP_CAP,
+                         pcap))
+        assert int(ek[:, 0].max()) > pcap
+    odd_scal, odd_meta = scal.clone(), smeta.clone()
+    odd_meta[::3, 1] = 0                       # dead slots
+    odd_scal[1::5, 9] = float("nan")           # a NaN interval scalar
+    odd_scal[2::7] = float("nan")              # every scalar NaN
+    ek = _emit_pair((odd_scal, odd_meta, bscal, ds.knode_f, 1e3,
+                     stg.STEP_CAP, stg.PCAP))
+    assert bool((ek[::3] == 0).all())
+    one = _scene(_mesh(3, 2, 1.0))
+    ds1, _, scal1, smeta1, bscal1 = _s3_stages(cuda, one)
+    assert ds1.knode_f.shape[0] == 8
+    ek = _emit_pair((scal1, smeta1, bscal1, ds1.knode_f, 1e3, stg.STEP_CAP,
+                     stg.PCAP))
+    assert int(ek[:, 2].max()) == 1
+
+
+@pytest.mark.parametrize("grid", [1, 7, 0])
+def test_s3_refine_edge_cases(cuda, grid):
+    """Kernel C against its plain version on hand-made lists over 8
+    packets: list lengths 0, 1, 31, 32, 33, PCAP and a count past PCAP;
+    a fully parked packet (origin 1e30: every word dropped); a packet
+    whose rays start inside one leaf's box (every word of that leaf
+    kept); NaN directions; several slots sharing a packet.  With one
+    test block taking every chunk, 7 blocks whose shares start and end
+    inside lists, and the kernel's own grid (0)."""
+    ds = _scene(_mesh(10, 3000, 8.0)).device_scene(cuda)
+    nl = ds.kleaf.shape[0]
+    aabb8 = s3.leaf_aabb8(ds.knode_f, nl)
+    npk = 8
+    rng = np.random.default_rng(5)
+    o, d = _rays(6, npk * stg.PKT, 10.0)
+    pk0 = slice(0, stg.PKT)
+    o[pk0] = 1e30                                     # parked
+    inside = slice(stg.PKT, 2 * stg.PKT)
+    o[inside] = (aabb8[3, :3] + aabb8[3, 3:6]).cpu().numpy() / 2
+    d[2 * stg.PKT:2 * stg.PKT + 100] = np.nan         # NaN directions
+    feats_t = torch.zeros(16, npk * stg.PKT)
+    feats_t[0:3] = torch.from_numpy(d.T.copy())
+    feats_t[6:9] = torch.from_numpy(o.T.copy())
+    feats_t = feats_t.to(cuda)
+    lens = [0, 1, 31, 32, 33, stg.PCAP, 1500, 40, 40, 200, 64, 65]
+    pkts = [3, 4, 5, 6, 7, 2, 3, 0, 1, 2, 4, 2]
+    nslot = len(lens)
+    words = np.zeros((nslot, stg.PCAP), np.int32)
+    for s, (n, p) in enumerate(zip(lens, pkts)):
+        m = min(n, stg.PCAP)
+        leaves = (np.full(m, 3) if p == 1 else rng.integers(0, nl, m))
+        keep = (np.full(m, 255) if p < 2
+                else rng.integers(1, 256, m))
+        words[s, :m] = ((leaves + 1) << stg.W_LEAF_SHIFT) \
+            | (keep << stg.W_KEEP_SHIFT) | rng.integers(0, 512, m)
+    emeta = np.zeros((nslot, 8), np.int32)
+    emeta[:, 0] = lens
+    emeta[:, 1:] = rng.integers(0, 5, (nslot, 7))
+    args = (torch.from_numpy(words).to(cuda), torch.from_numpy(emeta).to(cuda),
+            torch.tensor(pkts, dtype=torch.int32, device=cuda), feats_t, aabb8,
+            1e3, stg.PCAP)
+    rk, rek = stg.refine_cuda(*args, grid=grid)
+    rp, rep = stg._refine_plain(*args)
+    assert torch.equal(rek, rep)
+    valid = torch.arange(stg.PCAP, device=cuda)[None, :] < rek[:, :1]
+    assert torch.equal(rk[valid], rp[valid])
+    kept = rek[:, 0].tolist()
+    assert rek[:, 4].tolist() == [min(n, stg.PCAP) for n in lens]
+    assert kept[7] == 0 and kept[8] == 40          # all dropped, all kept
+    assert torch.equal(rk[8, :40], args[0][8, :40])
+    assert 0 < kept[5] < stg.PCAP and kept[0] == 0
+
+
 def test_s3_isect_matches_plain(cuda):
     tlas = _scene(_mesh(10, 3000, 8.0))
     ds, feats_t, scal, smeta, bscal = _s3_stages(cuda, tlas)

@@ -204,9 +204,9 @@ def staged():
                            jds.kleaf, precision="f32", interpret=True,
                            orient="major", stable=jds.stable_frames)
     j = {k: np.asarray(v) for k, v in dict(
-        feats_t=feats_t, scal=scal, smeta=smeta, bscal=bscal, words=words,
-        emeta=emeta, aabb8=aabb8, words_i=words_i, emeta_i=emeta_i,
-        out=out).items()}
+        lim=lim, feats_t=feats_t, scal=scal, smeta=smeta, bscal=bscal,
+        words=words, emeta=emeta, aabb8=aabb8, words_i=words_i,
+        emeta_i=emeta_i, out=out).items()}
     t = {k: torch.from_numpy(v.copy()) for k, v in j.items()}
     return jds, tds, j, t
 
@@ -227,6 +227,92 @@ def test_stage_emit_matches_jax(staged):
     assert (emeta[alive, 2] > 0).all() and (emeta[~alive, 2] == 0).all()
     assert (emeta[:, 2].reshape(-1, js3.G).max(1)
             == j["emeta"][::js3.G, 2]).all()
+
+
+def test_stage_emit_matches_jax_treelet_walk(staged):
+    """The reference's windowed walk (_emit3t_kernel, stream3.py:753:
+    aligned 8-row node windows, the walk followed inside each) emits the
+    same word lists and counts as the port's walk on every slot neither
+    caps: following a window does not change the lists.  (The reference
+    counts its step cap in windows, the port in nodes.)"""
+    jds, tds, j, t = staged
+    jw, je = (np.asarray(v) for v in js3._stage_emit(
+        jnp.asarray(j["lim"]), jnp.asarray(j["scal"]),
+        jnp.asarray(j["smeta"]), jnp.asarray(j["bscal"]), jds.knode_f,
+        interpret=True, treelet=True))
+    words, emeta = (v.numpy() for v in stg.stage_emit(
+        t["scal"], t["smeta"], t["bscal"], tds.knode_f, TMAX))
+    whole = (emeta[:, 1] == 0) & (je[:, 1] == 0)
+    assert whole.sum() > 16 and (j["smeta"][whole, 1] > 0).sum() > 16
+    np.testing.assert_array_equal(emeta[whole, 0], je[whole, 0])
+    cnt = np.minimum(emeta[:, 0], stg.PCAP)
+    for s in np.nonzero(whole & (cnt > 0))[0]:
+        np.testing.assert_array_equal(words[s, :cnt[s]], jw[s, :cnt[s]])
+    assert cnt[whole].sum() > 100
+
+
+@pytest.mark.parametrize("step_cap", [stg.STEP_CAP, 7])
+def test_emit_plain_stats_count_window_loads(staged, monkeypatch, step_cap):
+    """_emit_plain(stats=) leaves its output unchanged and counts kernel
+    B's dependent loads: with one-row windows one a visited node, with
+    windows wider than a table one a live slot (the walk only moves
+    forward), fewer the wider the window; steps are emeta's."""
+    _, tds, _, t = staged
+    args = (t["scal"], t["smeta"], t["bscal"], tds.knode_f, TMAX, step_cap,
+            stg.PCAP)
+    words, emeta = stg._emit_plain(*args)
+    whole = tds.knode_f.shape[0]
+    windows = (1, 4, stg.EMIT_WINDOW, whole)
+    loads = []
+    for window in windows:
+        monkeypatch.setattr(stg, "EMIT_WINDOW", window)
+        st = {}
+        w2, e2 = stg._emit_plain(*args, stats=st)
+        assert torch.equal(w2, words) and torch.equal(e2, emeta)
+        assert st["steps"] == int(emeta[:, 2].sum())
+        assert st["max_steps"] == int(emeta[:, 2].max())
+        loads.append(st["window_loads"])
+    alive = int((t["smeta"][:, 1] > 0).sum())
+    assert loads[0] == int(emeta[:, 2].sum()) and loads[-1] == alive
+    assert loads == sorted(loads, reverse=True)
+    assert alive < loads[1] < loads[0]
+
+
+@pytest.mark.parametrize("step_cap", [stg.STEP_CAP, 7])
+def test_emit_counts_match_a_walk_of_each_slot(staged, step_cap):
+    """chip_smoke.emit_counts, which kernel B's bound reads, on two
+    launches walked together: each launch's steps are _emit_plain's
+    emeta lane 2, and its hit leaves and distinct rows those of a walk
+    of each of its slots on its own (the visited leaves whose box the
+    slot frustum hits; the node rows any of its slots visits)."""
+    import chip_smoke
+    _, tds, _, t = staged
+    nodef = tds.knode_f
+    alive = torch.nonzero(t["smeta"][:, 1] > 0).squeeze(1)
+    sel = torch.cat([alive[torch.linspace(0, alive.numel() - 1, 12).long()],
+                     torch.nonzero(t["smeta"][:, 1] == 0)[:2, 0]])
+    launches = [(t["scal"][s], t["smeta"][s], nodef, TMAX, step_cap)
+                for s in (sel[:5], sel[5:])]
+    for (scal, smeta, *_), (steps, hit_leaves, nrows) in zip(
+            launches, chip_smoke.emit_counts(stg, launches)):
+        _, emeta = stg._emit_plain(scal, smeta, t["bscal"], nodef, TMAX,
+                                   step_cap, stg.PCAP)
+        assert torch.equal(steps, emeta[:, 2].long())
+        hits, rows = 0, set()
+        for s in range(scal.shape[0]):
+            base, idx, n = int(smeta[s, 2]), int(smeta[s, 1] > 0) - 1, 0
+            while idx >= 0 and n < step_cap:
+                row = nodef[base + idx]
+                tn, tf = stg._interval_test(row[None, 0:3], row[None, 3:6],
+                                            scal[s:s + 1], TMAX)
+                box_hit = bool(tf[0] >= tn[0]) and float(tn[0]) < TMAX
+                leaf = float(row[10]) > 0.0
+                hits += leaf and box_hit
+                rows.add(base + idx)
+                n += 1
+                idx = int(row[9]) if leaf or not box_hit else int(row[8])
+        assert hit_leaves == hits > 0
+        assert nrows == len(rows) < int(steps.sum())
 
 
 def test_stage_refine_matches_jax(staged):
