@@ -41,14 +41,15 @@ prints no result):
      kernel ms from the profiler's kernel records, its bound from plain
      runs on its recorded arguments or from its counts (the packet
      kernel: sampled packets of each launch group, one walk a group,
-     held against the kernel's recorded output on the same rays), B, C
-     and D held against their plain versions on each city launch, with
+     held against the kernel's recorded output on the same rays), B, C,
+     D and F held against their plain versions on each city launch, with
      B's longest walk, capped slots and window loads and C's longest
      list;
-  7. the many-instance stream path: kernel F (prep octant scalars) on the
-     city's 1080p primary rows, masked and unmasked, equal to its plain
-     version value for value, and the whole prep timed with F and with
-     the plain form; kernel E (occlusion pairs) on the city's 1080p
+  7. the many-instance stream path: kernel F (prep octant, whole-packet
+     and 32-ray sub-frustum scalars) on the city's 1080p primary rows,
+     masked and unmasked, its four outputs equal to its plain version's
+     value for value, and the whole prep timed with F and with the plain
+     route; kernel E (occlusion pairs) on the city's 1080p
      shadow wave against its plain version, on the emitted lists and on
      the lists refined by kernel C, each timed with its bound, and that
      wave through trace_rows_stream3(occl=True) against the packet
@@ -69,7 +70,8 @@ prints no result):
   8. the kernels' JSON line (per kernel: the main path's launches, the
      per-launch means of kernel ms, plain ms and bound and their sums,
      by scene where a kernel runs in several; A from phase 5, B and C
-     also phase 5's 1080p wave), the card line, and the contract's last
+     also phase 5's 1080p wave, F phase 7's masked 1080p rows), the card
+     line, and the contract's last
      line.
 
 Imports nothing of JAX or radiance_tpu (bench.py's numpy-only scene
@@ -175,6 +177,25 @@ def cuda_ms(fn, reps, warmup=True):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, out
+
+
+def device_ms(fn, reps):
+    """Mean device ms a call of fn over reps back-to-back calls, by CUDA
+    events, and fn's output.  A sleep kernel holds the stream while the
+    host enqueues the calls, so a call that costs the host more than its
+    kernel takes (where cuda_ms() would time the host) shows only its
+    device time."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)        # ~10 ms of clock cycles
     start.record()
     for _ in range(reps):
         out = fn()
@@ -366,6 +387,36 @@ def hold_launches(name, runs):
     """hold_prims over the lanes of many isect_launch() results."""
     return hold_prims(name, *(torch.cat([r[k] for r in runs]) for k in
                               ("t_k", "prim_k", "t_p", "prim_p")))
+
+
+def oscal_equal(out_k, out_p) -> bool:
+    """Kernel F's four outputs (cand, present, full, bscal) equal its
+    plain version's by value."""
+    return (len(out_k) == len(out_p) == 4
+            and all(values_equal(a, b) for a, b in zip(out_k, out_p)))
+
+
+def oscal_bound(rows, live, out):
+    """Kernel F's bytes bound: six f32 rows and the live bytes read once,
+    its four outputs written once."""
+    return bound(0, sum(r.numel() * 4 for r in rows)
+                 + (0 if live is None else live.numel())
+                 + sum(x.numel() * x.element_size() for x in out))
+
+
+def oscal_launches(stg, calls, ms, where):
+    """Kernel F's recorded launches, each held against its plain version
+    on its recorded arguments: (kernel ms, plain ms, bounds) lists for
+    summary()."""
+    plain, bounds = [], []
+    for _, a, _, out in calls:
+        p_ms, ref = cuda_ms(lambda: stg._oscal_plain(*a), 1, warmup=False)
+        if not oscal_equal(out, ref):
+            raise AssertionError(f"oscal differs from plain on a {where} "
+                                 f"launch")
+        plain.append(p_ms)
+        bounds.append(oscal_bound(a[0], a[1], out))
+    return ms, plain, bounds
 
 
 def emit_counts(stg, launches):
@@ -1569,6 +1620,15 @@ def main() -> int:
     log_chains("city", bc_city, card)
     log(f"    C's test kernel: {stg.refine_grid(dev)} blocks of 256 threads "
         f"share each launch's chunks")
+    # F on each city launch (the stream3 primaries' preps), its four
+    # outputs held against its plain version on the recorded arguments
+    if len(main_calls.calls["oscal"]) != s3_launches["oscal"]:
+        raise AssertionError("F: recorded and counted launches differ")
+    f_lists = oscal_launches(stg, main_calls.calls["oscal"],
+                             main_ms["oscal"], "city")
+    f_city = summary(*f_lists)
+    log_summary("F (stream3_oscal) over the city frames' launches, each "
+                "equal to plain", f_city, card)
     log(f"[6] per-launch plain runs in {time.time() - t0:.1f} s")
     del main_calls, d_city
 
@@ -1584,21 +1644,24 @@ def main() -> int:
     live_o[:n] = hit1
     oscal = {}
     for mode, lv in (("unmasked", None), ("masked", live_o)):
-        f_ms, out_k = cuda_ms(lambda: stg.oscal_cuda(rows_o, lv, npk), 10)
+        f_ms, out_k = device_ms(lambda: stg.oscal_cuda(rows_o, lv, npk), 10)
+        f_call, _ = cuda_ms(lambda: stg.oscal_cuda(rows_o, lv, npk), 10)
         f_plain, out_p = cuda_ms(lambda: stg._oscal_plain(rows_o, lv, npk),
                                  3)
-        same = all(values_equal(a, b) for a, b in zip(out_k, out_p))
+        same = oscal_equal(out_k, out_p)
         bitwise = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                       if a.is_floating_point() else torch.equal(a, b)
                       for a, b in zip(out_k, out_p))
-        nbytes = (sum(r.numel() * 4 for r in rows_o)
-                  + (0 if lv is None else lv.numel())
-                  + sum(x.numel() * x.element_size() for x in out_k))
         oscal[mode] = dict(ms=f_ms, plain_ms=f_plain, max_abs_err=0.0,
-                           library_ms=None, bound=bound(0, nbytes))
-        log(f"   F oscal {mode}: {npk} packets, equal to plain {same} "
-            f"(bit for bit {bitwise}); kernel {f_ms:.4f} ms, plain "
-            f"{f_plain:.4f} ms, bound {oscal[mode]['bound'][0]:.4f} ms")
+                           library_ms=None,
+                           bound=oscal_bound(rows_o, lv, out_k))
+        log(f"   F oscal {mode} ({card}): {npk} packets (cand, present, "
+            f"full and {out_k[3].shape[0]} sub-frustum rows), equal to "
+            f"plain {same} (bit for bit {bitwise}); kernel {f_ms:.4f} ms "
+            f"(calls queued behind a sleep; a wrapper call by CUDA events "
+            f"{f_call:.4f} ms), plain {f_plain:.4f} ms, bound "
+            f"{oscal[mode]['bound'][0]:.4f} ms, "
+            f"{oscal[mode]['bound'][0] / f_ms:.3f} of it")
         if not same:
             raise AssertionError(f"oscal {mode}: kernel differs from plain")
 
@@ -1611,8 +1674,9 @@ def main() -> int:
             s3.octant_scalars = stg.octant_scalars
 
     prep = [(prep_ms(True), prep_ms(False)) for _ in range(2)]
-    log(f"   whole _stage_prep on the 1080p primary, plain octant scalars "
-        f"vs kernel F (two turns): "
+    log(f"   whole _stage_prep on the 1080p primary ({card}), the plain "
+        f"route (octant and 32-ray sub-frustum scalars in torch) vs kernel "
+        f"F (two turns): "
         f"{'; '.join(f'{a:.3f} vs {b:.3f} ms' for a, b in prep)}")
 
     # E on the city's 1080p shadow wave (bench shadow rays from the
@@ -1756,8 +1820,7 @@ def main() -> int:
     # the live lanes are those with a nearer object-space origin
     fa = m_big["octant_scalars"]
     ea = s_big["stage_isect"] + (stg.PCAP, bool(mscene.stable_frames))
-    if not all(values_equal(x, y) for x, y in zip(stg.oscal_cuda(*fa),
-                                                  stg._oscal_plain(*fa))):
+    if not oscal_equal(stg.oscal_cuda(*fa), stg._oscal_plain(*fa)):
         raise AssertionError("oscal differs from plain on a multi launch")
     e_big = occl_launch(stg, ea)
     hold_occluded(f"E on the largest multi64 launch ({ea[0].shape[0]} "
@@ -1836,19 +1899,11 @@ def main() -> int:
                       [r["bound"] for r in e_runs])
     log_summary("E (stream3_isect_occl) over the 64-instance frame's "
                 "launches", e_frame, card)
-    f_plain, f_bounds = [], []
-    for _, a, _, out in m_calls.calls["oscal"]:
-        ms, ref = cuda_ms(lambda: stg._oscal_plain(*a), 1, warmup=False)
-        if not all(values_equal(x, y) for x, y in zip(out, ref)):
-            raise AssertionError("oscal differs from plain on a frame launch")
-        f_plain.append(ms)
-        f_bounds.append(bound(0, sum(r.numel() * 4 for r in a[0])
-                              + (0 if a[1] is None else a[1].numel())
-                              + sum(x.numel() * x.element_size()
-                                    for x in out)))
+    fm_lists = oscal_launches(stg, m_calls.calls["oscal"], m_ms["oscal"],
+                              "64-instance frame")
     log(f"    the 64-instance frame's plain runs (D, E, F) in "
         f"{time.time() - t1:.1f} s")
-    f_frame = summary(m_ms["oscal"], f_plain, f_bounds)
+    f_frame = summary(*fm_lists)
     log_summary("F (stream3_oscal) over the 64-instance frame's launches, "
                 "each equal to plain", f_frame, card)
     t1 = time.time()
@@ -1907,12 +1962,12 @@ def main() -> int:
     log(f"[7] done in {time.time() - t0:.1f} s")
 
     # ---- 8. results --------------------------------------------------
-    # per kernel: the main path's launches (the packet kernel and D: the
-    # city frames and sample1; D, E and F: the 64-instance frame), each
-    # timed on its own shape; ms, plain_ms and bound_ms are means a launch
-    # over them, the *_sum keys their sums (B and C: the city frames and
-    # the 64-instance frame; their plain keys only the held launches').
-    # A: phase [5]'s 1080p primary wave.
+    # per kernel: the main path's launches (the packet kernel: the city
+    # frames and sample1; B, C, D and F: the city frames and the
+    # 64-instance frame; E: the 64-instance frame), each timed on its own
+    # shape; ms, plain_ms and bound_ms are means a launch over them, the
+    # *_sum keys their sums (B's and C's plain keys only the held
+    # launches').  A: phase [5]'s 1080p primary wave.
     kernels = []
     for var in PATH_VARIANTS:
         errs = [r["max_abs_err"] for k, r in results.items()
@@ -1937,7 +1992,12 @@ def main() -> int:
             wave_1080p=dict(ms=s3k["isect"]["ms"],
                             bound_ms=s3k["isect"]["bound"][0])),
         "isect_occl": dict(e_frame, max_abs_err=1.0 - e_agree),
-        "oscal": dict(f_frame, max_abs_err=0.0)}
+        "oscal": dict(summary(*(x + y for x, y in zip(f_lists, fm_lists))),
+                      max_abs_err=0.0, by_scene={
+                          "city": f_city, "multi64": f_frame},
+                      wave_1080p=dict(ms=oscal["masked"]["ms"],
+                                      plain_ms=oscal["masked"]["plain_ms"],
+                                      bound_ms=oscal["masked"]["bound"][0]))}
     for key in ("emit", "refine"):     # every city and multi64 launch
         w = s3k[key]
         frame_rows[key] = dict(

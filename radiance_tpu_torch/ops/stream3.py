@@ -7,7 +7,8 @@ stages it runs (`_run`, :2459):
           sub-frustum scalars, and the slot tables: a packet whose rays
           share one direction octant is one slot; a mixed packet becomes
           one slot per present octant, drawn from an EXTRA pool.  The
-          octant scalars are kernel F; the rest is plain torch;
+          octant and sub-frustum scalars are kernel F (one pass); the
+          rest is plain torch;
   emit    (kernel B) every slot walks the octant node table once with its
           interval frustum and appends one i32 word per overlapped leaf;
   refine  (kernel C) the exact per-ray slab test of every (leaf, 128-ray
@@ -62,9 +63,9 @@ from radiance_tpu_torch.ops import packet_trace
 from radiance_tpu_torch.ops.intersect import FLT_MAX
 from radiance_tpu_torch.ops.packet_trace import HitRecord
 from radiance_tpu_torch.ops.stream3_stages import (
-    BIG, BLK, EXTRA, FMAX, G, NLANES, PCAP, PKT, REFINE_SUB, STEP_CAP,
-    W_LEAF_MAX, feats_rows_to_major, group_scalars, octant_scalars,
-    rows_from_aos_fast, stage_emit, stage_isect, stage_refine)
+    BIG, BLK, EXTRA, FMAX, G, PCAP, PKT, STEP_CAP, W_LEAF_MAX,
+    feats_rows_to_major, octant_scalars, rows_from_aos_fast, stage_emit,
+    stage_isect, stage_refine)
 
 
 def supports(scene) -> bool:
@@ -159,15 +160,10 @@ def _stage_prep(rows_w, nodef, inv0, live=None, *, stable: bool):
     feats_t = torch.stack([dx, dy, dz, mx, my, mz, ox, oy, oz, ones,
                            zeros, zeros, zeros, zeros, zeros, zeros])
 
-    # 32-ray sub-frusta, rows sub-major within each packet (sub s of
-    # block j at row s*8 + j)
-    spb = BLK // REFINE_SUB
-    sub_mask = None if live is None else live.reshape(-1, REFINE_SUB)
-    bscal = group_scalars(rows, REFINE_SUB, mask=sub_mask) \
-        .reshape(npk, 8, spb, 16).transpose(1, 2).reshape(npk * NLANES, 16)
-
     # ----- slot construction -----
-    cand, present, full_pkt = octant_scalars(
+    # octant, whole-packet and 32-ray sub-frustum scalars (bscal: sub s
+    # of block j at row s*8 + j of its packet), one pass of kernel F
+    cand, present, full_pkt, bscal = octant_scalars(
         rows, None if live is None else live.contiguous(), npk)
     pure = present.sum(dim=1) == 1
     oct_idx = torch.argmax(present.to(i32), dim=1)

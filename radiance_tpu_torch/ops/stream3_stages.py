@@ -88,7 +88,7 @@ LIBS = {
     # the plain version's
     "oscal": cuda_build.KernelLib("s3_oscal", (
         ("rt_s3_oscal", (_P, _P, _P, _P, _P, _P, _P, _I32, _P, _P, _P,
-                         _P)),), ("-fmad=false",)),
+                         _P, _P)),), ("-fmad=false",)),
 }
 
 
@@ -248,7 +248,8 @@ def group_scalars(rows, group, mask=None):
 def _oscal_plain(rows, live, npk):
     """Plain version of kernel F: the XLA formulation of the octant
     scalars (stream3.py::_octant_scalars, :411-446), [npk, 8, PKT]
-    broadcasts reduced over the packet axis."""
+    broadcasts reduced over the packet axis, and the reference prep's
+    32-ray sub-frustum rows (stream3.py::_stage_prep, :509-515)."""
     ox, oy, oz, dx, dy, dz = rows
     dev = ox.device
     oct_of = ((dx < 0).to(torch.int64) + 2 * (dy < 0).to(torch.int64)
@@ -277,13 +278,19 @@ def _oscal_plain(rows, live, npk):
         + [torch.zeros(npk, 8, dtype=torch.float32, device=dev)], dim=2)
     full_pkt = group_scalars(
         rows, PKT, mask=None if live is None else live.reshape(npk, PKT))
-    return cand, present, full_pkt
+    # sub-major within each packet: sub s of 128-ray block j at row s*8 + j
+    bscal = group_scalars(
+        rows, REFINE_SUB,
+        mask=None if live is None else live.reshape(-1, REFINE_SUB)) \
+        .reshape(npk, 8, BLK // REFINE_SUB, 16).transpose(1, 2) \
+        .reshape(npk * NLANES, 16)
+    return cand, present, full_pkt, bscal
 
 
 def oscal_cuda(rows, live, npk):
     """Kernel F: (cand [npk, 8, 16] f32, present [npk, 8] bool, full_pkt
-    [npk, 16] f32) from six contiguous [npk * PKT] f32 rows and an
-    optional [npk * PKT] bool live mask."""
+    [npk, 16] f32, bscal [npk * NLANES, 16] f32) from six contiguous
+    [npk * PKT] f32 rows and an optional [npk * PKT] bool live mask."""
     dev = _cuda_only("oscal_cuda", rows[0])
     chk = functools.partial(cuda_build.check_tensor, "oscal_cuda", dev=dev)
     for k, r in enumerate(rows):
@@ -293,27 +300,31 @@ def oscal_cuda(rows, live, npk):
     cand = torch.empty(npk, 8, 16, dtype=torch.float32, device=dev)
     present = torch.empty(npk, 8, dtype=torch.bool, device=dev)
     full = torch.empty(npk, 16, dtype=torch.float32, device=dev)
+    bscal = torch.empty(npk * NLANES, 16, dtype=torch.float32, device=dev)
     if npk:
         cuda_build.check_launch("s3_oscal", _lib("oscal").rt_s3_oscal(
             *(r.data_ptr() for r in rows),
             None if live is None else live.data_ptr(), int(npk),
             cand.data_ptr(), present.data_ptr(), full.data_ptr(),
-            _stream(dev)))
+            bscal.data_ptr(), _stream(dev)))
         oscal_cuda.launches += 1
-    return cand, present, full
+    return cand, present, full, bscal
 
 
 oscal_cuda.launches = 0
 
 
 def octant_scalars(rows, live, npk):
-    """(cand [npk, 8, 16], present [npk, 8] bool, full_pkt [npk, 16]):
-    per (packet, direction octant) interval scalars with lane 15 zero,
-    octant presence, and the whole-packet scalars, over the member rays
-    of `live` (all rays if None).  Kernel F on CUDA tensors -- the JAX
-    package's opt-in single-pass form, bit-identical to its XLA form by
-    the reference's own statement (stream3.py:303-305) -- and the XLA
-    form on CPU tensors."""
+    """(cand [npk, 8, 16], present [npk, 8] bool, full_pkt [npk, 16],
+    bscal [npk * NLANES, 16]): per (packet, direction octant) interval
+    scalars with lane 15 zero, octant presence, the whole-packet scalars
+    and the 32-ray sub-frustum rows (sub s of 128-ray block j at row
+    s * 8 + j of its packet), over the member rays of `live` (all rays
+    if None).  Kernel F on CUDA tensors
+    -- the JAX package's opt-in single-pass form, bit-identical to its
+    XLA form by the reference's own statement (stream3.py:303-305),
+    with the prep's sub-frustum rows taken in the same pass -- and the
+    XLA form on CPU tensors."""
     fn = oscal_cuda if _route(rows[0]) == "cuda" else _oscal_plain
     return fn(rows, live, npk)
 

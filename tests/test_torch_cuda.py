@@ -428,24 +428,87 @@ def test_s3_wave_matches_packet_kernel(cuda, masked):
         assert not hit[~live.cpu().numpy()].any()
 
 
+def _values_equal(a, b):
+    """Equal shapes, dtypes and values, NaN matching NaN (+0 == -0)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+    return torch.equal(a, b)
+
+
+def _oscal_case(masked):
+    """8 packets of adversarial rays for kernel F, as six [8 * PKT] f32
+    rows and the live mask (or None).  Packet 0: +0 x directions and a
+    warp whose 32 rays span all 8 octants; 1: one octant, -0 y
+    directions; 2: +-0 x origins; 3: |d| under 1e-30 (some subnormal);
+    4: NaN and inf in o and in d; 5: all rays live in one octant, with
+    d.x and o.x = +inf and o.y = -inf (no fill may join); 6: all dead;
+    7: one live ray."""
+    pkt = stg.PKT
+    n = 8 * pkt
+    o, d = _rays(5, n, 6.0)
+    d[:pkt, 0] = 0.0
+    i = np.arange(32)[:, None]
+    d[64:96] = (0.1 + np.abs(d[64:96])) * np.where(i & [1, 2, 4], -1, 1)
+    d[pkt:2 * pkt] = np.abs(d[pkt:2 * pkt])
+    d[pkt:2 * pkt:3, 1] = -0.0
+    o[2 * pkt:3 * pkt, 0] = np.where(np.arange(pkt) % 2, 0.0, -0.0)
+    d[3 * pkt:3 * pkt + 300, 0] = 1e-35
+    d[3 * pkt + 300:3 * pkt + 600, 1] = -1e-40
+    d[3 * pkt + 600:3 * pkt + 632] = [5e-31, -2e-38, 1e-45]
+    o[4 * pkt + 3, 0] = np.nan
+    d[4 * pkt + 40, 1] = np.inf
+    d[4 * pkt + 70, 2] = np.nan
+    o[4 * pkt + 100, 1] = -np.inf
+    d[4 * pkt + 130, 0] = -np.inf
+    d[5 * pkt:6 * pkt] = np.abs(d[5 * pkt:6 * pkt])
+    d[5 * pkt:6 * pkt, 0] = np.inf
+    o[5 * pkt:6 * pkt, :2] = [np.inf, -np.inf]
+    live = None
+    if masked:
+        live = np.random.default_rng(6).uniform(size=n) < 0.6
+        live[64:96] = True
+        live[[4 * pkt + 3, 4 * pkt + 40, 4 * pkt + 70, 4 * pkt + 100]] = True
+        live[5 * pkt:6 * pkt] = True
+        live[6 * pkt:] = False
+        live[7 * pkt + 5] = True
+        o[6 * pkt + 9, 2] = np.nan          # dead: must not reach a row
+        d[7 * pkt + 9, 0] = np.nan
+    rows = [np.ascontiguousarray(v, np.float32) for v in (*o.T, *d.T)]
+    return rows, live
+
+
 @pytest.mark.parametrize("masked", [False, True])
 def test_s3_oscal_matches_plain(cuda, masked):
-    rng = np.random.default_rng(5)
-    n = 8 * stg.PKT
-    o, d = _rays(5, n, 6.0)
-    d[: n // 8, 0] = 0.0
-    d[n // 8: n // 4, 1] = -0.0
-    o[n // 4: n // 2, 0] = np.where(np.arange(n // 4) % 2, 0.0, -0.0)
-    rows = tuple(torch.from_numpy(np.ascontiguousarray(v)).to(cuda)
-                 for v in (*o.T, *d.T))
-    live = (torch.from_numpy(rng.uniform(size=n) < 0.6).to(cuda)
-            if masked else None)
+    """Kernel F's four outputs (octant scalars, presence, whole-packet
+    scalars, 32-ray sub-frustum rows) equal its plain version's by value
+    on adversarial packets."""
+    rows_np, live_np = _oscal_case(masked)
+    rows = tuple(torch.from_numpy(v).to(cuda) for v in rows_np)
+    live = None if live_np is None else torch.from_numpy(live_np).to(cuda)
+    before = stg.oscal_cuda.launches
     got = stg.oscal_cuda(rows, live, 8)
     ref = stg._oscal_plain(rows, live, 8)
-    for a, b in zip(got, ref):
-        assert a.shape == b.shape and a.dtype == b.dtype
-        assert torch.equal(a, b)
-    assert stg.oscal_cuda.launches >= 1
+    torch.cuda.synchronize()
+    assert len(got) == len(ref) == 4
+    for name, a, b in zip(("cand", "present", "full", "bscal"), got, ref):
+        assert _values_equal(a, b), name
+    assert stg.oscal_cuda.launches == before + 1
+    cand, present, full, bscal = (x.cpu() for x in ref)
+    # the cases are not vacuous
+    assert bool(present[0].all())                    # all 8 octants
+    assert int(present[1].sum()) == 1
+    assert bool(torch.isnan(full[4]).any())
+    # packet 5: every ray a member, so no fill: olo.x = +inf, ohi.y =
+    # -inf, ilo.x = 1/inf
+    assert float(full[5, 3]) == np.inf and float(full[5, 7]) == -np.inf
+    assert float(cand[5, 0, 3]) == np.inf and float(full[5, 9]) == 0.0
+    assert bool((bscal[5 * 32:6 * 32, 3] == np.inf).all())
+    if masked:
+        assert not bool(present[6].any()) and int(present[7].sum()) == 1
+        assert bool((full[6, 3:6] == 1e30).all())
+        assert not bool(torch.isnan(bscal[6 * 32:]).any())
 
 
 def test_s3_isect_occl_matches_plain(cuda):

@@ -83,12 +83,67 @@ def test_oscal_plain_matches_jax_kernel_and_xla(monkeypatch, masked):
     refs = {"pallas": js3._octant_scalars_kernel(jr, jl, npk,
                                                  interpret=True),
             "xla": js3._octant_scalars(jr, jl, npk, interpret=True)}
+    assert len(got) == 4
     for name, ref in refs.items():
-        for a, b in zip(ref, got):
+        for a, b in zip(ref, got[:3]):
             np.testing.assert_array_equal(b.numpy(), np.asarray(a),
                                           err_msg=name)
+    # the fourth output: the reference prep's 32-ray sub-frustum rows,
+    # sub-major within each packet (stream3.py:509-515)
+    spb = js3.BLK // js3.REFINE_SUB
+    sub = js3._group_scalars(
+        jr, js3.REFINE_SUB,
+        mask=None if jl is None else jl.reshape(-1, js3.REFINE_SUB))
+    bscal = sub.reshape(npk, 8, spb, 16).transpose(0, 2, 1, 3) \
+        .reshape(npk * 8 * spb, 16)
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(bscal))
     # the case is not vacuous: mixed packets, a zero axis, +-0 inputs
     assert (got[1].sum(dim=1) > 1).all() and (got[0][..., 0:3] == 0).any()
+    # the sub-frusta tile their packet: their 1/|d| extrema fold into the
+    # packet's, and some are tighter
+    ihi = got[3][:, 12:15].reshape(npk, 32, 3)
+    assert torch.equal(ihi.amax(dim=1), got[2][:, 12:15])
+    assert (ihi < got[2][:, None, 12:15]).any()
+
+
+def test_stage_prep_takes_sub_rows_from_kernel_f(monkeypatch):
+    """On the kernel route _stage_prep takes the 32-ray sub-frustum rows
+    from octant_scalars' fourth output and reduces nothing at 32 rays
+    itself: with group_scalars refused, it gives the plain route's six
+    outputs."""
+    _, tds = soup_pair(300, 10)
+    o, d = gen_rays(np.random.default_rng(4), 2 * js3.PKT, spread=8.0)
+    live = torch.from_numpy(np.random.default_rng(5).uniform(size=len(o))
+                            < 0.5)
+    args = (trows(o, d), tds.knode_f, tds.inst_inv[0])
+    ref = ts3._stage_prep(*args, live=live, stable=tds.stable_frames)
+    plain, reduce = stg._oscal_plain, stg.group_scalars
+    calls, inside = [], []
+
+    def kernel_f(r, lv, npk):       # stands in for the card's kernel
+        calls.append(npk)
+        inside.append(True)
+        try:
+            return plain(r, lv, npk)
+        finally:
+            inside.pop()
+
+    def group_scalars(*a, **k):
+        if not inside:
+            raise AssertionError("_stage_prep reduced rows outside F")
+        return reduce(*a, **k)
+
+    monkeypatch.setattr(stg, "_route", lambda t: "cuda")
+    monkeypatch.setattr(stg, "oscal_cuda", kernel_f)
+    monkeypatch.setattr(stg, "group_scalars", group_scalars)
+    got = ts3._stage_prep(*args, live=live, stable=tds.stable_frames)
+    assert calls == [js3.G]         # two packets padded to a group of G
+    for a, b in zip(ref, got):
+        if isinstance(a, tuple):
+            for x, y in zip(a, b):
+                assert torch.equal(x, y)
+        else:
+            assert torch.equal(a, b)
 
 
 def test_stages_route_cpu_tensors_to_plain_versions():
@@ -97,6 +152,7 @@ def test_stages_route_cpu_tensors_to_plain_versions():
     rows = tuple(torch.from_numpy(r) for r in oscal_rows(seed=3))
     a = stg.octant_scalars(rows, None, 8)
     b = stg._oscal_plain(rows, None, 8)
+    assert len(a) == 4
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     with pytest.raises(ValueError):
