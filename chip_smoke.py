@@ -67,21 +67,39 @@ prints no result):
      C on every MULTI_HOLD_STRIDE-th and on each wave's longest walk and
      longest list; and a second frame whose waves' shares of poisoned
      rays are logged;
-  8. the kernels' JSON line (per kernel: the main path's launches, the
+  8. the RD-style API (Platform, buffers, pipeline, TraceRays), each
+     path with the launch counts reset just before and read just after,
+     its kernels seen by the Calls recorder: sample1's render_sample1 on
+     the Cornell box at 512x512, batch 16, depth 4, 2 frames (the
+     packet kernel's sweeps); the city written as a GLB with the port's
+     write_glb and loaded twice through load_scene's AS cache (build and
+     write .cache, then load from it; the two device scenes equal tensor
+     for tensor), then 2 frames at 1920x1080, batch 4, depth 4 through
+     TraceRays (the packet kernel and A, B, C, D, F); sample2 at 512
+     with 1024^2 textures, batch 4, depth 1 (the instance scan with E),
+     its TLAS file loaded back equal to a fresh build, each wave's
+     poisoned share logged.  For sample1 and the city the RD route's
+     accumulator must equal a direct render of the same scene,
+     resources and camera at least as closely as two direct renders
+     equal each other; frame ms, the RD frame beside the direct one, and
+     the GLB parse, SAH build and cache-load seconds are logged;
+  9. the kernels' JSON line (per kernel: the main path's launches, the
      per-launch means of kernel ms, plain ms and bound and their sums,
      by scene where a kernel runs in several; A from phase 5, B and C
-     also phase 5's 1080p wave, F phase 7's masked 1080p rows), the card
-     line, and the contract's last
+     also phase 5's 1080p wave, F phase 7's masked 1080p rows; each
+     phase 8 path's launches), the card line, and the contract's last
      line.
 
 Imports nothing of JAX or radiance_tpu (bench.py's numpy-only scene
 helpers are reused).  Needs one CUDA card; exits 2 without one.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -90,6 +108,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 W, H = 1920, 1080
 CW = 512                      # sample1's Cornell-box image side
+S2, S2_TEX = 512, 1024        # sample2's image side and texture side
 PROBE = 65536
 # the plain walks that bound the main path's packet launches take one
 # 1024-ray packet in PLAIN_STRIDE of each (the whole walk of an
@@ -1066,6 +1085,346 @@ def check_frame(name, accum, image, n):
     return mean
 
 
+# ---- phase 8: the RD API --------------------------------------------------
+
+class RDFrames:
+    """Wrap the pipeline module's TraceRays while the block runs: each
+    call's host ms (ended by a synchronize), the totalSamples it read,
+    the accumulator and image it left on the device, and the resource
+    dict its build_resources made."""
+
+    def __init__(self, pipeline):
+        self.pipeline = pipeline
+        self.ms, self.total_samples = [], []
+        self.accum = self.image = self.resources = None
+
+    def __enter__(self):
+        self.orig = orig = self.pipeline.TraceRays
+        self.orig_res = build = self.pipeline.build_resources
+        from radiance_tpu_torch.core import types
+
+        def built(*a, **k):
+            self.resources = build(*a, **k)
+            return self.resources
+
+        def traced(plt, raygen, *a):
+            prog = plt.active_pipeline.modules[raygen]
+            h = dict(zip(prog.descriptor_semantics, plt.bound_descriptor_set))
+            rt = np.frombuffer(h["rtprop"].read(),
+                               types.RAY_TRACE_PROPERTIES_DTYPE)
+            self.total_samples.append(int(rt["totalSamples"][0]))
+            t0 = time.time()
+            orig(plt, raygen, *a)
+            torch.cuda.synchronize()
+            self.ms.append((time.time() - t0) * 1e3)
+            self.accum = h["image_scratch"].device_value
+            self.image = h["image"].device_value
+
+        self.pipeline.TraceRays = traced
+        self.pipeline.build_resources = built
+        return self
+
+    def __exit__(self, *exc):
+        self.pipeline.TraceRays = self.orig
+        self.pipeline.build_resources = self.orig_res
+
+
+def launch_counts(pk, stg):
+    """The kernel wrappers' launch counts: the packet kernel's by variant
+    (packet_trace[<variant>]) and the stream3 kernels' by stage key."""
+    out = {f"packet_trace[{k}]": v
+           for k, v in pk.packet_trace_cuda.launches.items()}
+    out.update({k: fn.launches for k, fn in stg.KERNELS.items()})
+    return out
+
+
+def reset_counts(pk, stg):
+    pk.packet_trace_cuda.launches.clear()
+    stg.reset_launches()
+
+
+def direct_frames(tracer, scene, res, w, h, batch, depth, frames):
+    """`frames` WavefrontPathTracer.render frames from a zero accumulator,
+    totalSamples advancing by batch, as sample1's loop does; returns
+    (accum, image, [host ms of each frame])."""
+    acc = torch.zeros(w * h, 3, device=scene.device)
+    ms = []
+    for f in range(frames):
+        t0 = time.time()
+        acc, img = tracer.render(scene, res, acc, batch * f, w, h,
+                                 batch=batch, depth=depth)
+        torch.cuda.synchronize()
+        ms.append((time.time() - t0) * 1e3)
+    return acc, img, ms
+
+
+def rd_gate(name, rd, direct, tracer, scene, shape, card):
+    """The RD route's accumulator against the first of two direct renders
+    of the same scene, resources and camera: at least as close as the two
+    direct renders are to each other.  Then the same frames rendered
+    directly with the reference sample's 4x4 placeholder image array in
+    the resources (the port binds none where the scene has no textures):
+    what that placeholder costs the shaders, which then sample it."""
+    d_rd = float((rd.accum - direct[0][0]).abs().max())
+    d_dd = float((direct[1][0] - direct[0][0]).abs().max())
+    px = int((rd.image != direct[0][1]).any(-1).sum())
+    log(f"    {name}: RD accum vs direct, max |diff| {d_rd:.3e}; direct vs "
+        f"direct {d_dd:.3e}; RD image pixels differing from direct {px}")
+    if d_rd > d_dd:
+        raise AssertionError(f"{name}: the RD route's accum differs from a "
+                             f"direct render ({d_rd}) more than two direct "
+                             f"renders differ ({d_dd})")
+    if rd.resources["textures"] is None:
+        res = dict(rd.resources, textures=torch.zeros(
+            1, 4, 4, 4, dtype=torch.uint8, device=rd.accum.device))
+        acc, _, ms = direct_frames(tracer, scene, res, *shape)
+        log(f"    {name} ({card}): direct frames with the 4x4 placeholder "
+            f"image array bound {', '.join(f'{m:.1f}' for m in ms)} ms "
+            f"(without: {', '.join(f'{m:.1f}' for m in direct[0][2])}, "
+            f"{', '.join(f'{m:.1f}' for m in direct[1][2])}; RD "
+            f"{', '.join(f'{m:.1f}' for m in rd.ms)}); accum max |diff| "
+            f"to the RD route's {float((acc - rd.accum).abs().max()):.3e}")
+
+
+def scene_diffs(a, b):
+    """Names of the DeviceScene fields (tensors, kblas tuples, the frame
+    mode) in which two scenes differ (shape, dtype or value)."""
+    def same(x, y):
+        if isinstance(x, torch.Tensor):
+            return isinstance(y, torch.Tensor) and values_equal(x, y)
+        if isinstance(x, (tuple, list)):
+            return (isinstance(y, (tuple, list)) and len(x) == len(y)
+                    and all(same(u, v) for u, v in zip(x, y)))
+        return x == y
+
+    return [f.name for f in dataclasses.fields(a) if f.name != "multi"
+            and not same(getattr(a, f.name), getattr(b, f.name))]
+
+
+def host_seconds(mod, names, fn):
+    """Run fn() with each call of module mod's functions `names` timed on
+    the host clock; returns (fn's result, {name: seconds, summed})."""
+    secs = {n: 0.0 for n in names}
+    orig = {n: getattr(mod, n) for n in names}
+
+    def timed(n, f):
+        def wrapper(*a, **k):
+            t0 = time.time()
+            try:
+                return f(*a, **k)
+            finally:
+                secs[n] += time.time() - t0
+        return wrapper
+
+    for n in names:
+        setattr(mod, n, timed(n, orig[n]))
+    try:
+        return fn(), secs
+    finally:
+        for n in names:
+            setattr(mod, n, orig[n])
+
+
+def check_kernels(name, calls, counts, need):
+    """Fail unless each kernel of `need` ran: a Calls key must have
+    recorded calls, as many as its wrapper counted; "aos_rows" and
+    "transpose" (kernel A's two wrappers, which Calls does not record)
+    must have counted launches."""
+    for key in need:
+        if key in ("aos_rows", "transpose"):
+            if counts[key] <= 0:
+                raise AssertionError(f"{name}: kernel A ({key}) was not "
+                                     f"launched")
+            continue
+        got = len(calls.calls[key])
+        want = (sum(v for k, v in counts.items()
+                    if k.startswith("packet_trace["))
+                if key == "packet_trace" else counts[key])
+        if got <= 0 or got != want:
+            raise AssertionError(f"{name}: {key} recorded {got} calls, "
+                                 f"counted {want} launches")
+
+
+def rd_api(dev, card, verts, tris, pk, s3, s3m, stg):
+    """Phase 8: the port's RD-style API (Platform, buffers, pipeline,
+    TraceRays, the loader and the TLAS file round trip) on sample1's
+    Cornell box, the 1M-triangle city as a GLB through the loader and its
+    AS cache, and sample2.  Returns {path: launch counts of its run}."""
+    from radiance_tpu_torch.api import accel, pipeline, platform
+    from radiance_tpu_torch.core import types
+    from radiance_tpu_torch.engine import programs
+    from radiance_tpu_torch.samples import sample1, sample2
+    from radiance_tpu_torch.scene import glb_writer, gltf, loader, procedural
+    from radiance_tpu_torch.shading import camera
+
+    plt = platform.Platform.GetPlatform(dev)
+    tracer = programs.sample1_program().tracer
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) sample1: the Cornell box, 512x512, batch 16, depth 4, 2 frames
+        host = procedural.cornell_box(light_dir=(0.3, -1.0, -0.4),
+                                      device=plt.device)
+        cam = sample1.sample1_camera(CW, CW)
+        torch.cuda.synchronize()
+        reset_counts(pk, stg)
+        with RDFrames(pipeline) as rd, Calls(pk, s3, keep_args=False) as calls:
+            sample1.render_sample1(CW, CW, 16, 4, 2, scene=host,
+                                   out=os.path.join(tmp, "s1.png"))
+        counts["sample1"] = launch_counts(pk, stg)
+        check_kernels("sample1", calls, counts["sample1"], ["packet_trace"])
+        del calls
+        res = dict(host.resources, camera=camera.camera_params(cam, dev))
+        direct = [direct_frames(tracer, host.device_scene(dev), res, CW, CW,
+                                16, 4, 2) for _ in range(2)]
+        log(f"[8] (a) sample1 RD route, Cornell {CW}x{CW} batch 16 depth 4 "
+            f"({card}): frames {', '.join(f'{m:.1f}' for m in rd.ms)} ms "
+            f"(totalSamples {rd.total_samples}); direct "
+            f"{', '.join(f'{m:.1f}' for m in direct[0][2])} ms; launches "
+            f"{counts['sample1']}")
+        if rd.total_samples != [0, 16]:
+            raise AssertionError(f"sample1: totalSamples {rd.total_samples}")
+        rd_gate("sample1", rd, direct, tracer, host.device_scene(dev),
+                (CW, CW, 16, 4, 2), card)
+        check_frame("sample1 RD", rd.accum, rd.image, CW * CW)
+        del host, direct, rd
+
+        # (b) the city as a GLB: write, load twice through the AS cache
+        # (build and write .cache, then load from it), render through
+        # TraceRays
+        fn = np.cross(verts[tris[:, 1]] - verts[tris[:, 0]],
+                      verts[tris[:, 2]] - verts[tris[:, 0]])
+        fn /= np.maximum(np.linalg.norm(fn, axis=-1, keepdims=True), 1e-9)
+        path = os.path.join(tmp, "city.glb")
+        t0 = time.time()
+        glb_writer.write_glb(path, [dict(
+            positions=verts, normals=np.repeat(fn, 3, axis=0).astype(
+                np.float32), indices=tris, material=0)], [dict(
+                    baseColorFactor=(0.7, 0.7, 0.7, 1.0), metallicFactor=0.0,
+                    roughnessFactor=0.6)])
+        t_write = time.time() - t0
+        t0 = time.time()
+        gltf.parse_glb(path)
+        t_parse = time.time() - t0
+
+        def load():
+            return loader.load_scene(path, use_cache=True, verbose=False,
+                                     device=dev)
+
+        t0 = time.time()
+        built, s_build = host_seconds(accel, ["BuildBottomAccelStruct",
+                                              "BuildTopAccelStruct",
+                                              "TopAccelStructToFile"], load)
+        t_load1 = time.time() - t0
+        t0 = time.time()
+        cached, s_cache = host_seconds(accel, ["FileToTopAccelStruct"], load)
+        t_load2 = time.time() - t0
+        if cached.instances or not built.instances:
+            raise AssertionError("city GLB: the second load did not come "
+                                 "from the AS cache")
+        t0 = time.time()
+        scene_b = built.device_scene(dev)
+        torch.cuda.synchronize()
+        t_tab1 = time.time() - t0
+        t0 = time.time()
+        scene_c = cached.device_scene(dev)
+        torch.cuda.synchronize()
+        t_tab2 = time.time() - t0
+        diffs = scene_diffs(scene_b, scene_c)
+        log(f"[8] (b) city GLB ({len(tris)} triangles, "
+            f"{os.path.getsize(path) / 2 ** 20:.1f} MiB, cache "
+            f"{os.path.getsize(path + '.cache') / 2 ** 20:.1f} MiB): write "
+            f"{t_write:.2f} s, GLB parse {t_parse:.2f} s; load_scene with "
+            f"the SAH build {t_load1:.2f} s (BLAS build "
+            f"{s_build['BuildBottomAccelStruct']:.2f} s, TLAS build "
+            f"{s_build['BuildTopAccelStruct']:.3f} s, cache write "
+            f"{s_build['TopAccelStructToFile']:.2f} s); load_scene from the "
+            f"cache {t_load2:.2f} s (FileToTopAccelStruct "
+            f"{s_cache['FileToTopAccelStruct']:.2f} s); device tables "
+            f"{t_tab1:.2f} s built, {t_tab2:.2f} s cache-loaded; fields "
+            f"differing {diffs}")
+        if diffs:
+            raise AssertionError(f"city GLB: cache-loaded device scene "
+                                 f"differs from the built one in {diffs}")
+        del built, scene_b
+        ccam = types.PhysicalCamera(
+            width_pixel=float(W), height_pixel=float(H), focal_length=0.035,
+            sensor_width=0.05, focal_distance=80.0, z=140.0)
+        reset_counts(pk, stg)
+        with RDFrames(pipeline) as rd, Calls(pk, s3, keep_args=False) as calls:
+            sample1.render_sample1(W, H, 4, 4, 2, scene=cached, camera=ccam,
+                                   out=os.path.join(tmp, "city.png"))
+        counts["city_glb"] = launch_counts(pk, stg)
+        check_kernels("city GLB", calls, counts["city_glb"],
+                      ["packet_trace", "aos_rows", "transpose", "emit",
+                       "refine", "isect", "oscal"])
+        del calls
+        res = dict(cached.resources, camera=camera.camera_params(ccam, dev))
+        direct = [direct_frames(tracer, scene_c, res, W, H, 4, 4, 2)
+                  for _ in range(2)]
+        log(f"[8] (b) city GLB through TraceRays, {W}x{H} batch 4 depth 4 "
+            f"({card}): RD frames {', '.join(f'{m:.1f}' for m in rd.ms)} "
+            f"ms vs direct render "
+            f"{', '.join(f'{m:.1f}' for m in direct[0][2])} and "
+            f"{', '.join(f'{m:.1f}' for m in direct[1][2])} ms (the "
+            f"API's overhead: RD minus direct, second frame "
+            f"{rd.ms[1] - direct[0][2][1]:.1f} ms); totalSamples "
+            f"{rd.total_samples}; launches {counts['city_glb']}")
+        if rd.total_samples != [0, 4]:
+            raise AssertionError(f"city GLB: totalSamples {rd.total_samples}")
+        rd_gate("city GLB", rd, direct, tracer, scene_c, (W, H, 4, 4, 2),
+                card)
+        check_frame("city GLB RD", rd.accum, rd.image, W * H)
+        del cached, scene_c, direct, rd, res
+
+        # (c) sample2: 512, 1024^2 textures, batch 4, depth 1, through the
+        # instance scan, its waves' poisoned shares recorded
+        sample2.AS_PATH = os.path.join(tmp, "bvh-cache.bin")
+        scan, waves = s3m.trace_rows_multi, []
+
+        def recorded(*a, **k):
+            rec, diag = scan(*a, with_diag=True, **k)
+            waves.append(dict(diag, occl=bool(k.get("occl")),
+                              rays=int(rec.t.shape[0])))
+            return rec
+
+        reset_counts(pk, stg)
+        s3m.trace_rows_multi = recorded
+        try:
+            with RDFrames(pipeline) as rd, Calls(pk, s3,
+                                                 keep_args=False) as calls:
+                sample2.render_sample2(S2, 4, 1, 1, tex_dim=S2_TEX,
+                                       out=os.path.join(tmp, "s2.png"))
+        finally:
+            s3m.trace_rows_multi = scan
+        counts["sample2"] = launch_counts(pk, stg)
+        check_kernels("sample2", calls, counts["sample2"],
+                      ["transpose", "emit", "refine", "isect", "isect_occl",
+                       "oscal"])
+        del calls
+        verts2, tris2, _, _ = sample2.default_mesh()
+        fresh = accel.BuildAccelStruct(sample2.get_instance_list(
+            accel.BuildAccelStruct(types.Mesh(verts2, tris2))))
+        diffs = scene_diffs(fresh.device_scene(dev),
+                            accel.FileToTopAccelStruct(
+                                sample2.AS_PATH).device_scene(dev))
+        log(f"[8] (c) sample2 {S2}x{S2}, {S2_TEX}^2 textures, batch 4 "
+            f"depth 1 ({card}): frame {rd.ms[0]:.1f} ms; TLAS file "
+            f"{os.path.getsize(sample2.AS_PATH)} bytes, loaded scene fields "
+            f"differing from the built {diffs}; launches {counts['sample2']}")
+        for dg in waves:
+            log(f"    sample2 wave ({'shadow' if dg['occl'] else 'closest'}"
+                f"): poisoned {dg['poisoned']} of {dg['rays']} rays, share "
+                f"{dg['poisoned'] / dg['rays']:.7f}")
+        if diffs:
+            raise AssertionError(f"sample2: file-loaded device scene differs "
+                                 f"in {diffs}")
+        if not waves or rd.total_samples != [0]:
+            raise AssertionError("sample2: no scan wave or no frame")
+        check_frame("sample2 RD", rd.accum, rd.image, S2 * S2)
+        sample2.AS_PATH = None
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1961,13 +2320,22 @@ def main() -> int:
                              f"RMSE {rmse}")
     log(f"[7] done in {time.time() - t0:.1f} s")
 
-    # ---- 8. results --------------------------------------------------
+    # ---- 8. the RD API -----------------------------------------------
+    # sample1, the city GLB and sample2 through Platform and TraceRays,
+    # each run with the launch counts reset just before and read just
+    # after
+    t0 = time.time()
+    rd_counts = rd_api(dev, card, verts, tris, pk, s3, s3m, stg)
+    log(f"[8] done in {time.time() - t0:.1f} s")
+
+    # ---- 9. results --------------------------------------------------
     # per kernel: the main path's launches (the packet kernel: the city
     # frames and sample1; B, C, D and F: the city frames and the
     # 64-instance frame; E: the 64-instance frame), each timed on its own
     # shape; ms, plain_ms and bound_ms are means a launch over them, the
     # *_sum keys their sums (B's and C's plain keys only the held
-    # launches').  A: phase [5]'s 1080p primary wave.
+    # launches').  A: phase [5]'s 1080p primary wave.  rd_api_launches:
+    # each phase [8] path's own run.
     kernels = []
     for var in PATH_VARIANTS:
         errs = [r["max_abs_err"] for k, r in results.items()
@@ -1983,7 +2351,9 @@ def main() -> int:
             "bound_ms_sum": r["bound_ms_sum"], "by_scene": r["by_scene"],
             "wave_1080p": dict(zip(("ms", "plain_ms"), times[var]),
                                bound_ms=pk_bounds[var][0]),
-            "packet": pk.PACKET_RAYS, "plain_packet_stride": PLAIN_STRIDE})
+            "packet": pk.PACKET_RAYS, "plain_packet_stride": PLAIN_STRIDE,
+            "rd_api_launches": {k: c.get(f"packet_trace[{var}]", 0)
+                                for k, c in rd_counts.items()}})
     d_all = summary(*(x + y for x, y in zip(d_lists, dm_lists)))
     frame_rows = {"isect": dict(d_all, max_abs_err=max(
         res_dm["max_abs_err"], res_dm2["max_abs_err"],
@@ -2021,7 +2391,9 @@ def main() -> int:
         kernels.append(dict({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaced[0], "also_replaces": replaced[1:],
-            "launches": launched}, **r))
+            "launches": launched, "rd_api_launches": {
+                k: c[key] + (c["aos_rows"] if key == "transpose" else 0)
+                for k, c in rd_counts.items()}}, **r))
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,18 +1,17 @@
 """Acceleration-structure build API (RD::BuildAccelStruct equivalents).
 
-Port of radiance_tpu/api/accel.py, host build only:
-BuildBottomAccelStruct, BuildTopAccelStruct and
-TopAccelStruct.device_scene.  The SAH build runs in NumPy or the C++
-native builder exactly as in the JAX package; the device scene is made
-lazily on the device the caller names.  Refit and the file round trip
-are not ported yet.
+Port of radiance_tpu/api/accel.py (reference: radiance/src/radiance.cpp:
+20-84 BLAS/TLAS builds, :428-479 the file round trip).  The SAH build
+runs in NumPy or the C++ native builder exactly as in the JAX package;
+the device scene is made lazily on the device the caller names.  Refit
+is not ported (it needs bvh/device.update_tlas).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -44,13 +43,29 @@ def BuildBottomAccelStruct(mesh: types.Mesh,
 
 @dataclasses.dataclass
 class TopAccelStruct:
-    """Built TLAS: serialized blob + host arrays + lazy device scenes."""
-    blob: bytes
+    """Built TLAS: serialized blob + host arrays + lazy device scenes.
+
+    A TLAS loaded from a file (FileToTopAccelStruct) has no BLAS objects:
+    its device scenes come from the blob's parsed BLAS arrays, padded to
+    the capacity a build of the same instances would use, so loaded and
+    built scenes are equal array for array."""
+    _blob: Optional[bytes]
     nodes: np.ndarray               # DEVICE_BVH_NODE_DTYPE
     instances: np.ndarray           # DEVICE_INSTANCE_DTYPE (leaf order)
     blas_offsets: list              # [(offset, BottomAccelStruct)]
+    source_instances: Optional[list] = None  # RD Instance list (builds)
     tlas_capacity: int = 0
+    # offset -> (nodes, faces, verts) parsed from a file's blob
+    _parsed_blas: Optional[dict] = dataclasses.field(default=None,
+                                                     repr=False)
     _scenes: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def blob(self) -> bytes:
+        if self._blob is None:
+            self._blob = serialize.serialize_tlas(
+                self.nodes, self.instances, self.blas_offsets)
+        return self._blob
 
     def device_scene(self, device=rdevice.DEFAULT, *,
                      stable_frames: bool = True) -> bvh_device.DeviceScene:
@@ -59,13 +74,22 @@ class TopAccelStruct:
         device = rdevice.resolve(device)
         key = (str(device), stable_frames)
         if key not in self._scenes:
-            blas_by_offset = {off: (b.nodes, b.faces, b.vertices)
-                              for off, b in self.blas_offsets}
+            blas_by_offset = self._parsed_blas or {
+                off: (b.nodes, b.faces, b.vertices)
+                for off, b in self.blas_offsets}
             self._scenes[key] = bvh_device.build_device_scene(
                 self.nodes, self.instances, blas_by_offset,
                 tlas_capacity=self.tlas_capacity,
                 stable_frames=stable_frames, device=device)
         return self._scenes[key]
+
+    def refit(self, new_transforms):
+        """Animated-transform refit of the JAX package
+        (radiance_tpu/api/accel.py:72-117): not ported."""
+        raise NotImplementedError(
+            "TopAccelStruct.refit needs bvh/device.update_tlas, which "
+            "radiance_tpu_torch does not have yet (ROADMAP.md queue 1 "
+            "item 8, LBVH and refit)")
 
 
 def BuildTopAccelStruct(instances: Sequence[types.Instance],
@@ -78,7 +102,31 @@ def BuildTopAccelStruct(instances: Sequence[types.Instance],
     if verbose:
         print(f"TLAS build: {len(instances)} instances, {len(nodes)} nodes, "
               f"depth {max_depth}, {time.time() - t0:.3f}s")
-    return TopAccelStruct(blob=blob, nodes=nodes, instances=dev_inst,
+    return TopAccelStruct(_blob=blob, nodes=nodes, instances=dev_inst,
                           blas_offsets=blas_offsets,
+                          source_instances=list(instances),
                           tlas_capacity=bvh_device.tlas_capacity_for(
                               len(instances)))
+
+
+def BuildAccelStruct(arg, verbose: bool = False):
+    """Overloaded like the reference: Mesh -> BLAS, [Instance] -> TLAS."""
+    if isinstance(arg, types.Mesh):
+        return BuildBottomAccelStruct(arg, verbose=verbose)
+    return BuildTopAccelStruct(arg, verbose=verbose)
+
+
+def TopAccelStructToFile(accel: TopAccelStruct, path: str) -> None:
+    """Checkpoint (reference: radiance.cpp:428-448)."""
+    serialize.tlas_to_file(accel.blob, path)
+
+
+def FileToTopAccelStruct(path: str) -> TopAccelStruct:
+    """Resume (reference: radiance.cpp:450-479).  The device scene is made
+    when first asked for, on the device asked for."""
+    parsed = serialize.tlas_from_file(path)
+    return TopAccelStruct(
+        _blob=parsed.blob, nodes=parsed.nodes, instances=parsed.instances,
+        blas_offsets=[],
+        tlas_capacity=bvh_device.tlas_capacity_for(len(parsed.instances)),
+        _parsed_blas=parsed.blas)

@@ -1,6 +1,7 @@
 """DeviceScene: the scene tables the tracers consume, as torch tensors.
 
-Port of radiance_tpu/bvh/device.py (build_device_scene, :318-485).
+Port of radiance_tpu/bvh/device.py (build_device_scene, :318-485, and
+its two entry points, :488-504).
 Assembly stays vectorized NumPy and is a carried copy of the JAX
 package's; only the last step differs: the arrays become tensors on an
 explicit device.  The tables are bit-identical to the JAX package's
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from radiance_tpu_torch import config
+from radiance_tpu_torch.bvh import builder, serialize
 from radiance_tpu_torch.core import device as rdevice
 
 # node_kind values
@@ -384,3 +386,23 @@ def build_device_scene(tlas_nodes: np.ndarray,
                                 blas_by_offset, leaf_width, tlas_capacity,
                                 stable_frames)
     return scene_from_numpy(arrays, arrays["stable_frames"], device)
+
+
+def device_scene_from_instances(instances, *,
+                                device=rdevice.DEFAULT) -> DeviceScene:
+    """Host-build path: RD-style instances -> DeviceScene on `device` (no
+    blob round trip)."""
+    tlas_nodes, dev_inst, blas_offsets, _ = builder.build_tlas_arrays(
+        list(instances))
+    blas_by_offset = {off: (b.nodes, b.faces, b.vertices)
+                      for off, b in blas_offsets}
+    return build_device_scene(tlas_nodes, dev_inst, blas_by_offset,
+                              device=device)
+
+
+def device_scene_from_tlas_blob(blob: bytes, *,
+                                device=rdevice.DEFAULT) -> DeviceScene:
+    """Cache-load path: serialized TLAS blob -> DeviceScene on `device`."""
+    parsed = serialize.parse_tlas(blob)
+    return build_device_scene(parsed.nodes, parsed.instances, parsed.blas,
+                              device=device)

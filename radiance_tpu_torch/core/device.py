@@ -15,11 +15,15 @@ DEFAULT = "cuda"
 
 def resolve(device=DEFAULT) -> torch.device:
     """torch.device(device), raising a clear error for a CUDA device on
-    a machine without one."""
+    a machine without one.  A bare "cuda" is pinned to the current card,
+    so that "cuda" and "cuda:0" name (and key caches by) one device."""
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "radiance_tpu_torch runs on the CUDA card by default, and "
-            "torch.cuda.is_available() is False here: pass device='cpu' "
-            "to run on the CPU")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "radiance_tpu_torch runs on the CUDA card by default, and "
+                "torch.cuda.is_available() is False here: pass "
+                "device='cpu' to run on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev

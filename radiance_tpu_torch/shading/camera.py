@@ -88,12 +88,21 @@ def physical_camera_raygen(resources, pixel_index, rand_input):
 
 
 def camera_params(cam, device=rdevice.DEFAULT) -> dict:
-    """PhysicalCamera -> dict of 0-d float32 tensors on `device`."""
+    """PhysicalCamera dataclass or PHYSICAL_CAMERA_DTYPE record -> dict of
+    0-d float32 tensors on `device`."""
     device = rdevice.resolve(device)
-    fields = dict(
-        width_pixel=cam.width_pixel, height_pixel=cam.height_pixel,
-        focal_length=cam.focal_length, sensor_width=cam.sensor_width,
-        focal_distance=cam.focal_distance, f_stop=cam.f_stop,
-        x=cam.x, y=cam.y, z=cam.z, wx=cam.wx, wy=cam.wy, wz=cam.wz)
+    if hasattr(cam, "width_pixel"):
+        fields = dict(
+            width_pixel=cam.width_pixel, height_pixel=cam.height_pixel,
+            focal_length=cam.focal_length, sensor_width=cam.sensor_width,
+            focal_distance=cam.focal_distance, f_stop=cam.f_stop,
+            x=cam.x, y=cam.y, z=cam.z, wx=cam.wx, wy=cam.wy, wz=cam.wz)
+    else:  # structured numpy record (a camera buffer parsed by TraceRays)
+        fields = dict(
+            width_pixel=cam["widthPixel"], height_pixel=cam["heightPixel"],
+            focal_length=cam["focalLength"], sensor_width=cam["sensorWidth"],
+            focal_distance=cam["focalDistance"], f_stop=cam["fStop"],
+            x=cam["x"], y=cam["y"], z=cam["z"],
+            wx=cam["wx"], wy=cam["wy"], wz=cam["wz"])
     return {k: torch.tensor(float(v), dtype=torch.float32, device=device)
             for k, v in fields.items()}

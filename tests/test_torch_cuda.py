@@ -1,8 +1,9 @@
 """The CUDA kernels vs their plain PyTorch versions, on the card: the
 packet-trace kernel and the stream3 pipeline's six kernels (the two
 transposes, emit walk, exact refine, closest-hit and occlusion pair
-intersection, prep octant scalars), and the many-instance scan on the
-card against its CPU route.
+intersection, prep octant scalars), the many-instance scan on the
+card against its CPU route, and sample1's RD-API route against a direct
+render of the same inputs.
 
 Every case is marked `gpu` and skips (with the reason) where no CUDA
 card is present; the `cuda` fixture decides at run time, never at
@@ -957,3 +958,51 @@ def test_s3_isect_edge_cases(cuda, stable):
     for k in (2, 3):
         assert float((ok[..., k] - op[..., k]).abs()[same].max()) <= 1e-4
     assert stg.isect_cuda.launches >= 1
+
+
+def test_rd_route_matches_direct_render(cuda, tmp_path, monkeypatch):
+    """sample1's RD route (Platform, buffers, TraceRays) on the Cornell box
+    at 64x64 on the card: its accumulator after two frames equals a
+    direct WavefrontPathTracer.render of the same scene, resources and
+    camera at least as closely as two direct renders equal each other,
+    and the accumulator stays on the card between frames."""
+    from radiance_tpu_torch.api import pipeline, platform
+    from radiance_tpu_torch.engine import programs
+    from radiance_tpu_torch.samples import sample1
+
+    monkeypatch.setattr(platform.Platform, "_instance", None)
+    w, batch, depth = 64, 2, 2
+    host = procedural.cornell_box(light_dir=(0.3, -1.0, -0.4), device=cuda)
+    accums = []
+    trace = pipeline.TraceRays
+
+    def traced(plt, *a):
+        trace(plt, *a)
+        prog = plt.active_pipeline.modules[a[0]]
+        handles = dict(zip(prog.descriptor_semantics,
+                           plt.bound_descriptor_set))
+        accums.append(handles["image_scratch"].device_value)
+
+    monkeypatch.setattr(pipeline, "TraceRays", traced)
+    img = sample1.render_sample1(w, w, batch, depth, frames=2, scene=host,
+                                 out=str(tmp_path / "s1.png"), device=cuda)
+    assert len(accums) == 2 and all(a.is_cuda for a in accums)
+
+    tracer = programs.sample1_program().tracer
+    res = dict(host.resources)
+    res["camera"] = camera.camera_params(sample1.sample1_camera(w, w), cuda)
+    direct = []
+    for _ in range(2):
+        acc = torch.zeros(w * w, 3, device=cuda)
+        for f in range(2):
+            acc, dimg = tracer.render(host.device_scene(cuda), res, acc,
+                                      batch * f, w, w, batch=batch,
+                                      depth=depth)
+        direct.append((acc, dimg))
+    d_rd = float((accums[-1] - direct[0][0]).abs().max())
+    d_dd = float((direct[1][0] - direct[0][0]).abs().max())
+    assert d_rd <= d_dd, (d_rd, d_dd)
+    assert torch.isfinite(accums[-1]).all()
+    if d_dd == 0.0:
+        np.testing.assert_array_equal(img, direct[0][1].cpu().numpy())
+    assert img[..., :3].std() > 1.0
