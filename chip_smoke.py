@@ -83,12 +83,33 @@ prints no result):
      resources and camera at least as closely as two direct renders
      equal each other; frame ms, the RD frame beside the direct one, and
      the GLB parse, SAH build and cache-load seconds are logged;
-  9. the kernels' JSON line (per kernel: the main path's launches, the
+  9. the two-level walk (ops/traversal.py) and the animated scene, with
+     the launch counts reset just before and read just after: (a) the
+     walk on 64k-ray probes of the city's three bench waves and a
+     scattered wave against the packet kernel and of the multi64 primary
+     against the instance scan,
+     to the parity bars, each timed beside the other tracer; (b) an
+     alpha-test any-hit program (odd prims let rays through) on the
+     city's primary and shadow probes against the packet kernel on the
+     city without its odd prims, accept-all-and-terminate equal to the
+     built-in any-hit mode, and a 512x512, batch 1, depth 2 city frame
+     with the alpha program at the shadow offset; (c) 96 instances of
+     sample2's torus (no kernel tables) through TraceRays at 512x512,
+     batch 1, depth 2, its primary wave held against the brute-force
+     world soup on 4096 rays; (d) bench.py --animated's rigid motion:
+     the multi64 TLAS refitted under frame_tf(k) for 6 frames at
+     512x512 through the engine's dispatch (the scan), each frame held
+     to a fresh build (hits and instance ids); (e) its deforming mesh:
+     64,000 wobbling triangles rebuilt by the LBVH and walked for 6
+     frames at 512x512, the card's tables equal to the CPU build's bit
+     for bit, the last frame held to a host SAH build; bench.py's
+     animated metrics under its names;
+ 10. the kernels' JSON line (per kernel: the main path's launches, the
      per-launch means of kernel ms, plain ms and bound and their sums,
      by scene where a kernel runs in several; A from phase 5, B and C
      also phase 5's 1080p wave, F phase 7's masked 1080p rows; each
-     phase 8 path's launches), the card line, and the contract's last
-     line.
+     phase 8 path's launches and phase 9's), the card line, and the
+     contract's last line.
 
 Imports nothing of JAX or radiance_tpu (bench.py's numpy-only scene
 helpers are reused).  Needs one CUDA card; exits 2 without one.
@@ -161,16 +182,16 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def camera_rays(dev):
+def camera_rays(dev, w=W, h=H):
     """bench.camera_rays for the city: tile-ordered 32x32-pixel packets."""
-    n = W * H
+    n = w * h
     ts = 32
-    px = np.arange(n, dtype=np.int64) % W
-    py = np.arange(n, dtype=np.int64) // W
-    tile = (py // ts) * (W // ts) + (px // ts)
+    px = np.arange(n, dtype=np.int64) % w
+    py = np.arange(n, dtype=np.int64) // w
+    tile = (py // ts) * (w // ts) + (px // ts)
     order = np.argsort(tile * 1024 + (py % ts) * ts + (px % ts))
-    xs = px[order] / W - 0.5
-    ys = py[order] / H - 0.5
+    xs = px[order] / w - 0.5
+    ys = py[order] / h - 0.5
     o = np.zeros((n, 3), np.float32)
     o[:, 2] = 140.0
     d = np.stack([xs * 1.2, ys * 0.7, np.full(n, -1.0)], -1).astype(np.float32)
@@ -1023,7 +1044,7 @@ def multi64_scene(dev, w, h):
     unique BLASes of MULTI_TRIS / 64 triangles in 40 clusters, each
     instanced 8 times across a 100-unit extent) and city-style bindings:
     one mesh entry per instance, pointing at its BLAS's mesh.  Returns
-    (DeviceScene, resources)."""
+    (DeviceScene, resources, TopAccelStruct)."""
     from radiance_tpu_torch.api import accel
     from radiance_tpu_torch.core import types
 
@@ -1053,11 +1074,11 @@ def multi64_scene(dev, w, h):
                                         index_offset=v_off,
                                         uv_offset=3 * v_off,
                                         normal_offset=3 * v_off))
-    scene = accel.BuildTopAccelStruct(instances).device_scene(dev)
+    tlas = accel.BuildTopAccelStruct(instances)
     tris = np.concatenate([np.arange(len(v), dtype=np.uint32).reshape(-1, 3)
                            for v in meshes])
-    return scene, city_resources(dev, np.concatenate(meshes), tris, w, h,
-                                 mesh_infos=infos)
+    return tlas.device_scene(dev), city_resources(
+        dev, np.concatenate(meshes), tris, w, h, mesh_infos=infos), tlas
 
 
 def cornell_inputs(dev, size):
@@ -1423,6 +1444,427 @@ def rd_api(dev, card, verts, tris, pk, s3, s3m, stg):
         check_frame("sample2 RD", rd.accum, rd.image, S2 * S2)
         sample2.AS_PATH = None
     return counts
+
+
+# ---- phase 9: the walk and the animated scene ----------------------------
+
+ANIM = 512                    # bench.py --animated: RADIANCE_ANIM_RES
+ANIM_FRAMES = 6
+WOBBLE_TRIS = 64_000          # RADIANCE_ANIM_TRIS
+MANY = 96                     # instances of sample2's torus in [9] (c)
+SOUP_RAYS = 4096
+SOUP_CHUNK = 256              # rays a brute-force soup pass
+
+
+class WalkCalls:
+    """Counts the walk's calls and rays (ops/traversal.trace_rays, torch
+    ops with no kernel of their own) while in a `with` block."""
+
+    def __init__(self, traversal, keep_first_closest=False):
+        self.mod, self.calls, self.rays = traversal, 0, 0
+        self.keep, self.first = keep_first_closest, None
+
+    def __enter__(self):
+        fn = self.orig = self.mod.trace_rays
+
+        def counted(scene, o, d, tmin, tmax, any_hit_terminate=False,
+                    chunk_size=None, any_hit_program=None):
+            rec = fn(scene, o, d, tmin, tmax, any_hit_terminate, chunk_size,
+                     any_hit_program)
+            self.calls += 1
+            self.rays += int(o.shape[0])
+            if (self.keep and self.first is None and not any_hit_terminate
+                    and any_hit_program is None):
+                self.first = (scene, o, d, tmin, tmax, rec)
+            return rec
+
+        self.mod.trace_rays = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.trace_rays = self.orig
+
+
+def alpha_program(terminate: bool):
+    """An alpha test: odd prims let rays through; with `terminate`, the
+    first accepted candidate stops the ray (a shadow's any-hit)."""
+    def program(cand):
+        accept = (cand.prim % 2) == 0
+        return accept, (accept if terminate else torch.zeros_like(accept))
+    return program
+
+
+def soup_hits(o, d, v0, e1, e2, tmin, tmax):
+    """intersect_triangle_soup in SOUP_CHUNK-ray passes: (t, triangle)."""
+    from radiance_tpu_torch.ops.intersect import intersect_triangle_soup
+
+    ts, idx = [], []
+    for i in range(0, o.shape[0], SOUP_CHUNK):
+        t, k, _, _ = intersect_triangle_soup(o[i:i + SOUP_CHUNK],
+                                             d[i:i + SOUP_CHUNK], v0, e1, e2,
+                                             tmin, tmax)
+        ts.append(t)
+        idx.append(k)
+    return torch.cat(ts), torch.cat(idx)
+
+
+def many_instances(blas, types):
+    """MANY instances of one BLAS: 4 layers of 6 x 4 in front of sample2's
+    camera, each with its own custom id."""
+    out = []
+    for k in range(MANY):
+        layer, cell = divmod(k, 24)
+        m = np.eye(4, dtype=np.float32)
+        m[:3, 3] = [0.9 * (cell % 6) - 2.25, 0.9 * (cell // 6) - 2.35,
+                    1.5 * layer]
+        out.append(types.Instance(transform=m, sbt_offset=0,
+                                  custom_instance_id=10 + k,
+                                  bottom_accel_struct=blas))
+    return out
+
+
+def walk_and_animated(dev, card, scene, verts, tris, waves, sl, mtlas, pk,
+                      s3, s3m, stg):
+    """Phase 9: the two-level walk (ops/traversal.py) against the packet
+    kernel (on the rays of `sl`) and the instance scan; custom any-hit
+    programs on the city; a 96-instance scene with no kernel tables
+    through TraceRays; bench.py --animated's rigid refit (64 instances)
+    and deforming mesh (the LBVH), each frame held to a fresh build.
+    Returns the launch counts of the phase and the animated metrics under
+    bench.py's names."""
+    from radiance_tpu_torch.api import accel, pipeline
+    from radiance_tpu_torch.api.sbt import ShaderBindingTable
+    from radiance_tpu_torch.bvh import lbvh
+    from radiance_tpu_torch.core import math as rmath
+    from radiance_tpu_torch.core import types
+    from radiance_tpu_torch.engine import pathtracer, shaders
+    from radiance_tpu_torch.engine.pathtracer import WavefrontPathTracer
+    from radiance_tpu_torch.ops import traversal
+    from radiance_tpu_torch.ops.intersect import FLT_MAX
+    from radiance_tpu_torch.samples import sample2
+    from radiance_tpu_torch.shading import camera
+
+    out = {}
+    reset_counts(pk, stg)
+    torch.cuda.synchronize()
+
+    # (a) walk parity on 64k-ray probes of the city's three bench waves
+    # and a scattered wave (the packet kernel) and of the multi64 primary
+    # (the instance scan)
+    t0 = time.time()
+    ident = torch.arange(len(tris), device=dev)
+    walk_ms = {}
+    # the bench's mirror bounce mostly escapes the city, so a scattered
+    # probe as in phase [3] (random directions into the hemisphere facing
+    # the camera, from 0.01 in front of each primary hit) adds incoherent
+    # secondary rays that hit
+    o, d = (x[sl] for x in waves["primary"])
+    t_p = pk.trace_rays_packet(scene, o, d, TMIN, TMAX).t
+    hits = torch.nonzero(t_p < FLT_MAX).squeeze(1)
+    sd = torch.randn(hits.numel(), 3, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(0))
+    sd = rmath.normalize(sd)
+    sd = torch.where(((sd * d[hits]).sum(1) > 0)[:, None], -sd, sd)
+    probes = {w: tuple(x[sl].contiguous() for x in waves[w])
+              for w in ("primary", "bounce", "shadow")}
+    probes["scatter"] = ((o[hits] + (t_p[hits] - 0.01)[:, None]
+                          * d[hits]).contiguous(), sd.contiguous())
+    for wave, any_hit in (("primary", False), ("bounce", False),
+                          ("shadow", True), ("scatter", False)):
+        o, d = probes[wave]
+        w_ms, wrec = cuda_ms(lambda: traversal.trace_rays(
+            scene, o, d, TMIN, TMAX, any_hit_terminate=any_hit), 2)
+        k_ms, krec = cuda_ms(lambda: pk.trace_rays_packet(
+            scene, o, d, TMIN, TMAX, any_hit=any_hit), 3)
+        # the packet kernel's origin-centred planes carry ~|o| * eps of t
+        # error that the walk's Moller-Trumbore does not: t is held on
+        # |dt| / (|o| + t), with the float64 witness behind it
+        name = f"walk vs packet kernel, city {wave} probe"
+        res = judge(name, wrec.t, wrec.prim, krec.t, krec.prim, o, d, None,
+                    ident, any_hit=any_hit, t_scale="origin",
+                    mesh=None if any_hit else (verts, tris))
+        walk_ms[f"city_{wave}"] = dict(walk_ms=w_ms, packet_ms=k_ms,
+                                       hit_agree=res["hit_agree"])
+        log(f"[9] (a) city {wave} probe, {o.shape[0]} rays ({card}): walk "
+            f"{w_ms:.3f} ms, packet kernel {k_ms:.4f} ms ({w_ms / k_ms:.0f}x)")
+    mscene = mtlas.device_scene(dev)
+    mt = s3m.multi_tables(mscene)
+    # every 32nd ray of the wave: the instances spread over the image
+    o, d = (x[::32].contiguous() for x in waves["primary"])
+    rows = s3.rows_from_aos_fast(o, d)
+    w_ms, wrec = cuda_ms(lambda: traversal.trace_rays(
+        mscene, o, d, TMIN, TMAX), 2)
+    m_ms, mrec = cuda_ms(lambda: s3m.trace_rows_multi(
+        mscene, mt, rows, TMIN, TMAX), 3)
+    res = hold_prims("walk vs instance scan, multi64 primary probe", wrec.t,
+                     wrec.prim, mrec.t, mrec.prim)
+    both = wrec.hit & mrec.hit
+    slot_agree = float((wrec.slot == mrec.slot)[both].float().mean())
+    walk_ms["multi64_primary"] = dict(walk_ms=w_ms, scan_ms=m_ms,
+                                      hit_agree=res["hit_agree"],
+                                      slot_agree=slot_agree)
+    log(f"[9] (a) multi64 primary probe, {o.shape[0]} rays ({card}): walk "
+        f"{w_ms:.3f} ms, instance scan {m_ms:.3f} ms; slot agreement "
+        f"{slot_agree:.7f} ({time.time() - t0:.1f} s)")
+    if slot_agree < BARS["prim"]:
+        raise AssertionError(f"walk and scan slots disagree: {slot_agree}")
+    out["walk_ms"] = walk_ms
+
+    # (b) a custom any-hit program on the city: an alpha test rejecting odd
+    # prims equals the packet kernel on the city without them
+    t0 = time.time()
+    even = accel.BuildTopAccelStruct([types.Instance(
+        np.eye(4, dtype=np.float32), 0, 0, accel.BuildBottomAccelStruct(
+            types.Mesh(verts, np.ascontiguousarray(tris[::2]))))]
+    ).device_scene(dev)
+    for wave, any_hit in (("primary", False), ("shadow", True)):
+        o, d = (x[sl].contiguous() for x in waves[wave])
+        a_ms, arec = cuda_ms(lambda: traversal.trace_rays(
+            scene, o, d, TMIN, TMAX,
+            any_hit_program=alpha_program(terminate=any_hit)), 1)
+        krec = pk.trace_rays_packet(even, o, d, TMIN, TMAX, any_hit=any_hit)
+        name = f"alpha-test walk vs packet kernel on even prims, {wave}"
+        if any_hit:
+            hold_occluded(name, arec.hit, krec.hit,
+                          torch.ones_like(arec.hit))
+        else:
+            judge(name, arec.t, arec.prim, krec.t, 2 * krec.prim, o, d,
+                  None, ident, any_hit=False, t_scale="origin",
+                  mesh=(verts, tris))
+            if bool((arec.prim[arec.hit] % 2 != 0).any()):
+                raise AssertionError("the alpha test let an odd prim hit")
+        log(f"[9] (b) alpha-test walk, city {wave} probe ({card}): "
+            f"{a_ms:.3f} ms")
+    o, d = (x[sl].contiguous() for x in waves["shadow"])
+    term = traversal.trace_rays(scene, o, d, TMIN, TMAX, any_hit_program=(
+        lambda c: (torch.ones_like(c.valid), torch.ones_like(c.valid))))
+    occ = traversal.trace_rays(scene, o, d, TMIN, TMAX,
+                               any_hit_terminate=True)
+    if not (torch.equal(term.hit, occ.hit) and torch.equal(term.t, occ.t)):
+        raise AssertionError("accept-all + terminate differs from "
+                             "any_hit_terminate")
+    log(f"   accept-all + terminate equals any_hit_terminate on "
+        f"{o.shape[0]} shadow rays ({int(occ.hit.sum())} occluded)")
+    del even
+    recs = [dict(r) for r in shaders.DEFAULT_SBT_RECORDS]
+    recs[2]["anyHit"] = "alphaShadow"
+    alpha = alpha_program(terminate=True)
+    tracer = WavefrontPathTracer(
+        ray_generator=camera.physical_camera_raygen,
+        sbt=ShaderBindingTable.from_json(recs, dict(
+            shaders.SHADER_REGISTRY, alphaShadow=lambda c, r: alpha(c))))
+    res = city_resources(dev, verts, tris, ANIM, ANIM)
+    with WalkCalls(traversal) as wc:
+        tf0 = time.time()
+        acc, img = tracer.render(scene, res,
+                                 torch.zeros(ANIM * ANIM, 3, device=dev), 0,
+                                 ANIM, ANIM, batch=1, depth=2)
+        torch.cuda.synchronize()
+        f_ms = (time.time() - tf0) * 1e3
+    log(f"[9] (b) city frame {ANIM}x{ANIM} batch 1 depth 2 with the alpha "
+        f"shadow program ({card}): {f_ms:.1f} ms; the walk took "
+        f"{wc.calls} traces of {wc.rays} rays ({time.time() - t0:.1f} s)")
+    check_frame("city, alpha shadows", acc, img, ANIM * ANIM)
+    if wc.calls < 2:
+        raise AssertionError("the alpha shadows did not take the walk")
+    out["alpha_frame_ms"] = f_ms
+
+    # (c) more than 64 instances: no kernel tables, through TraceRays
+    t0 = time.time()
+    verts2, tris2, _, _ = sample2.default_mesh()
+    get_list = sample2.get_instance_list
+    sample2.get_instance_list = lambda blas: many_instances(blas, types)
+    with tempfile.TemporaryDirectory() as tmp:
+        sample2.AS_PATH = os.path.join(tmp, "bvh-many.bin")
+        try:
+            with RDFrames(pipeline) as rd, WalkCalls(
+                    traversal, keep_first_closest=True) as wc:
+                sample2.render_sample2(ANIM, 1, 2, 1, tex_dim=S2_TEX,
+                                       out=os.path.join(tmp, "many.png"))
+        finally:
+            sample2.get_instance_list = get_list
+            sample2.AS_PATH = None
+    log(f"[9] (c) {MANY} instances of sample2's {len(tris2)}-triangle torus "
+        f"through TraceRays, {ANIM}x{ANIM} batch 1 depth 2 ({card}): frame "
+        f"{rd.ms[0]:.1f} ms; the walk took {wc.calls} traces of {wc.rays} "
+        f"rays")
+    check_frame(f"{MANY} instances RD", rd.accum, rd.image, ANIM * ANIM)
+    if wc.first is None:
+        raise AssertionError("the many-instance frame did not walk")
+    scene96, o, d, tmin, tmax, rec = wc.first
+    if scene96.kblas is not None:
+        raise AssertionError(f"{MANY} instances: the scene has kernel tables")
+    pick = torch.linspace(0, o.shape[0] - 1, SOUP_RAYS, device=dev).long()
+    vt = torch.from_numpy(verts2).to(dev)
+    tt = torch.from_numpy(tris2.astype(np.int64)).to(dev)
+    tf = torch.stack([torch.from_numpy(i.transform) for i in
+                      many_instances(None, types)]).to(dev)
+    wv = (rmath.mat4_transform_point(tf[:, None], vt[None])
+          .reshape(-1, 3))                       # instance-major vertices
+    tw = (tt[None] + torch.arange(MANY, device=dev)[:, None, None]
+          * len(verts2)).reshape(-1, 3)
+    v0 = wv[tw[:, 0]]
+    t_s, k_s = soup_hits(o[pick], d[pick], v0, wv[tw[:, 1]] - v0,
+                         wv[tw[:, 2]] - v0, tmin, tmax)
+    inst = torch.div(k_s, len(tris2), rounding_mode="floor")
+    got = rec.take(pick)
+    ids = scene96.inst_id[got.slot.clamp(min=0).long()]
+    res = hold_prims(f"{MANY}-instance primary wave vs brute-force soup",
+                     got.t, got.prim, t_s,
+                     torch.where(k_s >= 0, k_s % len(tris2), -1))
+    same = got.hit & (t_s < FLT_MAX)
+    inst_agree = float((ids == inst)[same].float().mean())
+    log(f"   {SOUP_RAYS} rays against {MANY * len(tris2)} world triangles: "
+        f"instance agreement {inst_agree:.7f} ({time.time() - t0:.1f} s)")
+    if inst_agree < BARS["prim"]:
+        raise AssertionError(f"{MANY}-instance frame: instances disagree "
+                             f"with the soup: {inst_agree}")
+    out["many_instance_frame_ms"] = rd.ms[0]
+
+    # (d) rigid motion: bench.py's 64-instance refit (frame_tf), 6 frames
+    # at ANIM^2 through the engine's route (the instance scan), each held
+    # to a fresh build with the same transforms
+    t0 = time.time()
+    o, d = camera_rays(dev, ANIM, ANIM)
+    base_tf = np.stack([np.asarray(i.transform, np.float32)
+                        for i in mtlas.source_instances])
+
+    def frame_tf(k):                     # bench.py:1259-1265
+        ang = 0.05 * (k + 1)
+        rot = np.eye(4, dtype=np.float32)
+        rot[0, 0] = rot[2, 2] = np.cos(ang)
+        rot[0, 2] = np.sin(ang)
+        rot[2, 0] = -np.sin(ang)
+        return np.einsum("ij,njk->nik", rot, base_tf)
+
+    def frame(scn):
+        return pathtracer._trace_dispatch(scn, o, d, TMIN, TMAX)
+
+    built_map = mtlas.device_scene(dev).inst_kblas   # the build's slots
+    mscene = mtlas.refit(frame_tf(0), dev)
+    frame(mscene)
+    torch.cuda.synchronize()
+    refit_ms, frame_ms, reordered = [], [], 0
+    for k in range(1, ANIM_FRAMES + 1):
+        tf0 = time.time()
+        mscene = mtlas.refit(frame_tf(k), dev)
+        torch.cuda.synchronize()
+        tf1 = time.time()
+        rec = frame(mscene)
+        torch.cuda.synchronize()
+        tf2 = time.time()
+        refit_ms.append((tf1 - tf0) * 1e3)
+        frame_ms.append((tf2 - tf0) * 1e3)
+        moved = sum(a != b for a, b in zip(mscene.inst_kblas, built_map))
+        reordered += moved > 0
+        fresh = accel.BuildTopAccelStruct([
+            types.Instance(tf_i, 0, i, inst.bottom_accel_struct)
+            for i, (tf_i, inst) in enumerate(zip(frame_tf(k),
+                                                 mtlas.source_instances))]
+        ).device_scene(dev)
+        ref = frame(fresh)
+        hold_prims(f"refit frame {k} vs a fresh build", rec.t, rec.prim,
+                   ref.t, ref.prim)
+        both = rec.hit & ref.hit
+        ids = mscene.inst_id[rec.slot.clamp(min=0).long()]
+        ids_f = fresh.inst_id[ref.slot.clamp(min=0).long()]
+        id_agree = float((ids == ids_f)[both].float().mean())
+        if id_agree < BARS["prim"]:
+            raise AssertionError(f"refit frame {k}: instance ids disagree "
+                                 f"with a fresh build: {id_agree}")
+        log(f"   refit frame {k}: refit {refit_ms[-1]:.2f} ms, frame "
+            f"{frame_ms[-1]:.1f} ms; instance id agreement {id_agree:.7f}; "
+            f"slots holding another BLAS than at the build: {moved}")
+        del fresh
+    # the JAX update_tlas keeps the build's slot -> BLAS map (ROADMAP.md
+    # queue 3): the last frame traced with it, as its scan would
+    stale = pathtracer._trace_dispatch(dataclasses.replace(
+        mscene, inst_kblas=built_map, multi=None), o, d, TMIN, TMAX)
+    wrong = (stale.hit != rec.hit) | (stale.hit & rec.hit & (
+        (stale.prim != rec.prim) | (stale.slot != rec.slot)))
+    log(f"   frame {ANIM_FRAMES} with the build's slot map kept (the JAX "
+        f"update_tlas): {float(wrong.float().mean()):.6f} of rays differ")
+    dt = sum(frame_ms) / len(frame_ms) / 1e3
+    out["rigid_refit"] = {
+        "frames_per_sec": 1.0 / dt, "mrays": ANIM * ANIM / dt / 1e6,
+        "route": "scan", "instances": len(mtlas.source_instances),
+        "refit_ms": sum(refit_ms) / len(refit_ms),
+        "frames_with_slots_moved": reordered,
+        "stale_map_rays_differ": float(wrong.float().mean())}
+    log(f"[9] (d) rigid refit, {ANIM}x{ANIM} ({card}): "
+        f"{json.dumps(out['rigid_refit'])} ({time.time() - t0:.1f} s)")
+
+    # (e) deforming mesh: bench.py's wobble, the LBVH rebuilt and walked
+    # every frame, held to a host SAH build of the last frame
+    t0 = time.time()
+    rng = np.random.default_rng(3)
+    centers = rng.uniform(-20, 20, size=(WOBBLE_TRIS, 3)).astype(np.float32)
+    offs = rng.normal(scale=0.25, size=(WOBBLE_TRIS, 3, 3)).astype(np.float32)
+    verts0 = (centers[:, None, :] + offs).reshape(-1, 3)
+    wtris = np.arange(WOBBLE_TRIS * 3, dtype=np.int32).reshape(-1, 3)
+    o2 = (o * 0.3).contiguous()
+    v_dev = torch.from_numpy(verts0).to(dev)
+    t_dev = torch.from_numpy(wtris).to(dev)
+    phase = torch.from_numpy(rng.uniform(0, 6.28, size=(len(verts0), 3))
+                             .astype(np.float32)).to(dev)
+
+    def lbvh_frame(k):
+        v = v_dev + 0.3 * torch.sin(phase + 0.3 * k)
+        scn = lbvh.lbvh_scene(v, t_dev)
+        return v, scn, traversal.trace_rays(scn, o2, d, 1e-3, 1e4)
+
+    lbvh_frame(0.0)
+    torch.cuda.synchronize()
+    tf0 = time.time()
+    for k in range(1, ANIM_FRAMES + 1):
+        v_k, scn_k, rec = lbvh_frame(float(k))
+        float(rec.t[::65536].sum())
+    dt_l = (time.time() - tf0) / ANIM_FRAMES
+    t_lb, p_lb = rec.t, rec.prim
+    build_ms, _ = cuda_ms(lambda: lbvh.lbvh_scene(v_k, t_dev), 3)
+    on_cpu = lbvh.lbvh_scene(v_k.cpu(), t_dev.cpu())
+    for key in ("node_packed", "bundle_packed"):
+        if not torch.equal(getattr(scn_k, key).cpu().view(torch.int32),
+                           getattr(on_cpu, key).view(torch.int32)):
+            raise AssertionError(f"LBVH {key} on the card differs from the "
+                                 f"CPU build")
+    log(f"   LBVH tables of frame {ANIM_FRAMES} equal the CPU build's bit "
+        f"for bit ({tuple(scn_k.node_packed.shape)} node rows, "
+        f"{tuple(scn_k.bundle_packed.shape)} bundles)")
+    vk = v_k.cpu().numpy()
+    tf0 = time.time()
+    blas = accel.BuildBottomAccelStruct(types.Mesh(vk, wtris.astype(
+        np.uint32)))
+    sah = accel.BuildTopAccelStruct([types.Instance(
+        np.eye(4, dtype=np.float32), 0, 0, blas)]).device_scene(dev)
+    t_sah = traversal.trace_rays(sah, o2, d, 1e-3, 1e4).t
+    float(t_sah[::65536].sum())
+    dt_s = time.time() - tf0
+    hl, hs = t_lb < FLT_MAX, t_sah < FLT_MAX
+    both = hl & hs
+    rmse = float(((t_lb - t_sah)[both].double() ** 2).mean().sqrt()) \
+        if bool(both.any()) else 0.0
+    mismatch = float((hl != hs).float().mean())
+    hold_prims("LBVH frame vs host SAH build", t_lb, p_lb, t_sah,
+               traversal.trace_rays(sah, o2, d, 1e-3, 1e4).prim)
+    out["deforming"] = {
+        "tris": WOBBLE_TRIS, "lbvh_ms_per_frame": dt_l * 1e3,
+        "lbvh_mrays": ANIM * ANIM / dt_l / 1e6,
+        "sah_rebuild_ms_per_frame": dt_s * 1e3, "speedup": dt_s / dt_l,
+        "hit_t_rmse": rmse, "hit_mismatch_frac": mismatch,
+        "lbvh_build_ms": build_ms}
+    log(f"[9] (e) deforming mesh, {ANIM}x{ANIM} ({card}): "
+        f"{json.dumps(out['deforming'])} ({time.time() - t0:.1f} s)")
+    if mismatch > 1e-3:
+        raise AssertionError(f"LBVH and SAH hits differ on {mismatch}")
+
+    out["launches"] = launch_counts(pk, stg)
+    need = ("packet_trace[closest]", "packet_trace[any_hit]", "emit",
+            "refine", "isect", "oscal")
+    if any(out["launches"].get(k, 0) <= 0 for k in need):
+        raise AssertionError(f"phase 9 missed a kernel: {out['launches']}")
+    log(f"[9] launches in the phase: {out['launches']}")
+    return out
 
 
 def main() -> int:
@@ -2114,7 +2556,7 @@ def main() -> int:
 
     # the 64-instance scene of bench.py --multi on the bench's primary rays
     tb = time.time()
-    mscene, mres = multi64_scene(dev, W, H)
+    mscene, mres, mtlas = multi64_scene(dev, W, H)
     torch.cuda.synchronize()
     mt = s3m.multi_tables(mscene)
     log(f"   64-instance scene: {len(mscene.inst_kblas)} instances of "
@@ -2328,14 +2770,20 @@ def main() -> int:
     rd_counts = rd_api(dev, card, verts, tris, pk, s3, s3m, stg)
     log(f"[8] done in {time.time() - t0:.1f} s")
 
-    # ---- 9. results --------------------------------------------------
+    # ---- 9. the walk and the animated scene --------------------------
+    t0 = time.time()
+    walk = walk_and_animated(dev, card, scene, verts, tris, waves, sl, mtlas,
+                             pk, s3, s3m, stg)
+    log(f"[9] done in {time.time() - t0:.1f} s")
+
+    # ---- 10. results -------------------------------------------------
     # per kernel: the main path's launches (the packet kernel: the city
     # frames and sample1; B, C, D and F: the city frames and the
     # 64-instance frame; E: the 64-instance frame), each timed on its own
     # shape; ms, plain_ms and bound_ms are means a launch over them, the
     # *_sum keys their sums (B's and C's plain keys only the held
     # launches').  A: phase [5]'s 1080p primary wave.  rd_api_launches:
-    # each phase [8] path's own run.
+    # each phase [8] path's own run; walk_phase_launches: phase [9]'s.
     kernels = []
     for var in PATH_VARIANTS:
         errs = [r["max_abs_err"] for k, r in results.items()
@@ -2353,7 +2801,9 @@ def main() -> int:
                                bound_ms=pk_bounds[var][0]),
             "packet": pk.PACKET_RAYS, "plain_packet_stride": PLAIN_STRIDE,
             "rd_api_launches": {k: c.get(f"packet_trace[{var}]", 0)
-                                for k, c in rd_counts.items()}})
+                                for k, c in rd_counts.items()},
+            "walk_phase_launches": walk["launches"].get(
+                f"packet_trace[{var}]", 0)})
     d_all = summary(*(x + y for x, y in zip(d_lists, dm_lists)))
     frame_rows = {"isect": dict(d_all, max_abs_err=max(
         res_dm["max_abs_err"], res_dm2["max_abs_err"],
@@ -2393,7 +2843,10 @@ def main() -> int:
             "replaces": replaced[0], "also_replaces": replaced[1:],
             "launches": launched, "rd_api_launches": {
                 k: c[key] + (c["aos_rows"] if key == "transpose" else 0)
-                for k, c in rd_counts.items()}}, **r))
+                for k, c in rd_counts.items()},
+            "walk_phase_launches": walk["launches"][key] + (
+                walk["launches"]["aos_rows"] if key == "transpose" else 0)},
+            **r))
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

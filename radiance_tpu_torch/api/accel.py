@@ -3,8 +3,7 @@
 Port of radiance_tpu/api/accel.py (reference: radiance/src/radiance.cpp:
 20-84 BLAS/TLAS builds, :428-479 the file round trip).  The SAH build
 runs in NumPy or the C++ native builder exactly as in the JAX package;
-the device scene is made lazily on the device the caller names.  Refit
-is not ported (it needs bvh/device.update_tlas).
+the device scene is made lazily on the device the caller names.
 """
 
 from __future__ import annotations
@@ -48,7 +47,8 @@ class TopAccelStruct:
     A TLAS loaded from a file (FileToTopAccelStruct) has no BLAS objects:
     its device scenes come from the blob's parsed BLAS arrays, padded to
     the capacity a build of the same instances would use, so loaded and
-    built scenes are equal array for array."""
+    built scenes are equal array for array.  `blob` is made lazily: a
+    refit only drops it."""
     _blob: Optional[bytes]
     nodes: np.ndarray               # DEVICE_BVH_NODE_DTYPE
     instances: np.ndarray           # DEVICE_INSTANCE_DTYPE (leaf order)
@@ -59,6 +59,9 @@ class TopAccelStruct:
     _parsed_blas: Optional[dict] = dataclasses.field(default=None,
                                                      repr=False)
     _scenes: dict = dataclasses.field(default_factory=dict, repr=False)
+    # scene key -> {id(BLAS object): its root row in that scene}: a refit
+    # finds each instance's BLAS rows by identity
+    _blas_roots: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def blob(self) -> bytes:
@@ -81,15 +84,53 @@ class TopAccelStruct:
                 self.nodes, self.instances, blas_by_offset,
                 tlas_capacity=self.tlas_capacity,
                 stable_frames=stable_frames, device=device)
+            # where the build put each BLAS: its instances' root rows
+            blas_at = dict(self.blas_offsets)
+            self._blas_roots[key] = {
+                id(blas_at[int(off)]): root for off, root in zip(
+                    self.instances["bottomAccelStructOffset"],
+                    self._scenes[key].inst_blas_root.tolist())
+                if int(off) in blas_at}
         return self._scenes[key]
 
-    def refit(self, new_transforms):
-        """Animated-transform refit of the JAX package
-        (radiance_tpu/api/accel.py:72-117): not ported."""
-        raise NotImplementedError(
-            "TopAccelStruct.refit needs bvh/device.update_tlas, which "
-            "radiance_tpu_torch does not have yet (ROADMAP.md queue 1 "
-            "item 8, LBVH and refit)")
+    def refit(self, new_transforms,
+              device=rdevice.DEFAULT) -> bvh_device.DeviceScene:
+        """Animated-transform refit (radiance_tpu/api/accel.py:76-117):
+        rebuild the small TLAS over the existing BLASes and update the TLAS
+        block and instance arrays of every device scene made so far in
+        place (bvh/device.update_tlas).  The reference has no refit; it
+        rebuilds and re-uploads the whole TLAS buffer.
+
+        new_transforms: [I, 4, 4] row-major, in creation order (the order
+        the instances were passed to BuildTopAccelStruct).  Returns
+        device_scene(device), made first if needed; device_scene gives
+        any other scene, refitted too.
+        Needs the TLAS built by BuildTopAccelStruct (a file-loaded TLAS
+        has no BLAS objects to rebuild over).
+        """
+        if self.source_instances is None:
+            raise ValueError("refit needs the TLAS's source instances "
+                             "(BuildTopAccelStruct); a file-loaded TLAS "
+                             "has none")
+        scene = self.device_scene(device)
+        for inst, tf in zip(self.source_instances, new_transforms,
+                            strict=True):
+            inst.transform = np.ascontiguousarray(tf, np.float32)
+        nodes, dev_inst, new_offsets, _ = builder.build_tlas_arrays(
+            self.source_instances)
+        self.nodes = nodes
+        self.instances = dev_inst
+        self.blas_offsets = new_offsets
+        self._blob = None                 # reserialized if .blob is read
+        # serialized offsets shift with the TLAS's shape, so each scene's
+        # BLAS rows are found by BLAS identity
+        for key, s in self._scenes.items():
+            roots = self._blas_roots[key]
+            bvh_device.update_tlas(
+                s, nodes, dev_inst,
+                {off: roots[id(b)] for off, b in new_offsets},
+                self.tlas_capacity)
+        return scene
 
 
 def BuildTopAccelStruct(instances: Sequence[types.Instance],

@@ -93,14 +93,19 @@ class ShaderBindingTable:
     def make_any_hit_program(self, sbt_record_offset: int, res):
         """The callAnyHit dispatch for traversal (shader.cl:574-583).
 
+        Any-hit shaders take (cand: ops.traversal.AnyHitCandidates, res)
+        and return (accept, terminate), [N, W] bool.  The program keys
+        each candidate on its instance's sbt_offset + sbt_record_offset;
+        a candidate whose key selects no any-hit record is accepted and
+        does not terminate (plain closest hit).
+
         Returns None when every registered any-hit shader is the
         canonical terminate-on-first (marked `terminate_on_first = True`,
         the reference's anyShadow): tracers then use their built-in
-        any-hit mode, which is semantically identical.  Any other any-hit
-        program needs the per-ray traversal walk, which is not ported
-        yet, and raises NotImplementedError.
+        any-hit mode, which is semantically identical.
         """
-        nontrivial = []
+        entries = []
+        nontrivial = False
         for index, rec in enumerate(self.records):
             if not rec.any_hit:
                 continue
@@ -108,10 +113,21 @@ class ShaderBindingTable:
             if fn is None:
                 raise KeyError(f"SBT record {index} references unregistered "
                                f"any-hit shader {rec.any_hit!r}")
+            entries.append((index, fn))
             if not getattr(fn, "terminate_on_first", False):
-                nontrivial.append(rec.any_hit)
-        if nontrivial:
-            raise NotImplementedError(
-                f"custom any-hit programs {nontrivial} need the per-ray "
-                f"traversal walk, which radiance_tpu_torch does not have yet")
-        return None
+                nontrivial = True
+        if not nontrivial:
+            return None
+
+        def program(cand):
+            accept = torch.ones_like(cand.valid)
+            term = torch.zeros_like(cand.valid)
+            key = cand.sbt_offset + sbt_record_offset          # [N]
+            for index, fn in entries:
+                a, t = fn(cand, res)
+                m = (key == index)[:, None]
+                accept = torch.where(m, a, accept)
+                term = torch.where(m, t, term)
+            return accept, term
+
+        return program

@@ -1,14 +1,15 @@
 """DeviceScene: the scene tables the tracers consume, as torch tensors.
 
-Port of radiance_tpu/bvh/device.py (build_device_scene, :318-485, and
-its two entry points, :488-504).
+Port of radiance_tpu/bvh/device.py (build_device_scene, :318-485, its
+two entry points, :488-504, and the animated refit update_tlas,
+:272-318).
 Assembly stays vectorized NumPy and is a carried copy of the JAX
 package's; only the last step differs: the arrays become tensors on an
 explicit device.  The tables are bit-identical to the JAX package's
 (tests/test_torch_tables.py).
 
 Fields kept: the hot-path node/bundle mirrors (node_packed,
-bundle_packed; the per-ray walk of a later port reads them), the
+bundle_packed; the walk, ops/traversal.py, reads them), the
 instance arrays, and the packet-kernel tables (knode_f, kleaf, kprim,
 ktri_geo and the per-BLAS kblas sweep tables).  The SoA split fields of
 the JAX DeviceScene (node_min .. bundle_prim) are views of the packed
@@ -177,6 +178,77 @@ def tlas_capacity_for(n_instances: int) -> int:
     return 4 * max(n_instances, 1) + 8
 
 
+def _tlas_tree(tlas_nodes: np.ndarray, leaf_width: int,
+               capacity: int) -> _Tree:
+    """The TLAS decoded, its oversized leaves split, and padded to
+    `capacity` rows (0: exact size) with unreachable inert inner nodes
+    with empty boxes."""
+    t = _decode_nodes(tlas_nodes, KIND_INST_LEAF)
+    _split_oversized_leaves(t, leaf_width)
+    if capacity:
+        if len(t.kind) > capacity:
+            raise ValueError(f"TLAS block needs {len(t.kind)} rows > "
+                             f"capacity {capacity}")
+        big = np.float32(np.finfo(np.float32).max)
+        while len(t.kind) < capacity:
+            t.bot.append(np.full(3, big, np.float32))
+            t.top.append(np.full(3, -big, np.float32))
+            t.a.append(0)
+            t.b.append(0)
+            t.kind.append(KIND_INNER)
+    return t
+
+
+def _pack_rows(node_min: np.ndarray, node_max: np.ndarray,
+               node_a: np.ndarray, node_b: np.ndarray,
+               node_kind: np.ndarray, node_esc: np.ndarray) -> np.ndarray:
+    """node_packed rows: [min.xyz, max.xyz, bitcast(meta), bitcast(esc)]."""
+    if int(node_a.max(initial=0)) >= (1 << 26):
+        raise ValueError("node/bundle index overflow")
+    meta = (node_a.astype(np.uint32) & META_A_MASK) \
+        | (np.where(node_kind != KIND_INNER, node_b, 0).astype(np.uint32)
+           << META_COUNT_SHIFT) \
+        | (node_kind.astype(np.uint32) << META_KIND_SHIFT)
+    packed = np.zeros((len(node_kind), 8), np.float32)
+    packed[:, 0:3] = node_min
+    packed[:, 3:6] = node_max
+    packed[:, 6] = meta.view(np.float32)
+    packed[:, 7] = node_esc.astype(np.int32).view(np.float32)
+    return packed
+
+
+def _prepare_tlas_block(tlas_nodes: np.ndarray, leaf_width: int,
+                        capacity: int) -> np.ndarray:
+    """The TLAS as a packed block of `capacity` rows: the first rows of a
+    padded build's node_packed.  The block is self-contained (instance
+    leaves name instance slots, never BLAS rows), so a refit rewrites
+    node_packed[:capacity] alone."""
+    t = _tlas_tree(tlas_nodes, leaf_width, capacity)
+    a = np.asarray(t.a, np.int64).astype(np.int32)
+    b = np.asarray(t.b, np.int64).astype(np.int32)
+    kind = np.asarray(t.kind, np.int32)
+    esc = np.full(len(kind), -1, np.int32)
+    _compute_escape_arrays(a, b, kind, esc, 0)
+    return _pack_rows(np.asarray(t.bot, np.float32).reshape(-1, 3),
+                      np.asarray(t.top, np.float32).reshape(-1, 3),
+                      a, b, kind, esc)
+
+
+def _instance_arrays(device_instances: np.ndarray,
+                     blas_root_by_offset: dict):
+    """(transform, inverse, BLAS root row) of each instance slot."""
+    tf = np.ascontiguousarray(device_instances["transform"], np.float32)
+    if len(device_instances):
+        inv = np.linalg.inv(tf.astype(np.float64)).astype(np.float32)
+        blas_root = np.array(
+            [blas_root_by_offset[int(r["bottomAccelStructOffset"])]
+             for r in device_instances], np.int32)
+    else:
+        inv = np.zeros((0, 4, 4), np.float32)
+        blas_root = np.zeros(0, np.int32)
+    return tf, inv, blas_root
+
+
 def build_scene_arrays(tlas_nodes: np.ndarray,
                        device_instances: np.ndarray,
                        blas_by_offset: dict,
@@ -191,18 +263,7 @@ def build_scene_arrays(tlas_nodes: np.ndarray,
     """
     from radiance_tpu_torch.bvh import kernel_pack
 
-    tlas = _decode_nodes(tlas_nodes, KIND_INST_LEAF)
-    _split_oversized_leaves(tlas, leaf_width)
-    if tlas_capacity:
-        if len(tlas.kind) > tlas_capacity:
-            raise ValueError("tlas_capacity too small")
-        big = np.float32(np.finfo(np.float32).max)
-        while len(tlas.kind) < tlas_capacity:
-            tlas.bot.append(np.full(3, big, np.float32))
-            tlas.top.append(np.full(3, -big, np.float32))
-            tlas.a.append(0)
-            tlas.b.append(0)
-            tlas.kind.append(KIND_INNER)
+    tlas = _tlas_tree(tlas_nodes, leaf_width, tlas_capacity)
 
     all_v0, all_e1, all_e2, all_prim = [], [], [], []
     trees = [tlas]
@@ -261,16 +322,8 @@ def build_scene_arrays(tlas_nodes: np.ndarray,
         _compute_escape_arrays(node_a, node_b, node_kind, node_esc,
                                blas_root_by_offset[off])
 
-    ni = len(device_instances)
-    tf = np.ascontiguousarray(device_instances["transform"], np.float32)
-    if ni:
-        inv = np.linalg.inv(tf.astype(np.float64)).astype(np.float32)
-        blas_root = np.array(
-            [blas_root_by_offset[int(r["bottomAccelStructOffset"])]
-             for r in device_instances], np.int32)
-    else:
-        inv = np.zeros((0, 4, 4), np.float32)
-        blas_root = np.zeros(0, np.int32)
+    tf, inv, blas_root = _instance_arrays(device_instances,
+                                          blas_root_by_offset)
 
     w = leaf_width
 
@@ -280,17 +333,8 @@ def build_scene_arrays(tlas_nodes: np.ndarray,
         return np.concatenate(out).astype(dtype)
 
     prim_np = cat_or_empty(all_prim, (w,), np.int32, -1)
-    if int(node_a.max(initial=0)) >= (1 << 26):
-        raise ValueError("node/bundle index overflow")
-    meta = (node_a.astype(np.uint32) & META_A_MASK) \
-        | (np.where(node_kind != KIND_INNER, node_b, 0).astype(np.uint32)
-           << META_COUNT_SHIFT) \
-        | (node_kind.astype(np.uint32) << META_KIND_SHIFT)
-    node_packed = np.zeros((len(node_kind), 8), np.float32)
-    node_packed[:, 0:3] = node_min
-    node_packed[:, 3:6] = node_max
-    node_packed[:, 6] = meta.view(np.float32)
-    node_packed[:, 7] = node_esc.astype(np.int32).view(np.float32)
+    node_packed = _pack_rows(node_min, node_max, node_a, node_b, node_kind,
+                             node_esc)
 
     bundle_packed = np.zeros((len(prim_np), w, 12), np.float32)
     bundle_packed[:, :, 0:3] = cat_or_empty(all_v0, (w, 3))
@@ -362,6 +406,44 @@ def scene_from_numpy(arrays: Mapping, stable_frames: bool,
         inst_kblas=None if inst_kblas is None else tuple(
             int(i) for i in inst_kblas),
         stable_frames=bool(stable_frames))
+
+
+def update_tlas(scene: DeviceScene, tlas_nodes: np.ndarray,
+                device_instances: np.ndarray, blas_root_by_offset: dict,
+                capacity: int,
+                leaf_width: int = config.LEAF_WIDTH) -> DeviceScene:
+    """Animated-transform refit: rewrite the TLAS block and the instance
+    arrays of `scene` in place (copy_, the JAX package's donation), and
+    return it.  BLAS rows, bundles and kernel tables stay; what crosses to
+    the device is capacity * 32 B and the instance arrays.
+
+    A new TLAS may put the instances in another leaf order, so each
+    slot's kernel-table entry (inst_kblas) is derived anew from its BLAS
+    root, and the instance scan's cached tables (scene.multi) follow the
+    new slots and transforms.  (The JAX update_tlas keeps inst_kblas as it
+    was: see ROADMAP.md queue 3.)
+    """
+    packed = _prepare_tlas_block(tlas_nodes, leaf_width, capacity)
+    tf, inv, blas_root = _instance_arrays(device_instances,
+                                          blas_root_by_offset)
+    if len(blas_root) != scene.inst_inv.shape[0]:
+        raise ValueError("a refit keeps the scene's instance count")
+    scene.node_packed[:capacity].copy_(torch.from_numpy(packed))
+    for name, arr in (
+            ("inst_transform", tf), ("inst_inv", inv),
+            ("inst_id", device_instances["instanceID"].astype(np.int32)),
+            ("inst_custom",
+             device_instances["customInstanceID"].astype(np.int32)),
+            ("inst_sbt", device_instances["SBTOffset"].astype(np.int32)),
+            ("inst_blas_root", blas_root)):
+        getattr(scene, name).copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+    if scene.inst_kblas is not None:
+        # kblas is in BLAS layout order, the order of the BLAS root rows
+        roots = sorted(set(blas_root_by_offset.values()))
+        scene.inst_kblas = tuple(roots.index(int(r)) for r in blas_root)
+    if scene.multi is not None:
+        scene.multi.refit_aabbs(scene)
+    return scene
 
 
 def build_device_scene(tlas_nodes: np.ndarray,

@@ -2,8 +2,8 @@
 
 Mirrors the reference's compile-time knobs (reference: radiance/src/bvh.h:9
 MAX_LEAF_PRIM_SIZE, radiance/shader/data.cl:80-83 type tags).  A copy of
-radiance_tpu/config.py without the TPU VMEM budget and without the
-traversal-walk stack and chunk sizes (the walk is not ported).
+radiance_tpu/config.py without the TPU VMEM budget and the walk's
+stack size (the walk is stackless).
 """
 
 # --- BVH build ---------------------------------------------------------------
@@ -25,6 +25,10 @@ TYPE_BOT_AS = 2
 # Leaf flag on the node count word (reference: bvh.cpp:486, data.cl:98-99).
 LEAF_FLAG = 0x80000000
 COUNT_MASK = 0x7FFFFFFF
+
+# Rays are traced by the walk (ops/traversal.py) in chunks of this many, to
+# bound its per-ray state.
+DEFAULT_RAY_CHUNK = 1 << 17  # 131072 rays
 
 # --- Images ------------------------------------------------------------------
 CHANNEL = 4  # RGBA, reference: radiance.h:84

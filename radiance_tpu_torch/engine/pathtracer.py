@@ -28,11 +28,14 @@ on the CPU (where every kernel runs its plain version):
     pipeline (ops/stream3_multi.trace_rows_multi, as the JAX engine's
     _trace_dispatch does, :99-120), with its tables built once per scene;
     a scene with 2-8 instances by one packet sweep per instance
-    (trace_rays_packet_multi).
+    (trace_rays_packet_multi);
+  * the two-level walk (ops/traversal.py) takes every trace that carries
+    a custom any-hit program (its wave is argsorted) and every trace of a
+    scene without kernel tables (more than MAX_KERNEL_INSTANCES
+    instances, the on-device LBVH), as the JAX engine's dispatch does
+    (:94-125).
 
-Not ported yet: the monolithic frame function, temporal t-bounds and the
-per-ray traversal walk (custom any-hit programs, scenes without kernel
-tables).
+Not ported yet: the monolithic frame function and temporal t-bounds.
 """
 
 from __future__ import annotations
@@ -48,9 +51,9 @@ from radiance_tpu_torch.bvh.device import DeviceScene
 from radiance_tpu_torch.core import math as rmath
 from radiance_tpu_torch.engine.context import Payload, ShadeContext
 from radiance_tpu_torch.ops import (compaction, packet_trace, stream3,
-                                    stream3_multi)
+                                    stream3_multi, traversal)
 from radiance_tpu_torch.ops import tonemap as tonemap_ops
-from radiance_tpu_torch.ops.packet_trace import HitRecord
+from radiance_tpu_torch.ops.traversal import HitRecord
 
 # Parking spot for lanes that must not trace: a ray starting here misses
 # the scene root box on its first step.
@@ -63,32 +66,35 @@ MULTI_SCAN_MIN_INSTANCES = 9
 
 
 def _trace_dispatch(scene, o, d, tmin, tmax, *, any_hit_terminate=False,
-                    live=None) -> HitRecord:
-    """Single-instance scenes with kernel tables go through the packet
-    kernel (live masks honoured); scenes with MULTI_SCAN_MIN_INSTANCES or
-    more instances through the stream3 instance scan, others with several
-    instances through one packet sweep per instance (live ignored:
-    callers mask dead lanes)."""
-    if packet_trace.supports(scene):
-        return packet_trace.trace_rays_packet(
-            scene, o, d, tmin, tmax, any_hit=any_hit_terminate, live=live)
-    if packet_trace.supports_multi(scene):
-        if (stream3_multi.supports(scene)
-                and len(scene.inst_kblas) >= MULTI_SCAN_MIN_INSTANCES):
-            return stream3_multi.trace_rows_multi(
-                scene, stream3_multi.multi_tables(scene),
-                stream3.rows_from_aos(o, d), tmin, tmax,
-                occl=any_hit_terminate)
-        return packet_trace.trace_rays_packet_multi(
-            scene, o, d, tmin, tmax, any_hit=any_hit_terminate)
-    raise NotImplementedError(
-        "scene has no packet-kernel tables (more than "
-        "MAX_KERNEL_INSTANCES instances or an oversized BLAS); the per-ray "
-        "traversal walk is not ported yet")
+                    any_hit_program=None, live=None) -> HitRecord:
+    """Without a custom any-hit program: single-instance scenes with
+    kernel tables go through the packet kernel (live masks honoured);
+    scenes with MULTI_SCAN_MIN_INSTANCES or more instances through the
+    stream3 instance scan, others with several instances through one
+    packet sweep per instance.  A program, or a scene without kernel
+    tables, takes the two-level walk.  Only the packet kernel reads
+    `live`: callers mask dead lanes."""
+    if any_hit_program is None:
+        if packet_trace.supports(scene):
+            return packet_trace.trace_rays_packet(
+                scene, o, d, tmin, tmax, any_hit=any_hit_terminate, live=live)
+        if packet_trace.supports_multi(scene):
+            if (stream3_multi.supports(scene)
+                    and len(scene.inst_kblas) >= MULTI_SCAN_MIN_INSTANCES):
+                return stream3_multi.trace_rows_multi(
+                    scene, stream3_multi.multi_tables(scene),
+                    stream3.rows_from_aos(o, d), tmin, tmax,
+                    occl=any_hit_terminate)
+            return packet_trace.trace_rays_packet_multi(
+                scene, o, d, tmin, tmax, any_hit=any_hit_terminate)
+    return traversal.trace_rays(scene, o, d, tmin, tmax,
+                                any_hit_terminate=any_hit_terminate,
+                                any_hit_program=any_hit_program)
 
 
 def _traced_wavefront(scene, o, d, tmin, tmax, alive, *, route: str,
-                      any_hit_terminate: bool = False) -> HitRecord:
+                      any_hit_terminate: bool = False,
+                      any_hit_program=None) -> HitRecord:
     """Trace only the live rays of a wave; dead lanes report a miss.
 
     route "stream3": the stream3 pipeline on rays in pixel order, dead
@@ -98,7 +104,10 @@ def _traced_wavefront(scene, o, d, tmin, tmax, alive, *, route: str,
     order (single-instance scenes only; others fall back to "argsort").
     route "argsort": live rays sorted by coherence_key (dead lanes last
     and parked), traced, and scattered back to pixel order.
+    A custom any-hit program forces "argsort" (reference :196-199).
     """
+    if any_hit_program is not None:
+        route = "argsort"
     if (route == "stream3" and not any_hit_terminate
             and stream3.supports(scene)):
         rows = stream3.rows_from_aos_fast(o, d)
@@ -116,7 +125,8 @@ def _traced_wavefront(scene, o, d, tmin, tmax, alive, *, route: str,
     o_c = torch.where(parked[:, None], _PARK_ORIGIN, o[perm])
     d_c = torch.where(parked[:, None], 1.0, d[perm])
     rec = _trace_dispatch(scene, o_c, d_c, tmin, tmax,
-                          any_hit_terminate=any_hit_terminate)
+                          any_hit_terminate=any_hit_terminate,
+                          any_hit_program=any_hit_program)
     rec = rec.take(compaction.invert_perm(perm))
     return rec.masked_miss(~alive)
 
@@ -165,21 +175,21 @@ def _sample_step(tracer, scene, resources, pixel_index, frame_id, b, state,
     dev = o.device
 
     def trace_occlusion(origin, direction, tmin, tmax, active=None):
-        # the canonical anyShadow is the tracers' any-hit mode; other
-        # any-hit programs raise until the traversal walk is ported
-        sbt.make_any_hit_program(tracer.shadow_hit_offset, resources)
+        # a custom any-hit program at the shadow offset (an alpha test)
+        # rides into the walk; the canonical terminate-on-first anyShadow
+        # is the tracers' any-hit mode
+        prog = sbt.make_any_hit_program(tracer.shadow_hit_offset, resources)
+        kw = dict(any_hit_terminate=prog is None, any_hit_program=prog)
         if active is None:
-            rec = _trace_dispatch(scene, origin, direction, tmin, tmax,
-                                  any_hit_terminate=True)
+            rec = _trace_dispatch(scene, origin, direction, tmin, tmax, **kw)
         else:
             rec = _traced_wavefront(scene, origin, direction, tmin, tmax,
-                                    active, route=shadow_route,
-                                    any_hit_terminate=True)
+                                    active, route=shadow_route, **kw)
         return rec.hit
 
-    sbt.make_any_hit_program(hit_offset, resources)
-    hits = _traced_wavefront(scene, o, d, tracer.tmin, tracer.tmax, alive,
-                             route=route)
+    hits = _traced_wavefront(
+        scene, o, d, tracer.tmin, tracer.tmax, alive, route=route,
+        any_hit_program=sbt.make_any_hit_program(hit_offset, resources))
     ctx = _make_context(scene, hits, o, d, pixel_index, frame_id, b,
                         resources, debug, trace_occlusion,
                         functools.partial(_trace_dispatch, scene))

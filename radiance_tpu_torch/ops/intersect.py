@@ -1,9 +1,9 @@
 """Ray/triangle intersection on torch tensors.
 
 Port of radiance_tpu/ops/intersect.py (reference:
-radiance/shader/radiance.cl:211-251): the edge-precomputed
-Moller-Trumbore test and the brute-force soup oracle, shape-polymorphic
-over leading batch dimensions.
+radiance/shader/radiance.cl:194-251): the slab AABB test, the
+edge-precomputed Moller-Trumbore test and the brute-force soup oracle,
+shape-polymorphic over leading batch dimensions.
 """
 
 from __future__ import annotations
@@ -13,6 +13,28 @@ import torch
 from radiance_tpu_torch.core import math as rmath
 
 FLT_MAX = 3.4028234663852886e38   # float32 max, exactly representable
+
+
+def intersect_aabb(origin, inv_dir, box_min, box_max, t_clip=None):
+    """Slab test (reference: radiance.cl:195-208).
+
+    origin/inv_dir: [..., 3]; box_min/box_max: [..., 3].  Returns bool
+    [...]: t_far >= max(t_near, 0), the JAX package's inclusive form (the
+    reference's strict test culls flat axis-aligned boxes).  `t_clip`
+    ([...], optional) also culls boxes entered at or beyond it.
+
+    torch.minimum/maximum propagate NaN as jnp.minimum/maximum do: an
+    axis-parallel ray on a slab plane gives 0 * inf = NaN there, and the
+    box must then miss, as in the JAX package.
+    """
+    t0 = (box_min - origin) * inv_dir
+    t1 = (box_max - origin) * inv_dir
+    t_near = torch.amax(torch.minimum(t0, t1), dim=-1)
+    t_far = torch.amin(torch.maximum(t0, t1), dim=-1)
+    hit = t_far >= torch.maximum(t_near, torch.zeros_like(t_near))
+    if t_clip is not None:
+        hit = hit & (t_near < t_clip)
+    return hit
 
 
 def intersect_triangle(origin, direction, v0, e1, e2):

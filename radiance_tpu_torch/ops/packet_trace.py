@@ -40,45 +40,14 @@ import torch
 from radiance_tpu_torch.core import math as rmath
 from radiance_tpu_torch.ops import cuda_build
 from radiance_tpu_torch.ops.intersect import FLT_MAX, intersect_triangle
+# HitRecord lives with the walk (ops/traversal.py), as in the JAX package;
+# it is re-exported here for existing imports
+from radiance_tpu_torch.ops.traversal import HitRecord
 
 PACKET = 1024                 # rays per packet in the plain version
 PACKET_RAYS = 64              # rays per packet (and block) of the kernel:
                               # kP in csrc/packet_trace.cu
 _REF_CHUNK = 64               # packets per batched leaf product
-
-
-@dataclasses.dataclass
-class HitRecord:
-    """Closest-hit result (reference: radiance.cl HitData, :8-18).
-
-    t: hit distance (FLT_MAX on miss), the same in world and object space;
-    prim: primID of the hit triangle within its mesh (-1 on miss);
-    slot: index into the DeviceScene instance arrays (-1 on miss);
-    b1, b2: barycentrics of v1/v2.
-    """
-    t: torch.Tensor
-    prim: torch.Tensor
-    slot: torch.Tensor
-    b1: torch.Tensor
-    b2: torch.Tensor
-
-    @property
-    def hit(self) -> torch.Tensor:
-        return self.t < FLT_MAX
-
-    def take(self, index: torch.Tensor) -> "HitRecord":
-        """Gather every field by `index` (a permutation or mask)."""
-        return HitRecord(*(getattr(self, f.name)[index]
-                           for f in dataclasses.fields(self)))
-
-    def masked_miss(self, miss: torch.Tensor) -> "HitRecord":
-        """Force the lanes in `miss` to report a miss."""
-        return HitRecord(
-            t=torch.where(miss, FLT_MAX, self.t),
-            prim=torch.where(miss, -1, self.prim),
-            slot=torch.where(miss, -1, self.slot),
-            b1=torch.where(miss, 0.0, self.b1),
-            b2=torch.where(miss, 0.0, self.b2))
 
 
 def supports(scene) -> bool:

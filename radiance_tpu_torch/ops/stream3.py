@@ -61,7 +61,7 @@ import torch
 
 from radiance_tpu_torch.ops import packet_trace
 from radiance_tpu_torch.ops.intersect import FLT_MAX
-from radiance_tpu_torch.ops.packet_trace import HitRecord
+from radiance_tpu_torch.ops.traversal import HitRecord
 from radiance_tpu_torch.ops.stream3_stages import (
     BIG, BLK, EXTRA, FMAX, G, PCAP, PKT, STEP_CAP, W_LEAF_MAX,
     feats_rows_to_major, octant_scalars, rows_from_aos_fast, stage_emit,

@@ -34,8 +34,8 @@ that overflowed some instance's `bcap` list, comes back as a miss with
 slot == -2 (stream3_multi.py:360-393).  On an occlusion wave such a ray
 reads as unoccluded, as in the JAX engine.
 
-Not ported: trace_rows_tlas with _prep_tlas and _glue_tlas (:404-761),
-MultiTables.refit_aabbs (:169-189) and temporal t-bounds (blk_bound).
+Not ported: trace_rows_tlas with _prep_tlas and _glue_tlas (:404-761)
+and temporal t-bounds (blk_bound).
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ import torch
 
 from radiance_tpu_torch.ops import stream3 as s3
 from radiance_tpu_torch.ops.intersect import FLT_MAX
-from radiance_tpu_torch.ops.packet_trace import HitRecord
+from radiance_tpu_torch.ops.traversal import HitRecord
 from radiance_tpu_torch.ops.stream3_stages import G, group_scalars
 
 BLK = s3.BLK
@@ -73,12 +73,20 @@ class MultiTables:
     directly (see the module docstring)."""
 
     def __init__(self, scene):
-        uniq = sorted(set(scene.inst_kblas))
-        u_of = {b: i for i, b in enumerate(uniq)}
-        self.uniq = tuple(uniq)
+        self.uniq = tuple(sorted(set(scene.inst_kblas)))
+        self.ninst = len(scene.inst_kblas)
+        self.refit_aabbs(scene)
+
+    def refit_aabbs(self, scene) -> "MultiTables":
+        """Derive the per-slot fields anew from the scene's instance arrays
+        (stream3_multi.py:169-189): the world AABBs from the (refitted)
+        transforms, and inst_idx from inst_kblas.  The JAX method
+        recomputes the AABBs alone; here a refit may also have moved each
+        BLAS to another slot (bvh/device.update_tlas).  The per-BLAS tables
+        are object-space and stay."""
+        u_of = {b: i for i, b in enumerate(self.uniq)}
         self.inst_idx = np.asarray([u_of[b] for b in scene.inst_kblas],
                                    np.int32)
-        self.ninst = len(scene.inst_kblas)
         aabbs = np.zeros((self.ninst, 6), np.float32)
         tf = scene.inst_transform.cpu().numpy()
         for i, bi in enumerate(scene.inst_kblas):
@@ -93,6 +101,7 @@ class MultiTables:
             aabbs[i, 3:6] = wc.max(0)
         self.aabb_w = aabbs
         self.aabb_dev = torch.from_numpy(aabbs).to(scene.device)
+        return self
 
 
 def multi_tables(scene) -> MultiTables:

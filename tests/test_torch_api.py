@@ -9,7 +9,7 @@ values); the TLAS file round trip in both directions between the
 packages; the cache-loaded device scene against the built one; the
 RD-route sample1 image against the JAX package's RD route (u8 RMSE <
 3.0 at depth 2, the tests/test_golden.py bar); gen_sbt's generated
-module; the platform's device rule and the unported refit.
+module; the platform's device rule (refit: test_torch_refit.py).
 """
 
 import dataclasses
@@ -398,9 +398,3 @@ def test_platform_device_rule(fresh_platform, monkeypatch):
         tplatform.Platform.GetPlatform("cuda")
     arr = tplatform.CreateImageArray(plt, 4, 4, 2)
     assert arr.device().device == torch.device("cpu")
-
-
-def test_refit_is_not_ported():
-    tlas = taccel.BuildTopAccelStruct(_random_instances(ttypes, taccel))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tlas.refit(np.stack([np.eye(4, dtype=np.float32)] * 3))

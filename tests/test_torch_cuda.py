@@ -1006,3 +1006,43 @@ def test_rd_route_matches_direct_render(cuda, tmp_path, monkeypatch):
     if d_dd == 0.0:
         np.testing.assert_array_equal(img, direct[0][1].cpu().numpy())
     assert img[..., :3].std() > 1.0
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_walk_on_card_matches_packet_kernel(cuda, any_hit):
+    """The two-level walk (ops/traversal.py, torch ops on the card) against
+    the packet kernel on a small scene, and against its own CPU run."""
+    from radiance_tpu_torch.ops import traversal
+
+    tlas = _scene(_mesh(10, 3000, 8.0))
+    o, d = _rays(1, 5000, 10.0)
+    ds = tlas.device_scene(cuda)
+    ot, dt = torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda)
+    walk = traversal.trace_rays(ds, ot, dt, 1e-3, 1e3,
+                                any_hit_terminate=any_hit)
+    kern = pk.trace_rays_packet(ds, ot, dt, 1e-3, 1e3, any_hit=any_hit)
+    hit = _agree(kern, walk, any_hit)
+    assert hit.mean() > 0.05
+    cpu = traversal.trace_rays(tlas.device_scene("cpu"),
+                               torch.from_numpy(o), torch.from_numpy(d),
+                               1e-3, 1e3, any_hit_terminate=any_hit)
+    _agree(cpu, walk, any_hit)
+
+
+def test_lbvh_on_card_bit_equal_to_cpu(cuda):
+    """bvh/lbvh.lbvh_scene on the card: node_packed and bundle_packed
+    equal the CPU build's bit for bit (IEEE min, max, add, multiply and
+    divide only; the rows built in int32)."""
+    from radiance_tpu_torch.bvh import lbvh
+
+    rng = np.random.default_rng(3)
+    c = rng.uniform(-20, 20, (20000, 3)).astype(np.float32)
+    v = (c[:, None, :] + rng.normal(scale=0.25, size=(20000, 3, 3))
+         .astype(np.float32)).reshape(-1, 3)
+    tris = torch.arange(v.shape[0], dtype=torch.int32).reshape(-1, 3)
+    vt = torch.from_numpy(v)
+    on_card = lbvh.lbvh_scene(vt.to(cuda), tris.to(cuda))
+    on_cpu = lbvh.lbvh_scene(vt, tris)
+    for k in ("node_packed", "bundle_packed"):
+        assert torch.equal(getattr(on_card, k).cpu().view(torch.int32),
+                           getattr(on_cpu, k).view(torch.int32)), k
