@@ -5,13 +5,15 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 
     python3 chip_profile.py            # the city, batch 4, depth 4
     python3 chip_profile.py --multi    # bench.py --multi's 64 instances
+    python3 chip_profile.py --native   # the same on the TLAS-native route
 
 It renders the city scene (bench.scene_geometry("city"), 1M triangles)
 with WavefrontPathTracer.render at 1920x1080, batch=4, depth=4, as
 chip_smoke.py's main path does -- or, with --multi, the 64-instance,
 1M-triangle scene of chip_smoke.multi64_scene at 1920x1080, batch=1,
-depth=2, every wave through the instance scan (ops/stream3_multi) --
-and prints:
+depth=2, every wave through the instance scan (ops/stream3_multi), or
+with --native through the TLAS-native route (trace_rows_tlas, the
+tracer's multi_route="native") -- and prints:
   * the card's name and power limit;
   * the host-clock ms of two warm frames;
   * by layer (CUDA events in one frame): the traced wavefronts (stream3
@@ -21,11 +23,12 @@ and prints:
     accumulation);
   * the stream3 pipelines by stage (CUDA events in one more frame,
     summed over its pipeline runs): rows transpose, prep, emit, refine,
-    features transpose, isect, glue, and (city) the residual; and the
-    diagnostics of one primary wave (city: words, kept words, steps,
-    capped slots, flagged packets, rays re-walked; --multi: instances
-    run, overlapping (block, instance) pairs, flagged sub-wave packets,
-    poisoned rays);
+    features transpose, isect, glue, and (city, --native) the residual;
+    and the diagnostics of one primary wave (city: words, kept words,
+    steps, capped slots, flagged packets, rays re-walked; --multi:
+    instances run, overlapping (block, instance) pairs, flagged sub-wave
+    packets, poisoned rays; --native: slots alive and the pool, pool-
+    overflowed and flagged packets, rays re-traced, words, steps);
   * by kernel kind (torch.profiler over one more frame): device ms per
     kind, the device's busy ms (union of its kernel and copy intervals)
     and its idle share of the profiled frame's host-clock time;
@@ -42,6 +45,7 @@ Writes nothing to disk but the kernel build in radiance_tpu_torch/_build/.
 Exits 2 without a CUDA card, 1 if the profiler saw no device activity.
 """
 
+import dataclasses
 import json
 import os
 import re
@@ -53,7 +57,8 @@ import torch
 
 import chip_smoke
 
-MULTI = "--multi" in sys.argv[1:]
+NATIVE = "--native" in sys.argv[1:]
+MULTI = "--multi" in sys.argv[1:] or NATIVE
 W, H = chip_smoke.W, chip_smoke.H
 BATCH, DEPTH = (1, 2) if MULTI else (4, 4)
 KINDS = (  # (kind, substrings of a kernel's name), first match wins
@@ -95,19 +100,6 @@ def variant_of(name: str):
         if k in name and "isect_occl" not in name:
             return f"stream3_isect[{k}]"
     return None
-
-
-def busy_us(intervals) -> float:
-    """Length of the union of [start, end) intervals."""
-    total, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if s > end:
-            total += e - s
-            end = e
-        elif e > end:
-            total += e - end
-            end = e
-    return total
 
 
 def traced_wavefront_ms(pathtracer, frame):
@@ -167,7 +159,7 @@ def main() -> int:
     card = chip_smoke.card_line()
     print(card, flush=True)
     if MULTI:
-        scene, res = chip_smoke.multi64_scene(dev, W, H)
+        scene, res, _ = chip_smoke.multi64_scene(dev, W, H)
     else:
         verts, tris = bench.scene_geometry("city")
         tlas = accel.BuildTopAccelStruct([types.Instance(
@@ -176,6 +168,8 @@ def main() -> int:
         scene = tlas.device_scene(dev)
         res = chip_smoke.city_resources(dev, verts, tris, W, H)
     tracer = chip_smoke.make_tracer()
+    if NATIVE:
+        tracer = dataclasses.replace(tracer, multi_route="native")
     state = dict(accum=torch.zeros(W * H, 3, device=dev), ts=0)
 
     def frame():
@@ -196,8 +190,13 @@ def main() -> int:
     print(f"by layer (CUDA events, one frame): frame {frame_ms:.3f} ms, "
           f"{n_traces} traced wavefronts {trace_ms:.3f} ms, shading and "
           f"accumulation {frame_ms - trace_ms:.3f} ms", flush=True)
-    _, stage_ms = chip_smoke.stage_spans(stream3, frame)
-    if MULTI:       # no trace_rows_stream3 around the instance scan's runs
+    if NATIVE:
+        _, stage_ms, _ = chip_smoke.call_spans(
+            stream3_multi, chip_smoke.TLAS_STAGES, frame)
+        stage_ms = {k: sum(v) for k, v in stage_ms.items()}
+    else:
+        _, stage_ms = chip_smoke.stage_spans(stream3, frame)
+    if MULTI and not NATIVE:  # no trace_rows_stream3 around the scan's runs
         del stage_ms["trace_rows_stream3"], stage_ms["residual"]
     stage_ms = {k: round(v, 3) for k, v in stage_ms.items()}
     print(f"stream3 pipelines by stage (CUDA events, one frame): "
@@ -208,7 +207,7 @@ def main() -> int:
         _, diag = stream3_multi.trace_rows_multi(
             scene, stream3_multi.multi_tables(scene),
             stream3.rows_from_aos(o, d), tracer.tmin, tracer.tmax,
-            with_diag=True)
+            with_diag=True, native=NATIVE)
         primary_diag = dict(diag)
     else:
         _, diag = stream3.trace_rows_stream3(
@@ -222,7 +221,8 @@ def main() -> int:
 
     # the profiled frame's emit and refine outputs, for the chain lengths
     # of kernels B and C
-    with chip_smoke.Calls(None, stream3, names=("stage_emit", "stage_refine"),
+    with chip_smoke.Calls(None, stream3_multi if NATIVE else stream3,
+                          names=("stage_emit", "stage_refine"),
                           keep_args=False) as calls, \
             profile(activities=[ProfilerActivity.CPU,
                                 ProfilerActivity.CUDA]) as prof:
@@ -236,7 +236,7 @@ def main() -> int:
         print("chip_profile: the profiler recorded no device activity",
               file=sys.stderr)
         return 1
-    by_kind, by_name, by_variant, spans = {}, {}, {}, []
+    by_kind, by_name, by_variant = {}, {}, {}
     for e in events:
         us = e.duration_ns() / 1e3
         by_kind[kind_of(e.name())] = by_kind.get(kind_of(e.name()), 0.0) + us
@@ -246,8 +246,7 @@ def main() -> int:
             by_variant[var] = (tot + us, cnt + 1)
         tot, cnt = by_name.get(e.name(), (0.0, 0))
         by_name[e.name()] = (tot + us, cnt + 1)
-        spans.append((e.start_ns() / 1e3, e.start_ns() / 1e3 + us))
-    busy_ms = busy_us(spans) / 1e3
+    busy_ms = chip_smoke.busy_ms(prof)
     print(f"profiled frame (torch.profiler): host clock {wall_ms:.3f} ms, "
           f"device busy {busy_ms:.3f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.4f}", flush=True)
@@ -273,7 +272,8 @@ def main() -> int:
     print(f"kernels B and C in the profiled frame: {json.dumps(chains)}",
           flush=True)
     out = dict(
-        card=card, scene="multi64" if MULTI else "city", width=W, height=H,
+        card=card, scene="multi64" if MULTI else "city",
+        route=tracer.multi_route if MULTI else None, width=W, height=H,
         batch=BATCH, depth=DEPTH,
         warm_frame_ms=warm_ms, event_frame_ms=frame_ms,
         traced_wavefront_ms=trace_ms, n_traced_wavefronts=n_traces,

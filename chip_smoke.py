@@ -104,11 +104,32 @@ prints no result):
      frames at 512x512, the card's tables equal to the CPU build's bit
      for bit, the last frame held to a host SAH build; bench.py's
      animated metrics under its names;
- 10. the kernels' JSON line (per kernel: the main path's launches, the
+ 10. the TLAS-native many-instance route (stream3_multi.trace_rows_tlas)
+     on a fresh multi64 scene, its launch counts set to 0 just before
+     and read just after each of its runs: (a) the bench's tile-ordered
+     1080p primary wave and its shadow wave against the instance scan
+     and the per-instance sweeps to the parity bars, timed with CUDA
+     events and split by stage (prep, B, C, A, D/E, glue, residual),
+     slots alive, pool-overflowed and flagged packets and residual rays
+     logged; each of F, B, C and D (E on the shadow wave) held against
+     its plain version on its launch (recorded under torch.profiler,
+     bounded), A bit-exact on the wave's slot features, and the
+     residual forced by a pool of one slot a packet on both waves (the
+     same hits as unforced; the packet kernel held against its plain
+     version on the residual's largest launch); (b) engine frames at
+     1920x1080, batch 1, depth 2 on the native route beside the scan,
+     warm, each route's idle share from torch.profiler, u8 RMSE between
+     the two images < 2.0; (c) bench.py --animated's rigid refit on the
+     native route, 6 frames at 512x512, each t bit-equal to a fresh
+     build's; (d) the 1080p primary at 2, 4, 8, 9, 16 and 64 instances
+     of multi64 through the sweeps, the scan and the native route (for
+     the route thresholds; measured only);
+ 11. the kernels' JSON line (per kernel: the main path's launches, the
      per-launch means of kernel ms, plain ms and bound and their sums,
      by scene where a kernel runs in several; A from phase 5, B and C
      also phase 5's 1080p wave, F phase 7's masked 1080p rows; each
-     phase 8 path's launches and phase 9's), the card line, and the
+     phase 8 path's launches, phase 9's and phase 10's, and phase 10's
+     launch of each on the native 1080p waves), the card line, and the
      contract's last line.
 
 Imports nothing of JAX or radiance_tpu (bench.py's numpy-only scene
@@ -1867,6 +1888,440 @@ def walk_and_animated(dev, card, scene, verts, tris, waves, sl, mtlas, pk,
     return out
 
 
+# ---- phase 10: the TLAS-native many-instance route -----------------------
+
+SWEEP_COUNTS = (2, 4, 8, 9, 16, 64)   # instances of multi64 in [10] (d)
+TLAS_STAGES = ("_prep_tlas", "stage_emit", "stage_refine",
+               "feats_rows_to_major", "stage_isect", "_glue_tlas",
+               "retrace_flagged")
+
+
+def driven(pk, stg, total, fn):
+    """Run fn() with the launch counts set to 0 just before and read just
+    after (synchronized); add them to `total` and return fn's result."""
+    reset_counts(pk, stg)
+    out = fn()
+    torch.cuda.synchronize()
+    for k, v in launch_counts(pk, stg).items():
+        total[k] = total.get(k, 0) + v
+    return out
+
+
+def busy_ms(prof) -> float:
+    """The device's busy ms in a torch.profiler run: the union of its
+    kernel and copy intervals."""
+    total, end = 0.0, float("-inf")
+    for _, s, dur in kernel_records(prof):
+        e = s + dur
+        if s > end:
+            total, end = total + dur, e
+        elif e > end:
+            total, end = total + e - end, e
+    return total / 1e6
+
+
+def tlas_wave(name, s3m, stg, pk, scene, mt, rows, total, card, **kw):
+    """One wave through trace_rows_tlas, timed with CUDA events over 3
+    calls after a warm-up (their launches counted in `total`), then split
+    by stage with CUDA events around each; returns (rec, diag, ms,
+    stage ms)."""
+    def run():
+        return s3m.trace_rows_tlas(scene, mt, rows, TMIN, TMAX,
+                                   with_diag=True, **kw)
+    ms, (rec, diag) = driven(pk, stg, total, lambda: cuda_ms(run, 3))
+    _, spans, _ = driven(pk, stg, total,
+                         lambda: call_spans(s3m, TLAS_STAGES, run))
+    spans = {k: sum(v) for k, v in spans.items()}
+    log(f"[10] (a) {name} ({card}): trace_rows_tlas {ms:.3f} ms "
+        f"({rows[0].shape[0] / ms / 1e3:.2f} Mrays/s); slots alive "
+        f"{diag['slots_alive']} / scap {diag['scap']}, pool-overflowed "
+        f"packets {diag['pool_overflow']}, flagged {diag['flagged']}, "
+        f"residual rays {diag['residual_rays']}; diag {json.dumps(diag)}; "
+        f"stages (ms, CUDA events) "
+        f"{json.dumps({k: round(v, 4) for k, v in spans.items()})}")
+    return rec, diag, ms, spans
+
+
+def recorded_wave(s3m, stg, pk, scene, mt, rows, total, **kw):
+    """One trace_rows_tlas call with every kernel dispatcher's call
+    recorded (Calls) under torch.profiler: (Calls.calls, launch_ms())."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with Calls(pk, s3m) as calls, profile(
+            activities=[ProfilerActivity.CUDA]) as prof:
+        driven(pk, stg, total, lambda: s3m.trace_rows_tlas(
+            scene, mt, rows, TMIN, TMAX, **kw))
+    return calls.calls, launch_ms(prof, calls.calls)
+
+
+def hold_tlas_wave(stg, calls, ms, occl, card):
+    """Kernels F, B, C and D (or E) on their one launch of a recorded
+    native wave, each held against its plain version on its recorded
+    arguments and bounded: {key: dict(ms, plain_ms, bound_ms, bound_by)}."""
+    out = {}
+    (_, a, _, res), = calls["oscal"]
+    p_ms, ref = cuda_ms(lambda: stg._oscal_plain(*a), 1, warmup=False)
+    if not oscal_equal(res, ref):
+        raise AssertionError("oscal differs from plain on the native route")
+    out["oscal"] = (ms["oscal"][0], p_ms, oscal_bound(a[0], a[1], res))
+    (_, a, k, res), = calls["emit"]
+    args = a + (k.get("step_cap", stg.STEP_CAP), k.get("pcap", stg.PCAP))
+    p_ms, st = emit_hold(stg, args, res)
+    (b, steps, words), = emit_bounds(stg, [(args, res[1])])
+    out["emit"] = (ms["emit"][0], p_ms, b)
+    log(f"    B on the native route: {res[0].shape[0]} slots, {steps} "
+        f"nodes, {words} words, longest walk {int(res[1][:, 2].max())}, "
+        f"capped {int(res[1][:, 1].sum())}; window loads "
+        f"{st['window_loads']}; equal to plain")
+    (_, ra, rk, res), = calls["refine"]
+    feats_t = torch.zeros(16, ra[3].shape[1], device=ra[3].device)
+    feats_t[REFINE_ROWS] = ra[3]
+    p_ms = refine_hold(stg, ra[:3] + (feats_t,) + ra[4:]
+                       + (rk.get("pcap", stg.PCAP),), res)
+    b, words, kept = refine_bound(stg, ra[0], ra[1], res[1],
+                                  rk.get("pcap", stg.PCAP))
+    out["refine"] = (ms["refine"][0], p_ms, b)
+    log(f"    C on the native route: {words} words, {kept} kept; equal to "
+        f"plain")
+    key = "isect_occl" if occl else "isect"
+    (_, a, k, res), = calls[key]
+    args = a + (k["pcap"], k["stable"])
+    if occl:
+        r = occl_launch(stg, args, res)
+        hold_occluded("E on the native shadow wave", r["occ_k"], r["occ_p"],
+                      r["live"], need_occluded=False)
+    else:
+        r = isect_launch(stg, args, res)
+        hold_prims("D on the native primary wave", r["t_k"], r["prim_k"],
+                   r["t_p"], r["prim_p"])
+    out[key] = (ms[key][0], r["plain_ms"], r["bound"])
+    for k2, (k_ms, p_ms, b) in out.items():
+        log(f"    {k2} on the native route ({card}): kernel {k_ms:.4f} ms, "
+            f"plain {p_ms:.3f} ms, bound {b[0]:.4f} ms ({b[1]}), "
+            f"{b[0] / k_ms:.3f} of it")
+    return {k2: dict(ms=k_ms, plain_ms=p_ms, bound_ms=b[0], bound_by=b[1])
+            for k2, (k_ms, p_ms, b) in out.items()}
+
+
+def hold_residual(pk, calls, any_hit):
+    """The packet kernel on the launch of a native wave's residual (its
+    per-instance sweeps) with the most hits, held against its plain
+    version on the recorded arguments; returns judge()'s result."""
+    runs = [c for c in calls["packet_trace"] if c[2]["any_hit"] == any_hit]
+    if not runs:
+        raise AssertionError("the native route's residual launched no "
+                             "packet kernel")
+    _, a, k, (t_k, tri_k) = max(runs, key=lambda c: int(
+        (c[3][0] < 3.4e38).sum()))
+    t_p, tri_p = pk._packet_trace_reference(*a, **k)
+    return judge(f"packet kernel on the native residual "
+                 f"({a[0].shape[0]} rays)", t_k, tri_k, t_p, tri_p, a[0],
+                 a[1], a[2], None, any_hit=any_hit)
+
+
+def tlas_native(dev, card, tracer, light, pk, s3, s3m, stg):
+    """Phase 10: the TLAS-native route (trace_rows_tlas) on a fresh
+    multi64 scene: (a) bench's 1080p primary and shadow waves against the
+    scan and the per-instance sweeps, each kernel of the route held
+    against its plain version on its launch, the residual forced by a
+    pool of one slot a packet; (b) engine frames on the native route
+    beside the scan; (c) bench.py --animated's rigid refit on the native
+    route, each frame against a fresh build; (d) the 1080p primary at
+    SWEEP_COUNTS instances through the sweeps, the scan and the native
+    route.  Launch counts: the native route's runs only.  Returns the
+    counts and the phase's metrics."""
+    from radiance_tpu_torch.api import accel
+    from radiance_tpu_torch.core import math as rmath
+    from radiance_tpu_torch.core import types
+    from radiance_tpu_torch.engine import pathtracer
+    from radiance_tpu_torch.ops.intersect import FLT_MAX
+
+    total, out = {}, {}
+    t0 = time.time()
+    mscene, mres, mtlas = multi64_scene(dev, W, H)
+    base_tf = np.stack([np.asarray(i.transform, np.float32)
+                        for i in mtlas.source_instances])
+    mt = s3m.multi_tables(mscene)
+    if not s3m.supports_native(mt):
+        raise AssertionError("multi64's leaves do not fit the word format")
+    log(f"[10] multi64: {len(mscene.inst_kblas)} instances of "
+        f"{len(mt.uniq)} BLASes; concatenated nodef {tuple(mt.nodef_cat.shape)},"
+        f" kleaf {tuple(mt.kleaf_cat.shape)}; built in {time.time() - t0:.1f} s")
+
+    # (a) the waves
+    n = W * H
+    o1, d1 = camera_rays(dev, W, H)
+    rows = s3.rows_from_aos_fast(o1, d1)
+    rec, diag, ms, spans = tlas_wave("primary 1080p", s3m, stg, pk, mscene,
+                                     mt, rows, total, card)
+    scan_ms, (scan, sdiag) = cuda_ms(lambda: s3m.trace_rows_multi(
+        mscene, mt, rows, TMIN, TMAX, with_diag=True), 2)
+    sw_ms, sweep = cuda_ms(lambda: pk.trace_rays_packet_multi(
+        mscene, o1, d1, TMIN, TMAX), 2)
+    ok = scan.slot != -2
+    res = {}
+    for other, ref, keep in (("scan", scan, ok), ("sweeps", sweep, None)):
+        sel = slice(None) if keep is None else keep
+        res[other] = hold_prims(f"native primary vs {other}", rec.t[sel],
+                                rec.prim[sel], ref.t[sel], ref.prim[sel])
+        both = (rec.hit & ref.hit)[sel]
+        res[other]["slot_agree"] = float(
+            (rec.slot[sel] == ref.slot[sel])[both].float().mean())
+        if res[other]["slot_agree"] < BARS["prim"]:
+            raise AssertionError(f"native primary: instance slots disagree "
+                                 f"with the {other}: {res[other]}")
+    log(f"[10] (a) primary 1080p ({card}): native {ms:.3f} ms, scan "
+        f"{scan_ms:.3f} ms (poisoned {sdiag['poisoned']}), sweeps "
+        f"{sw_ms:.3f} ms; slot agreement {res['scan']['slot_agree']:.7f} "
+        f"(scan), {res['sweeps']['slot_agree']:.7f} (sweeps)")
+    out["primary"] = dict(ms=ms, scan_ms=scan_ms, sweeps_ms=sw_ms,
+                          stages=spans, diag=diag)
+    calls, kms = recorded_wave(s3m, stg, pk, mscene, mt, rows, total)
+    held = hold_tlas_wave(stg, calls, kms, False, card)
+    # kernel A: the slot features of this wave, ray-major, bit-exact
+    feats_t = s3m._prep_tlas(mt, mscene.inst_inv, s3._pad_wave(rows, None)[0],
+                             TMIN, TMAX, None, diag["scap"],
+                             stable=bool(mscene.stable_frames))[0]
+    a_ms, a_out = cuda_ms(lambda: stg.transpose_cuda(feats_t), 5)
+    ap_ms, a_ref = cuda_ms(lambda: feats_t.t().contiguous(), 5)
+    if not torch.equal(a_out, a_ref):
+        raise AssertionError("A differs from .t().contiguous() on the "
+                             "native route's features")
+    b = bound(0, 2 * 4 * feats_t.numel())
+    held["transpose"] = dict(ms=a_ms, plain_ms=ap_ms, bound_ms=b[0],
+                             bound_by=b[1], library_ms=ap_ms)
+    log(f"    A on the native features ({tuple(feats_t.shape)}, {card}): "
+        f"{a_ms:.4f} ms, .t().contiguous() {ap_ms:.4f} ms, bound "
+        f"{b[0]:.4f} ms; bit-exact")
+    del calls, feats_t, a_out, a_ref
+
+    # its shadow wave (bench.py's, from the primary hits toward light_vec)
+    mo2, _ = bounce_rays(rmath, o1, d1, rec.t, FLT_MAX)
+    live = rec.hit
+    srows = s3.rows_from_aos_fast(mo2, light)
+    occ, odiag, oms, ospans = tlas_wave("shadow 1080p", s3m, stg, pk, mscene,
+                                        mt, srows, total, card, live=live,
+                                        occl=True)
+    socc_ms, socc = cuda_ms(lambda: s3m.trace_rows_multi(
+        mscene, mt, srows, TMIN, TMAX, live=live, occl=True), 2)
+    psw_ms, psw = cuda_ms(lambda: pk.trace_rays_packet_multi(
+        mscene, mo2, light, TMIN, TMAX, any_hit=True), 2)
+    if bool(occ.hit[~live].any()):
+        raise AssertionError("a dead lane of the native shadow wave is "
+                             "occluded")
+    hold_occluded("native shadow vs sweeps", occ.hit, psw.hit, live)
+    hold_occluded("native shadow vs scan", occ.hit, socc.hit,
+                  live & (socc.slot != -2))
+    log(f"[10] (a) shadow 1080p ({card}): native {oms:.3f} ms, scan "
+        f"{socc_ms:.3f} ms, sweeps {psw_ms:.3f} ms")
+    out["shadow"] = dict(ms=oms, scan_ms=socc_ms, sweeps_ms=psw_ms,
+                         stages=ospans, diag=odiag)
+    calls, kms = recorded_wave(s3m, stg, pk, mscene, mt, srows, total,
+                               live=live, occl=True)
+    held["isect_occl"] = hold_tlas_wave(stg, calls, kms, True,
+                                        card)["isect_occl"]
+    del calls
+
+    # the residual forced: a pool of one slot a packet, on both waves
+    npk = -(-n // (stg.G * stg.PKT)) * stg.G
+    for name, r_rows, kw, base in (
+            ("primary", rows, {}, rec),
+            ("shadow", srows, dict(live=live, occl=True), occ)):
+        f_ms, (frec, fdiag) = driven(pk, stg, total, lambda: cuda_ms(
+            lambda: s3m.trace_rows_tlas(mscene, mt, r_rows, TMIN, TMAX,
+                                        scap=npk, with_diag=True, **kw), 1))
+        if fdiag["residual_rays"] == 0:
+            raise AssertionError(f"forced residual ({name}): nothing "
+                                 f"flagged")
+        if kw:
+            hold_occluded("native shadow, forced residual vs unforced",
+                          frec.hit, base.hit, live)
+        else:
+            hold_prims("native primary, forced residual vs unforced",
+                       frec.t, frec.prim, base.t, base.prim)
+        log(f"[10] (a) {name}, pool of {npk} slots ({card}): {f_ms:.3f} ms;"
+            f" diag {json.dumps(fdiag)}")
+        out[f"{name}_forced_residual"] = dict(ms=f_ms, diag=fdiag)
+        calls, _ = recorded_wave(s3m, stg, pk, mscene, mt, r_rows, total,
+                                 scap=npk, **kw)
+        hold_residual(pk, calls, bool(kw))
+        del calls, frec
+    del scan, sweep, socc, psw, occ
+    log(f"[10] (a) done in {time.time() - t0:.1f} s")
+
+    # (b) engine frames on the native route beside the scan
+    from torch.profiler import ProfilerActivity, profile
+    t1 = time.time()
+    native_tracer = dataclasses.replace(tracer, multi_route="native")
+    frames, waves = {}, []
+    real = s3m.trace_rows_tlas
+
+    def recorded(*a, **k):
+        rec_w, dg = real(*a, **dict(k, with_diag=True))
+        waves.append(dict(dg, occl=bool(k.get("occl")),
+                          rays=int(rec_w.t.shape[0])))
+        return rec_w
+
+    for route, tr in (("scan", tracer), ("native", native_tracer)):
+        def frame():
+            return tr.render(mscene, mres, torch.zeros(n, 3, device=dev), 0,
+                             W, H, batch=1, depth=2)
+        count = ((lambda f: driven(pk, stg, total, f)) if route == "native"
+                 else (lambda f: f()))
+        s3m.trace_rows_tlas = recorded     # the first frame's waves
+        try:
+            count(frame)
+        finally:
+            s3m.trace_rows_tlas = real
+        tf0 = time.time()
+        accum, image = count(frame)
+        torch.cuda.synchronize()
+        warm = (time.time() - tf0) * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tf0 = time.time()
+            count(frame)
+            torch.cuda.synchronize()
+            wall = (time.time() - tf0) * 1e3
+        busy = busy_ms(prof)
+        del prof
+        frames[route] = dict(ms=warm, profiled_ms=wall, busy_ms=busy,
+                             idle_share=1.0 - busy / wall, accum=accum,
+                             image=image)
+        log(f"[10] (b) multi64 frame 1920x1080 batch 1 depth 2, {route} "
+            f"({card}): warm {warm:.1f} ms; profiled {wall:.1f} ms, device "
+            f"busy {busy:.1f} ms, idle share {1.0 - busy / wall:.4f}")
+    for dg in waves:
+        log(f"    native engine wave ({'shadow' if dg['occl'] else 'closest'}"
+            f"): {json.dumps(dg)}")
+    check_frame("multi64 native", frames["native"]["accum"],
+                frames["native"]["image"], n)
+    rmse = float((frames["native"]["image"][..., :3].float()
+                  - frames["scan"]["image"][..., :3].float())
+                 .pow(2).mean().sqrt())
+    log(f"[10] (b) u8 RMSE native against scan {rmse:.4f} "
+        f"({time.time() - t1:.1f} s)")
+    if rmse >= 2.0:
+        raise AssertionError(f"multi64 native frame differs from the scan's:"
+                             f" RMSE {rmse}")
+    out["frames"] = {k: {m: v for m, v in f.items()
+                         if m not in ("accum", "image")}
+                     for k, f in frames.items()}
+    out["frames"]["rmse"] = rmse
+    out["frames"]["native_waves"] = waves
+    del frames
+
+    # (c) rigid motion on the native route: bench.py's frame_tf, 6 frames
+    # at ANIM^2, each against a fresh build traced the same way
+    t1 = time.time()
+    o, d = camera_rays(dev, ANIM, ANIM)
+
+    def frame_tf(k):                     # bench.py:1259-1265
+        ang = 0.05 * (k + 1)
+        rot = np.eye(4, dtype=np.float32)
+        rot[0, 0] = rot[2, 2] = np.cos(ang)
+        rot[0, 2] = np.sin(ang)
+        rot[2, 0] = -np.sin(ang)
+        return np.einsum("ij,njk->nik", rot, base_tf)
+
+    def trace(scn):
+        return pathtracer._trace_dispatch(scn, o, d, TMIN, TMAX,
+                                          multi_route="native")
+
+    built_map = mscene.inst_kblas
+    rscene = mtlas.refit(frame_tf(0), dev)
+    driven(pk, stg, total, lambda: trace(rscene))
+    refit_ms, frame_ms, reordered = [], [], 0
+    for k in range(1, ANIM_FRAMES + 1):
+        tf0 = time.time()
+        rscene = mtlas.refit(frame_tf(k), dev)
+        torch.cuda.synchronize()
+        tf1 = time.time()
+        rec_k = driven(pk, stg, total, lambda: trace(rscene))
+        tf2 = time.time()
+        refit_ms.append((tf1 - tf0) * 1e3)
+        frame_ms.append((tf2 - tf0) * 1e3)
+        _, dg = driven(pk, stg, total, lambda: s3m.trace_rows_tlas(
+            rscene, rscene.multi, s3.rows_from_aos(o, d), TMIN, TMAX,
+            with_diag=True))
+        moved = sum(a != b for a, b in zip(rscene.inst_kblas, built_map))
+        reordered += moved > 0
+        fresh = accel.BuildTopAccelStruct([
+            types.Instance(tf_i, 0, i, inst.bottom_accel_struct)
+            for i, (tf_i, inst) in enumerate(zip(frame_tf(k),
+                                                 mtlas.source_instances))]
+        ).device_scene(dev)
+        ref = trace(fresh)
+        if not torch.equal(rec_k.t, ref.t) or not torch.equal(rec_k.prim,
+                                                             ref.prim):
+            raise AssertionError(f"native refit frame {k}: t or prims "
+                                 f"differ from a fresh build")
+        both = rec_k.hit & ref.hit
+        ids = rscene.inst_id[rec_k.slot.clamp(min=0).long()]
+        ids_f = fresh.inst_id[ref.slot.clamp(min=0).long()]
+        id_agree = float((ids == ids_f)[both].float().mean())
+        if id_agree < 0.9999999:
+            raise AssertionError(f"native refit frame {k}: instance ids "
+                                 f"disagree with a fresh build: {id_agree}")
+        log(f"   native refit frame {k}: refit {refit_ms[-1]:.2f} ms, frame "
+            f"{frame_ms[-1]:.1f} ms; t bit-equal to a fresh build, instance "
+            f"id agreement {id_agree:.7f}; slots holding another BLAS than "
+            f"at the build: {moved}; diag {json.dumps(dg)}")
+        del fresh
+    dt = sum(frame_ms) / len(frame_ms) / 1e3
+    out["rigid_refit"] = {
+        "frames_per_sec": 1.0 / dt, "mrays": ANIM * ANIM / dt / 1e6,
+        "route": "tlas_native", "instances": len(mtlas.source_instances),
+        "refit_ms": sum(refit_ms) / len(refit_ms),
+        "frames_with_slots_moved": reordered}
+    log(f"[10] (c) rigid refit on the native route, {ANIM}x{ANIM} ({card}): "
+        f"{json.dumps(out['rigid_refit'])} ({time.time() - t1:.1f} s)")
+
+    # (d) the thresholds: the 1080p primary at SWEEP_COUNTS instances of
+    # multi64 (spread over its BLASes) through the three routes
+    t1 = time.time()
+    sweep_rows = []
+    for k in SWEEP_COUNTS:
+        pick = np.round(np.linspace(0, 63, k)).astype(int)
+        sub = accel.BuildTopAccelStruct([
+            types.Instance(base_tf[i], 0, j,
+                           mtlas.source_instances[i].bottom_accel_struct)
+            for j, i in enumerate(pick)]).device_scene(dev)
+        smt = s3m.multi_tables(sub)
+        r = {"instances": k}
+        r["sweeps_ms"], ref = cuda_ms(lambda: pk.trace_rays_packet_multi(
+            sub, o1, d1, TMIN, TMAX), 3)
+        r["scan_ms"], _ = cuda_ms(lambda: s3m.trace_rows_multi(
+            sub, smt, rows, TMIN, TMAX), 3)
+        r["native_ms"], (got, dg) = driven(pk, stg, total, lambda: cuda_ms(
+            lambda: s3m.trace_rows_tlas(sub, smt, rows, TMIN, TMAX,
+                                        with_diag=True), 3))
+        if bool(ref.hit.any()):
+            hold_prims(f"native vs sweeps at {k} instances", got.t,
+                       got.prim, ref.t, ref.prim)
+        elif bool(got.hit.any()):
+            raise AssertionError(f"native hits where the sweeps miss every "
+                                 f"ray ({k} instances)")
+        r.update(hit_rate=float(ref.hit.float().mean()),
+                 slots_alive=dg["slots_alive"], scap=dg["scap"],
+                 residual_rays=dg["residual_rays"])
+        sweep_rows.append(r)
+        log(f"[10] (d) {k} instances, 1080p primary ({card}): sweeps "
+            f"{r['sweeps_ms']:.3f} ms, scan {r['scan_ms']:.3f} ms, native "
+            f"{r['native_ms']:.3f} ms; {json.dumps(dg)}")
+        del sub, smt, ref, got
+    out["threshold_sweep"] = sweep_rows
+    log(f"[10] (d) done in {time.time() - t1:.1f} s")
+
+    out["launches"] = total
+    out["held"] = held
+    need = ("emit", "refine", "transpose", "isect", "isect_occl", "oscal",
+            "packet_trace[closest]", "packet_trace[any_hit]")
+    if any(total.get(k, 0) <= 0 for k in need):
+        raise AssertionError(f"phase 10 missed a kernel: {total}")
+    log(f"[10] launches of the native route in the phase: {total}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2776,14 +3231,21 @@ def main() -> int:
                              pk, s3, s3m, stg)
     log(f"[9] done in {time.time() - t0:.1f} s")
 
-    # ---- 10. results -------------------------------------------------
+    # ---- 10. the TLAS-native route -----------------------------------
+    t0 = time.time()
+    tlas = tlas_native(dev, card, tracer, light, pk, s3, s3m, stg)
+    log(f"[10] done in {time.time() - t0:.1f} s")
+
+    # ---- 11. results -------------------------------------------------
     # per kernel: the main path's launches (the packet kernel: the city
     # frames and sample1; B, C, D and F: the city frames and the
     # 64-instance frame; E: the 64-instance frame), each timed on its own
     # shape; ms, plain_ms and bound_ms are means a launch over them, the
     # *_sum keys their sums (B's and C's plain keys only the held
     # launches').  A: phase [5]'s 1080p primary wave.  rd_api_launches:
-    # each phase [8] path's own run; walk_phase_launches: phase [9]'s.
+    # each phase [8] path's own run; walk_phase_launches: phase [9]'s;
+    # tlas_phase_launches: the native route's runs in phase [10], and
+    # tlas_wave_1080p its launch on phase [10]'s primary (E: shadow) wave.
     kernels = []
     for var in PATH_VARIANTS:
         errs = [r["max_abs_err"] for k, r in results.items()
@@ -2803,6 +3265,8 @@ def main() -> int:
             "rd_api_launches": {k: c.get(f"packet_trace[{var}]", 0)
                                 for k, c in rd_counts.items()},
             "walk_phase_launches": walk["launches"].get(
+                f"packet_trace[{var}]", 0),
+            "tlas_phase_launches": tlas["launches"].get(
                 f"packet_trace[{var}]", 0)})
     d_all = summary(*(x + y for x, y in zip(d_lists, dm_lists)))
     frame_rows = {"isect": dict(d_all, max_abs_err=max(
@@ -2845,8 +3309,12 @@ def main() -> int:
                 k: c[key] + (c["aos_rows"] if key == "transpose" else 0)
                 for k, c in rd_counts.items()},
             "walk_phase_launches": walk["launches"][key] + (
-                walk["launches"]["aos_rows"] if key == "transpose" else 0)},
+                walk["launches"]["aos_rows"] if key == "transpose" else 0),
+            "tlas_phase_launches": tlas["launches"][key] + (
+                tlas["launches"]["aos_rows"] if key == "transpose" else 0),
+            "tlas_wave_1080p": tlas["held"][key]},
             **r))
+    log(f"[10] metrics: {json.dumps({k: v for k, v in tlas.items() if k not in ('launches', 'held')})}")
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -24,11 +24,13 @@ on the CPU (where every kernel runs its plain version):
     live rays, dead lanes parked, unsorted after);
   * multi-instance scenes: every wave takes "argsort".  A scene with
     more than 8 instances (and per-BLAS kernel tables) is traced, closest
-    hits and shadows alike, by the instance scan over the stream3
-    pipeline (ops/stream3_multi.trace_rows_multi, as the JAX engine's
-    _trace_dispatch does, :99-120), with its tables built once per scene;
-    a scene with 2-8 instances by one packet sweep per instance
-    (trace_rays_packet_multi);
+    hits and shadows alike, by ops/stream3_multi.trace_rows_multi (as the
+    JAX engine's _trace_dispatch does, :99-120), with its tables built
+    once per scene, on one of two routes: the tracer's `multi_route`,
+    "scan" (the instance scan, the reference's default) or "native" (the
+    TLAS-native slots, trace_rows_tlas, where the reference's
+    RADIANCE_MULTI=native takes them); a scene with 2-8 instances by one
+    packet sweep per instance (trace_rays_packet_multi);
   * the two-level walk (ops/traversal.py) takes every trace that carries
     a custom any-hit program (its wave is argsorted) and every trace of a
     scene without kernel tables (more than MAX_KERNEL_INSTANCES
@@ -65,15 +67,22 @@ _INT32_MAX = 2 ** 31 - 1
 MULTI_SCAN_MIN_INSTANCES = 9
 
 
+MULTI_ROUTES = ("scan", "native")
+
+
 def _trace_dispatch(scene, o, d, tmin, tmax, *, any_hit_terminate=False,
-                    any_hit_program=None, live=None) -> HitRecord:
+                    any_hit_program=None, live=None,
+                    multi_route: str = "scan") -> HitRecord:
     """Without a custom any-hit program: single-instance scenes with
     kernel tables go through the packet kernel (live masks honoured);
-    scenes with MULTI_SCAN_MIN_INSTANCES or more instances through the
-    stream3 instance scan, others with several instances through one
+    scenes with MULTI_SCAN_MIN_INSTANCES or more instances through
+    trace_rows_multi, on the instance scan or, with multi_route "native",
+    the TLAS-native slots; others with several instances through one
     packet sweep per instance.  A program, or a scene without kernel
     tables, takes the two-level walk.  Only the packet kernel reads
     `live`: callers mask dead lanes."""
+    if multi_route not in MULTI_ROUTES:
+        raise ValueError(f"multi_route must be one of {MULTI_ROUTES}")
     if any_hit_program is None:
         if packet_trace.supports(scene):
             return packet_trace.trace_rays_packet(
@@ -84,7 +93,8 @@ def _trace_dispatch(scene, o, d, tmin, tmax, *, any_hit_terminate=False,
                 return stream3_multi.trace_rows_multi(
                     scene, stream3_multi.multi_tables(scene),
                     stream3.rows_from_aos(o, d), tmin, tmax,
-                    occl=any_hit_terminate)
+                    occl=any_hit_terminate,
+                    native=multi_route == "native")
             return packet_trace.trace_rays_packet_multi(
                 scene, o, d, tmin, tmax, any_hit=any_hit_terminate)
     return traversal.trace_rays(scene, o, d, tmin, tmax,
@@ -94,7 +104,8 @@ def _trace_dispatch(scene, o, d, tmin, tmax, *, any_hit_terminate=False,
 
 def _traced_wavefront(scene, o, d, tmin, tmax, alive, *, route: str,
                       any_hit_terminate: bool = False,
-                      any_hit_program=None) -> HitRecord:
+                      any_hit_program=None,
+                      multi_route: str = "scan") -> HitRecord:
     """Trace only the live rays of a wave; dead lanes report a miss.
 
     route "stream3": the stream3 pipeline on rays in pixel order, dead
@@ -105,6 +116,7 @@ def _traced_wavefront(scene, o, d, tmin, tmax, alive, *, route: str,
     route "argsort": live rays sorted by coherence_key (dead lanes last
     and parked), traced, and scattered back to pixel order.
     A custom any-hit program forces "argsort" (reference :196-199).
+    multi_route goes to _trace_dispatch.
     """
     if any_hit_program is not None:
         route = "argsort"
@@ -117,7 +129,8 @@ def _traced_wavefront(scene, o, d, tmin, tmax, alive, *, route: str,
         return rec
     if route == "gen1_live" and packet_trace.supports(scene):
         rec = _trace_dispatch(scene, o, d, tmin, tmax, live=alive,
-                              any_hit_terminate=any_hit_terminate)
+                              any_hit_terminate=any_hit_terminate,
+                              multi_route=multi_route)
         return rec.masked_miss(~alive)
     key = torch.where(alive, packet_trace.coherence_key(o, d), _INT32_MAX)
     perm = torch.argsort(key, stable=True)
@@ -126,7 +139,8 @@ def _traced_wavefront(scene, o, d, tmin, tmax, alive, *, route: str,
     d_c = torch.where(parked[:, None], 1.0, d[perm])
     rec = _trace_dispatch(scene, o_c, d_c, tmin, tmax,
                           any_hit_terminate=any_hit_terminate,
-                          any_hit_program=any_hit_program)
+                          any_hit_program=any_hit_program,
+                          multi_route=multi_route)
     rec = rec.take(compaction.invert_perm(perm))
     return rec.masked_miss(~alive)
 
@@ -179,7 +193,8 @@ def _sample_step(tracer, scene, resources, pixel_index, frame_id, b, state,
         # rides into the walk; the canonical terminate-on-first anyShadow
         # is the tracers' any-hit mode
         prog = sbt.make_any_hit_program(tracer.shadow_hit_offset, resources)
-        kw = dict(any_hit_terminate=prog is None, any_hit_program=prog)
+        kw = dict(any_hit_terminate=prog is None, any_hit_program=prog,
+                  multi_route=tracer.multi_route)
         if active is None:
             rec = _trace_dispatch(scene, origin, direction, tmin, tmax, **kw)
         else:
@@ -189,10 +204,12 @@ def _sample_step(tracer, scene, resources, pixel_index, frame_id, b, state,
 
     hits = _traced_wavefront(
         scene, o, d, tracer.tmin, tracer.tmax, alive, route=route,
-        any_hit_program=sbt.make_any_hit_program(hit_offset, resources))
+        any_hit_program=sbt.make_any_hit_program(hit_offset, resources),
+        multi_route=tracer.multi_route)
     ctx = _make_context(scene, hits, o, d, pixel_index, frame_id, b,
                         resources, debug, trace_occlusion,
-                        functools.partial(_trace_dispatch, scene))
+                        functools.partial(_trace_dispatch, scene,
+                                          multi_route=tracer.multi_route))
     payload = Payload(
         color=torch.zeros(n, 3, dtype=torch.float32, device=dev),
         hit=torch.zeros(n, dtype=torch.bool, device=dev),
@@ -254,6 +271,9 @@ class WavefrontPathTracer:
       shader.cl:235 and :500)
     tonemap: float rgb -> float rgb display transform
     tmin/tmax: traceRay accept window (shader.cl:236)
+    multi_route: the route of scenes with MULTI_SCAN_MIN_INSTANCES or
+      more instances, "scan" (the reference's default) or "native" (the
+      TLAS-native slots; the reference's RADIANCE_MULTI=native)
     """
     ray_generator: Callable
     sbt: ShaderBindingTable
@@ -263,6 +283,7 @@ class WavefrontPathTracer:
     shadow_hit_offset: int = 2
     tmin: float = 0.001
     tmax: float = 1000.0
+    multi_route: str = "scan"
 
     def render(self, scene: DeviceScene, resources: Dict, accum,
                total_samples: int, width: int, height: int,

@@ -313,6 +313,29 @@ def park_dead(rows_w, live, park_dir=(1.0, 1.0, 1.0)):
                  for r, f in zip(rows_w, fill))
 
 
+def retrace_flagged(rec, rows_w, pkt_flag, occl, trace):
+    """The residual: re-trace exactly every ray (of the first N of the
+    six world-space rows) of the packets flagged in pkt_flag ([npk]), by
+    trace(origin [k, 3], direction [k, 3]) -> HitRecord, and patch them
+    into rec in place.  On occlusion waves (occl, trace any-hit) t is
+    normalised to 0 / FLT_MAX, as stream3.py:2815-2821 does.  Returns
+    (packets flagged, rays re-traced)."""
+    n = rows_w[0].shape[0]
+    flagged = torch.nonzero(pkt_flag > 0).squeeze(1)
+    if flagged.numel() == 0:
+        return 0, 0
+    sel = (flagged[:, None] * PKT
+           + torch.arange(PKT, device=flagged.device)).reshape(-1)
+    sel = sel[sel < n]
+    sub = trace(torch.stack([r[sel] for r in rows_w[:3]], dim=1),
+                torch.stack([r[sel] for r in rows_w[3:]], dim=1))
+    if occl:
+        sub.t = torch.where(sub.hit, 0.0, FLT_MAX)
+    for f in ("t", "prim", "slot", "b1", "b2"):
+        getattr(rec, f)[sel] = getattr(sub, f).to(getattr(rec, f).dtype)
+    return int(flagged.numel()), int(sel.numel())
+
+
 def trace_rows_stream3(scene, rows_w, tmin, tmax, live=None,
                        occl: bool = False, with_diag: bool = False):
     """Closest-hit trace of a wave given as six world-space [N] rows
@@ -335,22 +358,10 @@ def trace_rows_stream3(scene, rows_w, tmin, tmax, live=None,
                      scene.inst_inv[0], live=live,
                      stable=bool(scene.stable_frames), occl=occl,
                      with_diag=True)
-    flagged = torch.nonzero(diag["pkt_flag"] > 0).squeeze(1)
-    diag["flagged"] = int(flagged.numel())
-    diag["residual_rays"] = 0
-    if flagged.numel():
-        sel = (flagged[:, None] * PKT
-               + torch.arange(PKT, device=flagged.device)).reshape(-1)
-        sel = sel[sel < n]
-        ow = torch.stack([r[sel] for r in rows_w[:3]], dim=1)
-        dw = torch.stack([r[sel] for r in rows_w[3:]], dim=1)
-        sub = packet_trace.trace_rays_packet(scene, ow, dw, tmin, tmax,
-                                             any_hit=occl)
-        if occl:
-            sub.t = torch.where(sub.hit, 0.0, FLT_MAX)
-        for f in ("t", "prim", "slot", "b1", "b2"):
-            getattr(rec, f)[sel] = getattr(sub, f).to(getattr(rec, f).dtype)
-        diag["residual_rays"] = int(sel.numel())
+    diag["flagged"], diag["residual_rays"] = retrace_flagged(
+        rec, rows_w, diag["pkt_flag"], occl,
+        lambda o, d: packet_trace.trace_rays_packet(scene, o, d, tmin, tmax,
+                                                    any_hit=occl))
     if live is not None:
         rec = rec.masked_miss(~live[:n])
     return (rec, diag) if with_diag else rec

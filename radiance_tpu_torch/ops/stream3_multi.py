@@ -1,17 +1,27 @@
-"""Many-instance stream tracing: TLAS-level block culling + an instance
-scan over the stream3 single-instance pipeline.
+"""Many-instance stream tracing: TLAS-level block culling with two routes
+over the stream3 single-instance pipeline, the instance scan and the
+TLAS-native slots.
 
-Port of radiance_tpu/ops/stream3_multi.py's instance scan
-(trace_rows_multi, :242-399).  A pass over the wave tests every 128-ray
-block's world interval frustum against every instance's world AABB (the
-TLAS level, [nblk, ninst] slab tests) and builds a compact block list per
-instance.  A host loop over the instances, in slot order, then gathers
-each instance's active blocks into a sub-wave, runs the stream3 pipeline
-(ops/stream3._run: kernels F, B, C, A and D, or E on occlusion waves)
-against that instance's own tables, and min-folds the hits into the
-running best.  Cost scales with the block/instance overlap, not with the
-instance count, unlike the per-instance packet sweeps
-(packet_trace.trace_rays_packet_multi).
+Port of radiance_tpu/ops/stream3_multi.py.  Both routes start from one
+pass over the wave that tests every 128-ray block's world interval
+frustum against every instance's world AABB (the TLAS level, [nblk,
+ninst] slab tests).
+
+The instance scan (trace_rows_multi, :242-399), the default: a host loop
+over the instances, in slot order, gathers each instance's active blocks
+into a sub-wave, runs the stream3 pipeline (ops/stream3._run: kernels F,
+B, C, A and D, or E on occlusion waves) against that instance's own
+tables, and min-folds the hits into the running best.  Cost scales with
+the block/instance overlap, not with the instance count, unlike the
+per-instance packet sweeps (packet_trace.trace_rays_packet_multi).
+
+The TLAS-native route (trace_rows_tlas, :574-761; trace_rows_multi with
+native=True): every (packet, instance) pair that survives the cull is a
+SLOT, its packet's rays moved into the instance's object space.  One
+launch each of F, B, C, A and D (or E) then serves every slot of the
+wave, against the unique BLASes' tables concatenated with global leaf
+ids (MultiTables.nodef_cat, kleaf_cat, aabb8_cat), and a per-ray minimum
+over the slots (_glue_tlas) folds the hits.
 
 Differences from the JAX module, none visible in a hit record:
   * the JAX module stacks every unique BLAS's tables padded to one shape,
@@ -23,19 +33,35 @@ Differences from the JAX module, none visible in a hit record:
     the instance's blocks rounded up to whole groups of G packets.  The
     dropped packets hold only dead lanes, which emit nothing, so the
     hits, the flags and the poisoning are the reference's;
-  * no environment variable is read: the scan route (not
-    RADIANCE_MULTI=native), f32; occlusion sub-waves refine their word
-    lists before kernel E (stream3._run, the JAX module's
-    exact_refine=True), an exact change that no hit can show.
+  * no environment variable is read: the route is an argument (the
+    reference's RADIANCE_MULTI, default scan), so is the native route's
+    slot capacity (RADIANCE_TLAS_SCAP); f32, the lockstep emit walk (no
+    work stealing or treelets, which emit the same words).  Occlusion
+    waves refine their word lists before kernel E on both routes
+    (stream3._run, the JAX module's exact_refine=True; the JAX native
+    route refines closest-hit waves only), an exact change that no hit
+    can show;
+  * MultiTables.refit_aabbs re-derives every per-slot field from the
+    scene's inst_kblas (a refit may move a BLAS to another slot,
+    bvh/device.update_tlas); the JAX method recomputes the AABBs alone.
 
-The reference's contract is kept: there is no residual re-walk.  A ray of
-a sub-wave packet that was step-capped or word-overflowed, or of a block
-that overflowed some instance's `bcap` list, comes back as a miss with
-slot == -2 (stream3_multi.py:360-393).  On an occlusion wave such a ray
-reads as unoccluded, as in the JAX engine.
+The scan keeps the reference's contract: there is no residual re-walk.
+A ray of a sub-wave packet that was step-capped or word-overflowed, or of
+a block that overflowed some instance's `bcap` list, comes back as a miss
+with slot == -2 (stream3_multi.py:360-393).  On an occlusion wave such a
+ray reads as unoccluded, as in the JAX engine.
 
-Not ported: trace_rows_tlas with _prep_tlas and _glue_tlas (:404-761)
-and temporal t-bounds (blk_bound).
+The native route re-traces every flagged packet exactly (a slot walk cut
+at STEP_CAP, a word list past PCAP, or a packet whose slots did not fit
+the pool), so it never returns slot == -2.  The reference re-walks them
+with its two-level walk (ops/traversal.py); here they go through the
+per-instance packet sweeps (packet_trace.trace_rays_packet_multi: the
+CUDA packet kernel on the card, any-hit on occlusion waves with t
+normalised to 0 / FLT_MAX), as the stream3 residual does.  Both are exact
+tracers; the walk costs a second or more a call on the card whatever its
+ray count.
+
+Not ported: temporal t-bounds (blk_bound) on either route.
 """
 
 from __future__ import annotations
@@ -43,10 +69,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from radiance_tpu_torch.ops import packet_trace
 from radiance_tpu_torch.ops import stream3 as s3
 from radiance_tpu_torch.ops.intersect import FLT_MAX
+from radiance_tpu_torch.ops.stream3 import retrace_flagged
 from radiance_tpu_torch.ops.traversal import HitRecord
-from radiance_tpu_torch.ops.stream3_stages import G, group_scalars
+from radiance_tpu_torch.ops.stream3_stages import (
+    BIG, FMAX, G, PCAP, W_LEAF_MAX, feats_rows_to_major, group_scalars,
+    octant_scalars, stage_emit, stage_isect, stage_refine)
 
 BLK = s3.BLK
 PKT = s3.PKT
@@ -61,32 +91,75 @@ def supports(scene) -> bool:
 
 
 class MultiTables:
-    """Host tables of the instance scan (stream3_multi.py:42-167, the
-    scan's fields).
+    """Tables of the two many-instance routes (stream3_multi.py:42-167).
 
-    uniq: the scene's kblas indices of the unique BLASes (sorted);
-    inst_idx [ninst] i32: instance slot -> entry of uniq, so copies of a
-    mesh share one table; aabb_w [ninst, 6] f32: each instance's world
-    AABB, the octant-0 root box's 8 corners under inst_transform (numpy,
-    the same arithmetic as the JAX module); aabb_dev: aabb_w on the
-    scene's device.  The instance's walk reads scene.kblas[uniq[u]]
-    directly (see the module docstring)."""
+    The scan's: uniq, the scene's kblas indices of the unique BLASes
+    (sorted); inst_idx [ninst] i32 (numpy): instance slot -> entry of
+    uniq, so copies of a mesh share one table; aabb_w [ninst, 6] f32
+    (numpy): each instance's world AABB, the octant-0 root box's 8
+    corners under inst_transform (the same arithmetic as the JAX module);
+    aabb_dev: aabb_w on the scene's device.  An instance's scan walk reads
+    scene.kblas[uniq[u]] directly (see the module docstring).
+
+    The native route's, on the scene's device (:110-152): the unique
+    BLASes' tables concatenated unpadded in uniq order, nodef_cat [8 *
+    sum nk, 16] f32 with each leaf row's kleaf index (word 8, an f32
+    value) rewritten to its GLOBAL row of kleaf_cat [sum nl, 16, 4T] f32,
+    so that the single-instance kernels serve every instance; aabb8_cat
+    [ceil8(sum nl), 8] f32, the leaf boxes of kernel C; and per slot
+    inst_node_off [ninst] i32, the first row of its BLAS in nodef_cat,
+    and inst_nk [ninst] i32, its BLAS's rows per octant (an octant's
+    table starts at inst_node_off + oct * inst_nk)."""
 
     def __init__(self, scene):
         self.uniq = tuple(sorted(set(scene.inst_kblas)))
         self.ninst = len(scene.inst_kblas)
+        nodefs = [scene.kblas[b][0] for b in self.uniq]
+        kleafs = [scene.kblas[b][1] for b in self.uniq]
+        cat, boxes = [], []
+        leaf_acc = row_acc = 0
+        node_off, nk = [], []
+        for nd, kl in zip(nodefs, kleafs):
+            glob = nd.clone()
+            glob[:, 8] = torch.where(nd[:, 10] > 0,
+                                     nd[:, 8] + float(leaf_acc), nd[:, 8])
+            cat.append(glob)
+            node_off.append(row_acc)
+            nk.append(nd.shape[0] // 8)
+            rows0 = nd[:nk[-1]]
+            l0 = rows0[:, 10] > 0
+            ab = torch.zeros(kl.shape[0], 6, dtype=torch.float32,
+                             device=nd.device)
+            ab[rows0[l0, 8].to(torch.int64)] = rows0[l0, 0:6]
+            boxes.append(ab)
+            row_acc += nd.shape[0]
+            leaf_acc += kl.shape[0]
+        self.nodef_cat = torch.cat(cat).contiguous()
+        self.kleaf_cat = torch.cat(kleafs).contiguous()
+        self.aabb8_cat = torch.zeros(-(-leaf_acc // 8) * 8, 8,
+                                     dtype=torch.float32,
+                                     device=self.nodef_cat.device)
+        self.aabb8_cat[:leaf_acc, :6] = torch.cat(boxes)
+        self._node_off_u = np.asarray(node_off, np.int64)
+        self._nk_u = np.asarray(nk, np.int64)
         self.refit_aabbs(scene)
 
     def refit_aabbs(self, scene) -> "MultiTables":
         """Derive the per-slot fields anew from the scene's instance arrays
         (stream3_multi.py:169-189): the world AABBs from the (refitted)
-        transforms, and inst_idx from inst_kblas.  The JAX method
-        recomputes the AABBs alone; here a refit may also have moved each
-        BLAS to another slot (bvh/device.update_tlas).  The per-BLAS tables
-        are object-space and stay."""
+        transforms, and inst_idx, inst_node_off and inst_nk from
+        inst_kblas.  The JAX method recomputes the AABBs alone; here a
+        refit may also have moved each BLAS to another slot
+        (bvh/device.update_tlas).  The per-BLAS tables and their
+        concatenation are object-space and stay."""
         u_of = {b: i for i, b in enumerate(self.uniq)}
         self.inst_idx = np.asarray([u_of[b] for b in scene.inst_kblas],
                                    np.int32)
+        dev = scene.device
+        self.inst_node_off = torch.from_numpy(
+            self._node_off_u[self.inst_idx].astype(np.int32)).to(dev)
+        self.inst_nk = torch.from_numpy(
+            self._nk_u[self.inst_idx].astype(np.int32)).to(dev)
         aabbs = np.zeros((self.ninst, 6), np.float32)
         tf = scene.inst_transform.cpu().numpy()
         for i, bi in enumerate(scene.inst_kblas):
@@ -100,7 +173,7 @@ class MultiTables:
             aabbs[i, 0:3] = wc.min(0)
             aabbs[i, 3:6] = wc.max(0)
         self.aabb_w = aabbs
-        self.aabb_dev = torch.from_numpy(aabbs).to(scene.device)
+        self.aabb_dev = torch.from_numpy(aabbs).to(dev)
         return self
 
 
@@ -142,9 +215,15 @@ def _block_overlap(rows_w, aabb_w, tmin, tmax, live=None):
 
 
 def trace_rows_multi(scene, mt, rows_w, tmin, tmax, *, bcap_blocks=None,
-                     live=None, occl: bool = False, with_diag: bool = False):
+                     live=None, occl: bool = False, with_diag: bool = False,
+                     native: bool = False):
     """Many-instance trace of six world-space [N] rows: closest hit, or
     with occl an occlusion wave (t = 0 on occluded rays).
+
+    native: take the TLAS-native route (trace_rows_tlas) where
+    supports_native(mt) holds, as the reference does under
+    RADIANCE_MULTI=native (stream3_multi.py:269-274); its diag is
+    trace_rows_tlas's.  Otherwise the instance scan:
 
     bcap_blocks: per-instance block capacity (default: a quarter of the
     wave's blocks, at least G packets' worth), rounded up to whole groups
@@ -155,6 +234,9 @@ def trace_rows_multi(scene, mt, rows_w, tmin, tmax, *, bcap_blocks=None,
     With with_diag, returns (rec, diag): "instances_run", "pairs"
     (overlapping (block, instance) pairs), "flagged" (sub-wave packets
     flagged) and "poisoned" (rays)."""
+    if native and supports_native(mt):
+        return trace_rows_tlas(scene, mt, rows_w, tmin, tmax, live=live,
+                               occl=occl, with_diag=with_diag)
     n = rows_w[0].shape[0]
     dev = rows_w[0].device
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
@@ -234,3 +316,231 @@ def trace_rows_multi(scene, mt, rows_w, tmin, tmax, *, bcap_blocks=None,
         return rec
     return rec, {"instances_run": runs, "pairs": int(ov.sum()),
                  "flagged": flagged, "poisoned": int(bad.sum())}
+
+
+# ------------------------------------------------------ TLAS-native slots
+
+def supports_native(mt) -> bool:
+    """The native route applies when every GLOBAL leaf id of the
+    concatenated tables fits the packed word's leaf field
+    (stream3_multi.py:404-412; the same bound as stream3.supports)."""
+    return mt.kleaf_cat.shape[0] + 1 < W_LEAF_MAX
+
+
+def _prep_tlas(mt, inst_inv, rows_p, tmin, tmax, live_p, scap, *,
+               stable: bool):
+    """The native route's prep (stream3_multi.py:415-529).  A slot is a
+    (packet, instance) pair that survives the TLAS block cull, taken in
+    packet-major order into a pool of `scap`; each slot holds its packet's
+    rays moved into its instance's object space, dead lanes parked after
+    the transform, so the stream3 stages run unchanged over a per-slot
+    feature table.
+
+    smeta lanes: 0 the slot's own index (the kernels index the 32-ray
+    rows bscal and the refine/isect features through it), 1 alive, 2 its
+    octant table's first row in nodef_cat, 3 its packet (npk on an empty
+    slot), 4 its instance.  Returns (feats_t [16, scap * PKT], scal, smeta
+    (both sorted heavy-walk first, dead slots last), bscal [scap * 32,
+    16], order (the stable sort's permutation), pkt_of, inst_of, alive
+    (storage order), pool_of [npk] i32: packets with a slot that did not
+    fit)."""
+    f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    dev = rows_p[0].device
+    npk = rows_p[0].shape[0] // PKT
+    ninst = mt.ninst
+    ov = _block_overlap(rows_p, mt.aabb_dev, tmin, tmax, live=live_p)
+    valid0 = ov.view(npk, PKT // BLK, ninst).any(dim=1).reshape(-1)
+    rank = torch.cumsum(valid0.to(i64), 0) - 1
+    fit = valid0 & (rank < scap)
+    pair = torch.arange(npk * ninst, dtype=i64, device=dev)
+    pkt_ids, inst_ids = pair // ninst, pair % ninst
+    # the mode="drop" scatters of the reference: row scap takes the rest
+    sidx = torch.where(fit, rank, scap)
+    pkt_of = torch.full((scap + 1,), npk, dtype=i32, device=dev)
+    pkt_of[sidx] = pkt_ids.to(i32)
+    inst_of = torch.zeros(scap + 1, dtype=i32, device=dev)
+    inst_of[sidx] = inst_ids.to(i32)
+    valid = torch.zeros(scap + 1, dtype=torch.bool, device=dev)
+    valid[sidx] = True
+    pkt_of, inst_of, valid = pkt_of[:scap], inst_of[:scap], valid[:scap]
+    pool_of = torch.zeros(npk, dtype=i32, device=dev).scatter_reduce(
+        0, pkt_ids, (valid0 & ~fit).to(i32), "amax")
+
+    pc = torch.clamp(pkt_of, max=npk - 1).to(i64)
+    gw = [r.view(npk, PKT)[pc] for r in rows_p]             # [scap, PKT]
+    live_s = valid[:, None].expand(scap, PKT)
+    if live_p is not None:
+        live_s = live_s & live_p.view(npk, PKT)[pc]
+    m = inst_inv[inst_of.to(i64)].to(f32)                   # [scap, 4, 4]
+
+    def mc(r, c):
+        return m[:, r, c, None]
+
+    # elementwise f32, as the reference: no product may round through TF32
+    ox = mc(0, 0) * gw[0] + mc(0, 1) * gw[1] + mc(0, 2) * gw[2] + mc(0, 3)
+    oy = mc(1, 0) * gw[0] + mc(1, 1) * gw[1] + mc(1, 2) * gw[2] + mc(1, 3)
+    oz = mc(2, 0) * gw[0] + mc(2, 1) * gw[1] + mc(2, 2) * gw[2] + mc(2, 3)
+    dx = mc(0, 0) * gw[3] + mc(0, 1) * gw[4] + mc(0, 2) * gw[5]
+    dy = mc(1, 0) * gw[3] + mc(1, 1) * gw[4] + mc(1, 2) * gw[5]
+    dz = mc(2, 0) * gw[3] + mc(2, 1) * gw[4] + mc(2, 2) * gw[5]
+    # parked after the transform: garbage world rays would reach the
+    # frusta through inf/nan arithmetic
+    rows_o = tuple(torch.where(live_s, v, p).reshape(-1) for v, p in
+                   ((ox, BIG), (oy, BIG), (oz, BIG), (dx, 1.0), (dy, 1.0),
+                    (dz, 1.0)))
+    ox, oy, oz, dx, dy, dz = rows_o
+    ones = torch.ones_like(ox)
+    zeros = torch.zeros_like(ox)
+    if stable:
+        # the isect stage computes the ray moment per leaf as (o - c) x d
+        mx = my = mz = zeros
+    else:
+        mx = oy * dz - oz * dy
+        my = oz * dx - ox * dz
+        mz = ox * dy - oy * dx
+    feats_t = torch.stack([dx, dy, dz, mx, my, mz, ox, oy, oz, ones,
+                           zeros, zeros, zeros, zeros, zeros, zeros])
+
+    # the slot frusta and their 32-ray sub-frusta: kernel F over the slot
+    # rows (its whole-packet scalars are the reference's _group_scalars)
+    _, _, scal, bscal = octant_scalars(rows_o, live_s.reshape(-1), scap)
+    oct_full = ((scal[:, 0] < 0).to(i32) + 2 * (scal[:, 1] < 0).to(i32)
+                + 4 * (scal[:, 2] < 0).to(i32))
+    i_of = inst_of.to(i64)
+    alive = valid & live_s.any(dim=1)
+    smeta = torch.zeros(scap, 8, dtype=i32, device=dev)
+    smeta[:, 0] = torch.arange(scap, dtype=i32, device=dev)
+    smeta[:, 1] = alive.to(i32)
+    smeta[:, 2] = mt.inst_node_off[i_of] + oct_full * mt.inst_nk[i_of]
+    smeta[:, 3] = pkt_of
+    smeta[:, 4] = inst_of
+    # slots sorted by a walk-length proxy, heavy first; dead slots last
+    # (stable: jnp.argsort is)
+    spread = scal[:, 6:9] - scal[:, 3:6]
+    score = (torch.log2(torch.clamp(scal[:, 12:15], 1.0, 1e8)).sum(dim=1)
+             + torch.log2(torch.clamp(spread, 1e-3, 1e4)).sum(dim=1))
+    score = torch.where(alive, score, -BIG)
+    order = torch.argsort(-score, stable=True)
+    return (feats_t, scal[order], smeta[order], bscal, order, pkt_of,
+            inst_of, alive, pool_of)
+
+
+def _glue_tlas(out_u, pkt_of, inst_of, alive, npk, n) -> HitRecord:
+    """Fold storage-order slot results [scap, PKT, 4] into per-ray winners
+    (stream3_multi.py:532-571): t is the minimum over the ray's slots
+    (through its float bits), and prim, b1, b2 and the instance each the
+    maximum over the slots whose t equals that minimum, field by field
+    (the reference's tie rule; exact t ties between two surfaces are
+    measure-zero)."""
+    f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    dev = out_u.device
+    kx = torch.where(alive[:, None], out_u[:, :, 0], FMAX).view(i32)
+    # row npk takes the dead slots (the reference's mode="drop")
+    rows = torch.where(alive, pkt_of, npk).to(i64)[:, None].expand(-1, PKT)
+    fmax_bits = torch.tensor(FMAX, dtype=f32).view(i32).item()
+    kmin = torch.full((npk + 1, PKT), fmax_bits, dtype=i32, device=dev) \
+        .scatter_reduce(0, rows, kx, "amin")[:npk]
+    km_g = kmin[torch.clamp(pkt_of, max=npk - 1).to(i64)]
+    match = alive[:, None] & (kx == km_g)
+
+    def fold(src, fill):
+        init = torch.full((npk + 1, PKT), fill, dtype=src.dtype, device=dev)
+        return init.scatter_reduce(0, rows, torch.where(match, src, fill),
+                                   "amax")[:npk].reshape(-1)[:n]
+
+    prim = fold(out_u[:, :, 1], -FMAX)
+    b1 = fold(out_u[:, :, 2], -FMAX)
+    b2 = fold(out_u[:, :, 3], -FMAX)
+    inst = fold(inst_of[:, None].expand(-1, PKT), -1)
+    t = kmin.view(f32).reshape(-1)[:n]
+    hit = (t < FLT_MAX) & (prim >= 0.0)
+    return HitRecord(t=torch.where(hit, t, FLT_MAX),
+                     prim=torch.where(hit, prim.to(i32), -1),
+                     slot=torch.where(hit, inst, -1),
+                     b1=torch.where(hit, b1, 0.0),
+                     b2=torch.where(hit, b2, 0.0))
+
+
+def trace_rows_tlas(scene, mt, rows_w, tmin, tmax, *, live=None,
+                    occl: bool = False, scap=None, blk_bound=None,
+                    with_diag: bool = False):
+    """TLAS-native many-instance trace of six world-space [N] rows
+    (stream3_multi.py:574-761): closest hit, or with occl an occlusion
+    wave (t = 0 on occluded rays).  Check supports_native(mt).
+
+    One launch each of kernel F (the slot frusta), B (emit over
+    nodef_cat), C (refine over aabb8_cat), A (the features, ray-major)
+    and D, or E on occlusion waves (over kleaf_cat) serves every (packet,
+    instance) slot of the wave; _glue_tlas folds the slots into per-ray
+    hits.  scap: the slot pool (default the reference's: every pair when
+    npk * ninst is small, else 2 slots a packet, at least 1024), rounded
+    up to a multiple of 8 and at least G.  Every packet flagged by the
+    pipeline (a slot walk cut at STEP_CAP, a word list past PCAP, a slot
+    that did not fit the pool) is re-traced exactly through the
+    per-instance packet sweeps (stream3.retrace_flagged), so no ray is
+    poisoned.  `live` ([N] bool) masks dead lanes out of the cull and
+    every slot frustum; dead lanes report a miss.
+
+    blk_bound is not accepted: the temporal t-bounds of stream3 are not
+    ported, and the reference's native route leans on them
+    (stream3._apply_block_bound, _tb_residual).
+
+    With with_diag, returns (rec, diag): "slots_alive", "scap",
+    "pool_overflow" (packets with a slot past scap), "flagged" (packets
+    re-traced), "residual_rays", "words", "kept_words", "steps" (slot walk
+    nodes) and "capped" (slots cut at STEP_CAP)."""
+    if blk_bound is not None:
+        raise ValueError("trace_rows_tlas: temporal t-bounds (blk_bound) "
+                         "are not ported")
+    n = rows_w[0].shape[0]
+    if live is not None:
+        live = live.bool()
+        rows_w = s3.park_dead(rows_w, live)
+    else:
+        rows_w = tuple(r.to(torch.float32) for r in rows_w)
+    rows_p, live_p = s3._pad_wave(rows_w, live)
+    npk = rows_p[0].shape[0] // PKT
+    if scap is None:
+        scap = min(npk * mt.ninst, max(npk * 2, 1024))
+    scap = max(-(-int(scap) // 8) * 8, G)
+    stable = bool(scene.stable_frames)
+    (feats_t, scal, smeta, bscal, order, pkt_of, inst_of, alive,
+     pool_of) = _prep_tlas(mt, scene.inst_inv[:mt.ninst], rows_p, tmin,
+                           tmax, live_p, scap, stable=stable)
+    words, emeta = stage_emit(scal, smeta, bscal, mt.nodef_cat, tmax,
+                              step_cap=s3.STEP_CAP, pcap=PCAP)
+    slot_pkt = smeta[:, 0].contiguous()
+    words_i, emeta_i = stage_refine(words, emeta, slot_pkt, feats_t,
+                                    mt.aabb8_cat, tmax, pcap=PCAP)
+    feats = feats_rows_to_major(feats_t)
+    out_s = stage_isect(words_i, emeta_i, slot_pkt, feats, mt.kleaf_cat,
+                        tmin, tmax, stable=stable, pcap=PCAP, occl=occl)
+    inv_order = torch.empty_like(order)
+    inv_order[order] = torch.arange(order.shape[0], device=order.device)
+    rec = _glue_tlas(out_s[inv_order], pkt_of, inst_of, alive, npk, n)
+
+    # truncation flags (sorted slot space; smeta lane 3 is the packet)
+    alive_s = smeta[:, 1] > 0
+    trunc = alive_s & ((emeta[:, 1] > 0) | (emeta[:, 0] > PCAP))
+    pkt_flag = torch.zeros(npk + 1, dtype=torch.int32,
+                           device=alive_s.device).scatter_reduce(
+        0, smeta[:, 3].to(torch.int64), trunc.to(torch.int32), "amax")
+    pkt_flag = torch.maximum(pool_of, pkt_flag[:npk])
+    n_flag, n_res = retrace_flagged(
+        rec, rows_w, pkt_flag, occl,
+        lambda o, d: packet_trace.trace_rays_packet_multi(
+            scene, o, d, tmin, tmax, any_hit=occl))
+    if live is not None:
+        rec = rec.masked_miss(~live)
+    if not with_diag:
+        return rec
+    a64 = alive_s.to(torch.int64)
+    return rec, {
+        "slots_alive": int(alive.sum()), "scap": scap,
+        "pool_overflow": int((pool_of > 0).sum()),
+        "flagged": n_flag, "residual_rays": n_res,
+        "words": int((torch.clamp(emeta[:, 0], max=PCAP) * a64).sum()),
+        "kept_words": int((torch.clamp(emeta_i[:, 0], max=PCAP)
+                           * a64).sum()),
+        "steps": int(emeta[:, 2].to(torch.int64).sum()),
+        "capped": int(((emeta[:, 1] > 0) & alive_s).sum())}

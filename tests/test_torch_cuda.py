@@ -1,8 +1,8 @@
 """The CUDA kernels vs their plain PyTorch versions, on the card: the
 packet-trace kernel and the stream3 pipeline's six kernels (the two
 transposes, emit walk, exact refine, closest-hit and occlusion pair
-intersection, prep octant scalars), the many-instance scan on the
-card against its CPU route, and sample1's RD-API route against a direct
+intersection, prep octant scalars), the many-instance scan and the
+TLAS-native route on the card against their CPU routes, and sample1's RD-API route against a direct
 render of the same inputs.
 
 Every case is marked `gpu` and skips (with the reason) where no CUDA
@@ -707,6 +707,62 @@ def test_trace_rows_multi_on_card_matches_cpu(cuda, occl):
     ok = (got.slot != -2).cpu().numpy()
     assert ((sweeps.t.cpu().numpy() < FLT_MAX)
             == (got.t.cpu().numpy() < FLT_MAX))[ok].mean() >= 0.999
+
+
+def _tlas_scene(dev, n_inst=9, n_uniq=3, tris_per=400, seed=7):
+    """n_inst instances of n_uniq shared BLASes under rotation, scale and
+    placement (tests/test_torch_stream3_tlas.py's kind of scene)."""
+    rng = np.random.default_rng(seed)
+    blases = []
+    for _ in range(n_uniq):
+        c = rng.uniform(-2, 2, (tris_per, 3)).astype(np.float32)
+        v = (c[:, None, :] + rng.normal(scale=0.35, size=(tris_per, 3, 3))
+             .astype(np.float32)).reshape(-1, 3)
+        blases.append(accel.BuildBottomAccelStruct(types.Mesh(
+            v, np.arange(len(v), dtype=np.uint32).reshape(-1, 3))))
+    insts = []
+    for i in range(n_inst):
+        q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        tf = np.eye(4, dtype=np.float32)
+        tf[:3, :3] = q * rng.uniform(0.5, 2.0)
+        tf[:3, 3] = rng.uniform(-10, 10, 3)
+        insts.append(types.Instance(tf, 0, i, blases[i % n_uniq]))
+    return accel.BuildTopAccelStruct(insts).device_scene(dev)
+
+
+@pytest.mark.parametrize("occl", [False, True])
+def test_trace_rows_tlas_on_card_matches_cpu(cuda, occl):
+    """The TLAS-native route on the card (one launch each of F, B, C, A and
+    D or E over the wave's slots, the packet kernel in its residual)
+    against its CPU route (the plain versions) on the same small scene;
+    a pool of 64 slots forces the residual on both."""
+    o, d = _rays(3, 12000, 14.0)
+    out, diags = {}, {}
+    for dev in ("cpu", cuda):
+        ds = _tlas_scene(dev)
+        stg.reset_launches()
+        pk_before = sum(pk.packet_trace_cuda.launches.values())
+        rows = s3.rows_from_aos(torch.from_numpy(o).to(dev),
+                                torch.from_numpy(d).to(dev))
+        mt = s3m.multi_tables(ds)
+        assert s3m.supports_native(mt)
+        out[str(dev)], diags[str(dev)] = s3m.trace_rows_tlas(
+            ds, mt, rows, 1e-3, 1e3, occl=occl, scap=64, with_diag=True)
+    torch.cuda.synchronize()
+    for k in ("oscal", "emit", "refine", "transpose"):
+        assert getattr(stg, f"{k}_cuda").launches == 1, k
+    assert stg.isect_occl_cuda.launches == int(occl)
+    assert stg.isect_cuda.launches == int(not occl)
+    assert sum(pk.packet_trace_cuda.launches.values()) > pk_before
+    got, ref = out["cuda"], out["cpu"]
+    assert diags["cuda"] == diags["cpu"] and diags["cpu"]["flagged"] > 0
+    assert (got.slot != -2).all()
+    hit = _agree(ref, got, occl)
+    assert hit.mean() > 0.01
+    if not occl:
+        both = (ref.t < FLT_MAX).numpy() & hit
+        assert (got.slot.cpu().numpy() == ref.slot.numpy())[both].mean() \
+            >= 0.999
 
 
 # ------------------------------------------- packet kernel: edge cases
