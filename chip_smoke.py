@@ -124,13 +124,36 @@ prints no result):
      build's; (d) the 1080p primary at 2, 4, 8, 9, 16 and 64 instances
      of multi64 through the sweeps, the scan and the native route (for
      the route thresholds; measured only);
- 11. the kernels' JSON line (per kernel: the main path's launches, the
+ 11. temporal t-bounds (stream3's blk_bound, both many-instance routes,
+     the engine's tbound frames), their launch counts set to 0 just
+     before and read just after each bounded run: (a) bench.py's
+     interior hall (the port's interior_hall, 1M triangles, SAH, one
+     instance); (b) bench.py --tbound's shape wave by wave: 4 jittered
+     1920x1080 primary waves of the interior, each after the first
+     bounded by the previous one's block_bound_from_t, sample 1 against
+     its unbounded trace (bench's exactness test and the parity bars, no
+     slot -2), the bounded and unbounded chains timed with CUDA events
+     and printed under bench's metric names, and for each bounded sample
+     the (word, block) pairs before and after the cull, the temporal
+     residual against its cap, and D's launch with and without the
+     bound (torch.profiler), the bounded launch held against its plain
+     version; (c) engine frames of the interior at 1920x1080, batch 4,
+     depth 4, with tbound off and on, frames at total_samples 0 then 4,
+     warm, their accumulations allclose (rtol 1e-3, atol 1e-4) and
+     images within u8 RMSE 0.5; (d) multi64's 1080p primary and shadow
+     waves on the scan and the native route, bounded by the previous
+     identical (closest-hit) trace and equal to the unbounded ones, then
+     bounded by 0.5 on every block with the residual's floor at 8 rays,
+     through the engine's _traced_wavefront: the unbounded hits, no slot
+     below -1;
+ 12. the kernels' JSON line (per kernel: the main path's launches, the
      per-launch means of kernel ms, plain ms and bound and their sums,
      by scene where a kernel runs in several; A from phase 5, B and C
      also phase 5's 1080p wave, F phase 7's masked 1080p rows; each
-     phase 8 path's launches, phase 9's and phase 10's, and phase 10's
-     launch of each on the native 1080p waves), the card line, and the
-     contract's last line.
+     phase 8 path's launches, phase 9's, phase 10's and phase 11's,
+     phase 10's launch of each on the native 1080p waves, and D's
+     bounded launch on phase 11's interior waves), the card line, and
+     the contract's last line.
 
 Imports nothing of JAX or radiance_tpu (bench.py's numpy-only scene
 helpers are reused).  Needs one CUDA card; exits 2 without one.
@@ -1035,9 +1058,13 @@ def make_tracer():
                                sbt=sbt)
 
 
-def city_resources(dev, verts, tris, w, h, mesh_infos=None):
+def city_resources(dev, verts, tris, w, h, mesh_infos=None,
+                   eye=(0.0, 0.0, 140.0),
+                   light=(0.26726124, 0.8017837, 0.5345225)):
     """bench._engine_setup's bindings and camera, on the port; mesh_infos
-    (default: one mesh) map instance ids to the meshes of verts/tris."""
+    (default: one mesh) map instance ids to the meshes of verts/tris.
+    eye: the pinhole camera's position (it looks down -z); light: the
+    directional light's travel direction."""
     from radiance_tpu_torch.core import types
     from radiance_tpu_torch.scene import bindings
     from radiance_tpu_torch.shading import camera
@@ -1052,11 +1079,12 @@ def city_resources(dev, verts, tris, w, h, mesh_infos=None):
         normals,
         [types.Material(albedo=(0.7, 0.7, 0.7, 1.0), roughness=0.6)],
         types.SceneProperties(lights=[types.DirLight(
-            direction=(0.26726124, 0.8017837, 0.5345225, 0.0),
-            color=(3.0, 3.0, 3.0, 1.0))]), device=dev)
+            direction=(*light, 0.0), color=(3.0, 3.0, 3.0, 1.0))]),
+        device=dev)
     res["camera"] = camera.camera_params(types.PhysicalCamera(
         width_pixel=float(w), height_pixel=float(h), focal_length=0.035,
-        sensor_width=0.05, focal_distance=80.0, z=140.0), dev)
+        sensor_width=0.05, focal_distance=80.0, x=eye[0], y=eye[1],
+        z=eye[2]), dev)
     return res
 
 
@@ -2322,6 +2350,416 @@ def tlas_native(dev, card, tracer, light, pk, s3, s3m, stg):
     return out
 
 
+# ---- phase 11: temporal t-bounds -----------------------------------------
+
+INTERIOR_TRIS = 1_000_000     # bench.py's N_TRIS (bench.py --tbound)
+TB_SAMPLES = 4                # bench.py's RADIANCE_TB_SAMPLES
+TB_TMAX = 1e4                 # bench.py --tbound's tmax (bench.py:840-845)
+TB_LOW_CAP = 8                # TB_RES_RAYS for (d)'s overflow, as
+                              # tests/test_engine.py:275-321 sets it
+TB_STAGES = ("_stage_prep", "stage_emit", "stage_refine",
+             "_apply_block_bound", "feats_rows_to_major", "stage_isect",
+             "_stage_glue", "_run", "retrace_flagged", "_tb_residual",
+             "trace_rows_stream3")
+
+
+def interior_rays(dev, w, h, jitter, pcg3d):
+    """bench.camera_rays for the interior scene (bench.py:192-228): tile-
+    ordered 32x32-pixel packets from (0, 6, 46) with the engine's per-
+    pixel PCG sub-pixel jitter of sample `jitter` (pcg3d: bench's numpy
+    _pcg3d_np)."""
+    n = w * h
+    ts = 32
+    px = np.arange(n, dtype=np.int64) % w
+    py = np.arange(n, dtype=np.int64) // w
+    tile = (py // ts) * (w // ts) + (px // ts)
+    order = np.argsort(tile * 1024 + (py % ts) * ts + (px % ts))
+    rnd = pcg3d(np.stack(
+        [np.full(n, jitter, np.uint32), np.zeros(n, np.uint32),
+         order.astype(np.uint32)], -1))
+    jx, jy = rnd[:, 0] - 0.5, rnd[:, 1] - 0.5
+    xs = (px[order] + jx) / w - 0.5
+    ys = (py[order] + jy) / h - 0.5
+    o = np.zeros((n, 3), np.float32)
+    o[:, 1] = 6.0
+    o[:, 2] = 46.0
+    d = np.stack([xs * 1.2, ys * 0.7, np.full(n, -1.0)], axis=-1)
+    d = d.astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+
+
+def interior_light():
+    """bench.light_vec() for the interior (bench.py:232-237): the unit
+    to-light direction, up through the ceiling's window openings."""
+    v = np.array([0.15, 1.0, 0.05], np.float64)
+    return (v / np.linalg.norm(v)).astype(np.float32)
+
+
+def tb_diag(diag):
+    """The temporal counters of a bounded trace's diag, as ints."""
+    return {k: int(diag[k]) for k in ("block_pairs", "block_pairs_bounded",
+                                      "tb_residual", "tb_cap", "tb_marked")}
+
+
+def bounded_launch(s3, stg, pk, fn, hold):
+    """One trace under torch.profiler with every kernel dispatcher's call
+    recorded: D's kernel ms (its one launch) and the packet kernel's
+    launches' ms; with hold, D held against its plain version on its
+    recorded arguments and bounded (isect_launch)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with Calls(pk, s3, keep_args=hold) as calls, profile(
+            activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ms = launch_ms(prof, calls.calls)
+    if len(ms["isect"]) != 1:
+        raise AssertionError(f"a 1080p wave launched D {len(ms['isect'])} "
+                             f"times")
+    r = dict(ms=ms["isect"][0], packet_ms=ms["packet_trace"])
+    if hold:
+        (_, a, k, res), = calls.calls["isect"]
+        h = isect_launch(stg, a + (k["pcap"], k["stable"]), res)
+        hold_prims("D on the bounded 1080p wave vs plain", h["t_k"],
+                   h["prim_k"], h["t_p"], h["prim_p"])
+        r.update(plain_ms=h["plain_ms"], bound_ms=h["bound"][0],
+                 bound_by=h["bound"][1], words=h["words"])
+    return out, r
+
+
+def temporal_bounds(dev, card, tracer, bench, pk, s3, s3m, stg):
+    """Phase 11: temporal t-bounds.  (a) bench.py's interior hall at
+    INTERIOR_TRIS triangles (the port's interior_hall, SAH, one instance);
+    (b) bench.py --tbound's shape wave by wave: TB_SAMPLES jittered
+    1080p primary waves, each after the first bounded by the previous
+    one's block_bound_from_t, against the unbounded traces, timed as
+    chains with CUDA events, D's launch with and without the bound from
+    torch.profiler and the bounded one held against its plain version;
+    (c) engine frames of the interior at 1080p, batch 4, depth 4, with
+    and without tbound, two frames each (total_samples 0, then 4), warm;
+    (d) multi64's 1080p primary and shadow waves on the scan and on the
+    native route, bounded by the previous identical trace, then by 0.5
+    on every block with the residual's floor at TB_LOW_CAP, through the
+    engine's _traced_wavefront.  Launch counts: every bounded run and the
+    frames of (c).  Returns the counts and the phase's metrics."""
+    from radiance_tpu_torch.api import accel
+    from radiance_tpu_torch.core import math as rmath
+    from radiance_tpu_torch.core import types
+    from radiance_tpu_torch.engine import pathtracer
+    from radiance_tpu_torch.ops.intersect import FLT_MAX
+    from radiance_tpu_torch.scene import procedural
+
+    total, out = {}, {}
+    n = W * H
+
+    # (a) the interior hall
+    t0 = time.time()
+    verts, tris, meta = procedural.interior_hall(INTERIOR_TRIS)
+    tg = time.time() - t0
+    blas = accel.BuildBottomAccelStruct(types.Mesh(verts, tris))
+    tlas = accel.BuildTopAccelStruct(
+        [types.Instance(np.eye(4, dtype=np.float32), 0, 0, blas)])
+    scene = tlas.device_scene(dev)
+    torch.cuda.synchronize()
+    if not s3.supports(scene):
+        raise AssertionError("the interior's leaves do not fit stream3")
+    mib = sum(x.numel() * x.element_size()
+              for x in (scene.knode_f, scene.kleaf)) / 2 ** 20
+    out["scene"] = dict(tris=int(len(tris)), leaves=int(scene.kleaf.shape[0]),
+                        table_mib=mib, meta_camera=meta["camera_origin"])
+    log(f"[11] (a) interior hall: {len(tris)} tris (geometry {tg:.1f} s, "
+        f"SAH and tables {time.time() - t0 - tg:.1f} s), "
+        f"{scene.kleaf.shape[0]} leaves, knode_f + kleaf {mib:.1f} MiB; "
+        f"camera origin {meta['camera_origin']}")
+
+    # (b) bench.py --tbound, wave by wave
+    t1 = time.time()
+    rows = []
+    for s in range(TB_SAMPLES):
+        o, d = interior_rays(dev, W, H, s, bench._pcg3d_np)
+        rows.append(s3.rows_from_aos_fast(o, d))
+    del o, d
+
+    def free(r):
+        return s3.trace_rows_stream3(scene, r, TMIN, TB_TMAX)
+
+    def bounded(r, bb, diag=False):
+        return s3.trace_rows_stream3(scene, r, TMIN, TB_TMAX, blk_bound=bb,
+                                     with_diag=diag)
+
+    rec0 = free(rows[0])
+    rec1b, dg1 = driven(pk, stg, total, lambda: bounded(
+        rows[1], s3.block_bound_from_t(rec0.t), True))
+    rec1f = free(rows[1])
+    hit_b, hit_f = rec1b.hit, rec1f.hit
+    close = torch.isclose(rec1b.t, rec1f.t, rtol=2e-3, atol=1e-3)
+    mism = (hit_b != hit_f) | (hit_b & hit_f & ~close)
+    exact_frac = 1.0 - float(mism.float().mean())
+    log(f"[11] (b) tbound validation: {int(mism.sum())}/{n} rays differ from "
+        f"the unbounded trace (exact_frac {exact_frac:.7f}); sample 1 "
+        f"{json.dumps(tb_diag(dg1))}")
+    if float(mism.float().mean()) > 1e-4:
+        raise AssertionError(f"bounded trace diverged on {int(mism.sum())}"
+                             f"/{n} rays")
+    hold_prims("interior sample 1, bounded vs unbounded", rec1b.t,
+               rec1b.prim, rec1f.t, rec1f.prim)
+    if int(dg1["tb_marked"]) or bool((rec1b.slot == -2).any()):
+        raise AssertionError(f"the bounded wave marked rays -2 at the "
+                             f"default cap: {tb_diag(dg1)}")
+    del rec1b, rec1f, hit_b, hit_f, close, mism
+
+    def chain(bound_it):
+        rec = free(rows[0])
+        for s in range(1, TB_SAMPLES):
+            rec = (bounded(rows[s], s3.block_bound_from_t(rec.t)) if bound_it
+                   else free(rows[s]))
+        return rec
+
+    driven(pk, stg, total, lambda: chain(True))           # warm
+    dt_b, _ = driven(pk, stg, total, lambda: cuda_ms(lambda: chain(True), 3,
+                                                     warmup=False))
+    dt_f, _ = cuda_ms(lambda: chain(False), 3)
+    dt_b, dt_f = dt_b / TB_SAMPLES, dt_f / TB_SAMPLES
+    metric = {"metric": "tbound_primary_mrays_per_sec_interior",
+              "value": n / dt_b / 1e3, "unit": "Mrays/s",
+              "unbounded_mrays": n / dt_f / 1e3, "speedup": dt_f / dt_b,
+              "exact_frac": exact_frac, "samples": TB_SAMPLES, "w": W,
+              "h": H}
+    log(f"[11] (b) bench.py --tbound's line ({card}): {json.dumps(metric)}")
+    out["bench"] = metric
+    # where a wave's time goes, bounded (by sample 0) and unbounded
+    # (sample 1's rays, warm, CUDA events around each stage)
+    bb0 = s3.block_bound_from_t(rec0.t)
+    spans = {}
+    for name, fn in (("bounded", lambda: bounded(rows[1], bb0)),
+                     ("unbounded", lambda: free(rows[1]))):
+        fn()
+        _, ms, _ = call_spans(s3, TB_STAGES, fn)
+        spans[name] = {k: round(sum(v), 4) for k, v in ms.items() if v}
+        log(f"[11] (b) {name} wave by stage (ms, CUDA events, {card}): "
+            f"{json.dumps(spans[name])}")
+    out["stages"] = spans
+
+    # each bounded sample: the cull's pairs, the residual against its
+    # cap, and D with and without the bound (torch.profiler)
+    per_sample = []
+    prev = rec0
+    for s in range(1, TB_SAMPLES):
+        bb = s3.block_bound_from_t(prev.t)
+        (rec, dg), d_b = driven(pk, stg, total, lambda: bounded_launch(
+            s3, stg, pk, lambda: bounded(rows[s], bb, True), hold=True))
+        _, d_f = bounded_launch(s3, stg, pk, lambda: free(rows[s]),
+                                hold=False)
+        row = dict(sample=s, **tb_diag(dg), d_bounded_ms=d_b["ms"],
+                   d_unbounded_ms=d_f["ms"], d_plain_ms=d_b["plain_ms"],
+                   d_bound_ms=d_b["bound_ms"], d_bound_by=d_b["bound_by"],
+                   residual_packet_ms=sum(d_b["packet_ms"]),
+                   residual_packet_launches=len(d_b["packet_ms"]),
+                   flagged=int(dg["flagged"]))
+        per_sample.append(row)
+        log(f"[11] (b) sample {s} ({card}): pairs {row['block_pairs']} -> "
+            f"{row['block_pairs_bounded']} "
+            f"({1 - row['block_pairs_bounded'] / row['block_pairs']:.4f} "
+            f"culled); temporal residual {row['tb_residual']} rays of a cap "
+            f"of {row['tb_cap']} ({row['tb_residual'] / n:.5f} of the "
+            f"wave), marked -2 {row['tb_marked']}; D bounded "
+            f"{d_b['ms']:.4f} ms, unbounded {d_f['ms']:.4f} ms, plain "
+            f"{d_b['plain_ms']:.1f} ms, bound {d_b['bound_ms']:.4f} ms "
+            f"({d_b['bound_by']}); the residual's packet kernel "
+            f"{row['residual_packet_ms']:.4f} ms in "
+            f"{row['residual_packet_launches']} launches")
+        if row["tb_marked"]:
+            raise AssertionError(f"sample {s} marked rays -2: {row}")
+        prev = rec
+    out["samples"] = per_sample
+    isect = {k: sum(r[src] for r in per_sample) / len(per_sample)
+             for k, src in (("ms", "d_bounded_ms"),
+                            ("unbounded_ms", "d_unbounded_ms"),
+                            ("plain_ms", "d_plain_ms"),
+                            ("bound_ms", "d_bound_ms"),
+                            ("block_pairs", "block_pairs"),
+                            ("block_pairs_bounded", "block_pairs_bounded"))}
+    isect["bound_by"] = per_sample[-1]["d_bound_by"]
+    out["isect_1080p"] = isect
+    del rows, rec0, prev, rec
+    log(f"[11] (b) done in {time.time() - t1:.1f} s")
+
+    # (c) engine frames on the interior, with and without tbound
+    t1 = time.time()
+    light = interior_light()
+    res = city_resources(dev, verts, tris, W, H, eye=meta["camera_origin"],
+                         light=tuple(float(-x) for x in light))
+    frames = {}
+    for tb in (False, True):
+        tr = dataclasses.replace(tracer, tbound=tb)
+        count = ((lambda f: driven(pk, stg, total, f)) if tb
+                 else (lambda f: f()))
+        # warm, recording each primary wave's counters
+        waves = []
+        real = s3.trace_rows_stream3
+
+        def recorded(*a, **k):
+            rec_w, dg = real(*a, **dict(k, with_diag=True))
+            waves.append({kk: int(dg[kk]) for kk in (
+                "flagged", "residual_rays", "block_pairs",
+                "block_pairs_bounded", "tb_residual", "tb_marked")
+                if kk in dg})
+            return rec_w
+
+        s3.trace_rows_stream3 = recorded
+        try:
+            count(lambda: tr.render(scene, res, torch.zeros(n, 3, device=dev),
+                                    0, W, H, batch=4, depth=4))
+        finally:
+            s3.trace_rows_stream3 = real
+        torch.cuda.synchronize()
+        log(f"    tbound {tb}: the warm frame's primary waves "
+            f"{json.dumps(waves)}")
+        accum = torch.zeros(n, 3, device=dev)
+        ms, prim = [], []
+        for ts in (0, 4):
+            tf0 = time.time()
+            (accum, image), spans, _ = count(lambda: call_spans(
+                s3, ("trace_rows_stream3",),
+                lambda: tr.render(scene, res, accum, ts, W, H, batch=4,
+                                  depth=4)))
+            ms.append((time.time() - tf0) * 1e3)
+            prim.append(spans["trace_rows_stream3"])
+        frames[tb] = dict(ms=ms, primary_ms=prim, warm_waves=waves,
+                          accum=accum, image=image)
+        log(f"[11] (c) interior frame 1920x1080 batch 4 depth 4, tbound "
+            f"{tb} ({card}): {', '.join(f'{m:.1f}' for m in ms)} ms; primary "
+            f"waves (ms, CUDA events) "
+            f"{json.dumps([[round(x, 4) for x in p] for p in prim])}")
+    check_frame("interior tbound", frames[True]["accum"],
+                frames[True]["image"], n)
+    a_t, a_f = frames[True]["accum"], frames[False]["accum"]
+    i_t, i_f = frames[True]["image"], frames[False]["image"]
+    rmse = float((i_t[..., :3].float() - i_f[..., :3].float()).pow(2)
+                 .mean().sqrt())
+    differ = int((i_t != i_f).any(dim=-1).sum())
+    log(f"[11] (c) tbound against unbounded: accum max |diff| "
+        f"{float((a_t - a_f).abs().max()):.3e}, u8 RMSE {rmse:.4f}, "
+        f"{differ} pixels differ ({time.time() - t1:.1f} s)")
+    if not torch.allclose(a_t, a_f, rtol=1e-3, atol=1e-4) or rmse > 0.5:
+        raise AssertionError(f"bounded frames differ from unbounded: RMSE "
+                             f"{rmse}, {differ} pixels")
+    out["frames"] = {str(k): {m: v for m, v in f.items()
+                              if m not in ("accum", "image")}
+                     for k, f in frames.items()}
+    out["frames"].update(rmse=rmse, pixels_differ=differ)
+    del frames, a_t, a_f, i_t, i_f, res, scene, tlas, blas
+
+    # (d) the many-instance routes
+    t1 = time.time()
+    mscene, _, _ = multi64_scene(dev, W, H)
+    mt = s3m.multi_tables(mscene)
+    o1, d1 = camera_rays(dev, W, H)
+    mrows = s3.rows_from_aos_fast(o1, d1)
+    mlight = torch.from_numpy(bench.light_vec()).to(dev).expand(n, 3) \
+        .contiguous()
+    out["multi"] = {}
+    for route in ("scan", "native"):
+        native = route == "native"
+
+        def trace(r, **kw):
+            return s3m.trace_rows_multi(mscene, mt, r, TMIN, TMAX,
+                                        native=native, **kw)
+
+        base = trace(mrows)
+        ok = base.slot != -2
+        rec, dg = driven(pk, stg, total, lambda: trace(
+            mrows, blk_bound=s3.block_bound_from_t(
+                torch.where(ok, base.t, FLT_MAX)), with_diag=True))
+        agree = {f: float((getattr(rec, f) == getattr(base, f))[ok]
+                          .float().mean()) for f in ("prim", "slot")}
+        agree["hit"] = float((rec.hit == base.hit)[ok].float().mean())
+        if min(agree.values()) < 1.0 or int(dg["tb_marked"]):
+            raise AssertionError(f"{route} primary: bounded differs from "
+                                 f"unbounded: {agree}, {tb_diag(dg)}")
+        # the shadow wave, bounded by the closest hits of the same rays
+        so, _ = bounce_rays(rmath, o1, d1, base.t, FLT_MAX)
+        srows = s3.rows_from_aos_fast(so, mlight)
+        live = base.hit
+        sclose = trace(srows, live=live)
+        socc = trace(srows, live=live, occl=True)
+        sok = live & (socc.slot != -2) & (sclose.slot != -2)
+        occ, sdg = driven(pk, stg, total, lambda: trace(
+            srows, live=live, occl=True, with_diag=True,
+            blk_bound=s3.block_bound_from_t(
+                torch.where(sclose.slot != -2, sclose.t, FLT_MAX))))
+        if not torch.equal(occ.hit[sok], socc.hit[sok]) or int(
+                sdg["tb_marked"]):
+            raise AssertionError(f"{route} shadow: bounded occluded-or-not "
+                                 f"differs from unbounded: {tb_diag(sdg)}")
+        row = dict(primary=dict(tb_diag(dg), agree=agree,
+                                poisoned=int((~ok).sum())),
+                   shadow=dict(tb_diag(sdg), live=int(live.sum()),
+                               occluded=int(socc.hit[sok].sum())))
+        # a bound of 0.5 on every block: every ray residual, past a cap of
+        # max(TB_LOW_CAP, n // 128) rays marked -2; the engine's
+        # _traced_wavefront re-traces them through the packet sweeps
+        bad = torch.full((-(-n // s3.BLK),), 0.5, device=dev)
+        cap_was = s3.TB_RES_RAYS
+        s3.TB_RES_RAYS = TB_LOW_CAP
+        try:
+            for wave, (o, d, alive, occl, ref) in (
+                    ("primary", (o1, d1, torch.ones_like(live), False, base)),
+                    ("shadow", (so, mlight, live, True, socc))):
+                r_rows = mrows if wave == "primary" else srows
+                marked, mdg = driven(pk, stg, total, lambda: trace(
+                    r_rows, live=None if wave == "primary" else alive,
+                    occl=occl, blk_bound=bad, with_diag=True))
+                # every primary ray lies past 0.5, so the cap overflows;
+                # a shadow ray is residual where the cull unoccludes it
+                n_marked = int((marked.slot == -2).sum())
+                full = int(mdg["tb_residual"]) == int(mdg["tb_cap"])
+                if (int(mdg["tb_marked"]) != n_marked
+                        or (n_marked == 0 and wave == "primary")
+                        or (n_marked > 0 and not full)):
+                    raise AssertionError(f"{route} {wave}, bound 0.5: "
+                                         f"{tb_diag(mdg)}")
+                got = driven(pk, stg, total, lambda:
+                             pathtracer._traced_wavefront(
+                                 mscene, o, d, TMIN, TMAX, alive,
+                                 route="argsort", multi_route=route,
+                                 any_hit_terminate=occl, blk_bound=bad))
+                if bool((got.slot < -1).any()):
+                    raise AssertionError(f"{route} {wave}: a slot below -1 "
+                                         f"left _traced_wavefront")
+                keep = alive & (ref.slot != -2)
+                if occl:
+                    hold_occluded(f"{route} shadow, bound 0.5 through "
+                                  f"_traced_wavefront vs unbounded",
+                                  got.hit, ref.hit, keep)
+                else:
+                    hold_prims(f"{route} primary, bound 0.5 through "
+                               f"_traced_wavefront vs unbounded",
+                               got.t[keep], got.prim[keep], ref.t[keep],
+                               ref.prim[keep])
+                row[f"{wave}_bound_0.5"] = dict(
+                    tb_diag(mdg), hit_agree=float(
+                        (got.hit == ref.hit)[keep].float().mean()))
+                del marked, got
+        finally:
+            s3.TB_RES_RAYS = cap_was
+        out["multi"][route] = row
+        log(f"[11] (d) multi64 on the {route} ({card}): {json.dumps(row)}")
+        del base, rec, so, srows, sclose, socc, occ
+    del mscene, mt
+    log(f"[11] (d) done in {time.time() - t1:.1f} s")
+
+    out["launches"] = total
+    need = ("emit", "refine", "transpose", "aos_rows", "isect",
+            "isect_occl", "oscal", "packet_trace[closest]",
+            "packet_trace[any_hit]", "packet_trace[masked_any_hit]")
+    if any(total.get(k, 0) <= 0 for k in need):
+        raise AssertionError(f"phase 11 missed a kernel: {total}")
+    log(f"[11] launches of the bounded runs in the phase: {total}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3236,7 +3674,12 @@ def main() -> int:
     tlas = tlas_native(dev, card, tracer, light, pk, s3, s3m, stg)
     log(f"[10] done in {time.time() - t0:.1f} s")
 
-    # ---- 11. results -------------------------------------------------
+    # ---- 11. temporal t-bounds ---------------------------------------
+    t0 = time.time()
+    tbound = temporal_bounds(dev, card, tracer, bench, pk, s3, s3m, stg)
+    log(f"[11] done in {time.time() - t0:.1f} s")
+
+    # ---- 12. results -------------------------------------------------
     # per kernel: the main path's launches (the packet kernel: the city
     # frames and sample1; B, C, D and F: the city frames and the
     # 64-instance frame; E: the 64-instance frame), each timed on its own
@@ -3245,7 +3688,9 @@ def main() -> int:
     # launches').  A: phase [5]'s 1080p primary wave.  rd_api_launches:
     # each phase [8] path's own run; walk_phase_launches: phase [9]'s;
     # tlas_phase_launches: the native route's runs in phase [10], and
-    # tlas_wave_1080p its launch on phase [10]'s primary (E: shadow) wave.
+    # tlas_wave_1080p its launch on phase [10]'s primary (E: shadow) wave;
+    # tbound_phase_launches: the bounded runs of phase [11], and D's
+    # tbound_wave_1080p its mean launch on the interior's bounded samples.
     kernels = []
     for var in PATH_VARIANTS:
         errs = [r["max_abs_err"] for k, r in results.items()
@@ -3267,6 +3712,8 @@ def main() -> int:
             "walk_phase_launches": walk["launches"].get(
                 f"packet_trace[{var}]", 0),
             "tlas_phase_launches": tlas["launches"].get(
+                f"packet_trace[{var}]", 0),
+            "tbound_phase_launches": tbound["launches"].get(
                 f"packet_trace[{var}]", 0)})
     d_all = summary(*(x + y for x, y in zip(d_lists, dm_lists)))
     frame_rows = {"isect": dict(d_all, max_abs_err=max(
@@ -3312,9 +3759,15 @@ def main() -> int:
                 walk["launches"]["aos_rows"] if key == "transpose" else 0),
             "tlas_phase_launches": tlas["launches"][key] + (
                 tlas["launches"]["aos_rows"] if key == "transpose" else 0),
-            "tlas_wave_1080p": tlas["held"][key]},
+            "tlas_wave_1080p": tlas["held"][key],
+            "tbound_phase_launches": tbound["launches"][key] + (
+                tbound["launches"]["aos_rows"] if key == "transpose" else 0)},
             **r))
+    kernels[[k["name"] for k in kernels].index("stream3_isect")][
+        "tbound_wave_1080p"] = tbound["isect_1080p"]
     log(f"[10] metrics: {json.dumps({k: v for k, v in tlas.items() if k not in ('launches', 'held')})}")
+    log(f"[11] metrics: "
+        f"{json.dumps({k: v for k, v in tbound.items() if k != 'launches'})}")
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -37,7 +37,26 @@ on the CPU (where every kernel runs its plain version):
     instances, the on-device LBVH), as the JAX engine's dispatch does
     (:94-125).
 
-Not ported yet: the monolithic frame function and temporal t-bounds.
+Temporal t-bounds (WavefrontPathTracer.tbound, the reference's
+RADIANCE_ENGINE_TBOUND=1 and its frame_fn(tbound=True), :518-631,
+:792-859): sample s's primary wave is bounded per 128-ray block by
+stream3.block_bound_from_t of sample s-1's primary t, and the bounds
+carry across render calls in a per-tracer store (at most _TB_CAP entries
+keyed by scene and block count, the oldest evicted), reset to FLT_MAX
+whenever total_samples is 0.  The bound reaches the stream3 primary of a
+single-instance scene and, in pixel order, trace_rows_multi of a scene
+with MULTI_SCAN_MIN_INSTANCES or more instances (the reference's engine
+bounds only the stream3 route; elsewhere the bounds pass through inert,
+as they do here on every other route).  Every ray such a trace marks
+slot == -2 (a temporal residual past its cap, or the scan's poisoned
+rays) is re-traced exactly before anything reads the record: through
+_trace_dispatch (the packet kernel) on one instance, the per-instance
+packet sweeps on many.  A bounded frame keeps the staged scheduler's
+wave routes and, as frame_fn does, stops a sample's bounce loop once no
+path is alive (a host read a bounce).  There is no jit here, so frame_fn
+itself and its max_batch_per_dispatch (samples a device program, which
+changes where the running average rounds) have no counterpart: a frame
+averages all its samples at once.
 """
 
 from __future__ import annotations
@@ -55,6 +74,7 @@ from radiance_tpu_torch.engine.context import Payload, ShadeContext
 from radiance_tpu_torch.ops import (compaction, packet_trace, stream3,
                                     stream3_multi, traversal)
 from radiance_tpu_torch.ops import tonemap as tonemap_ops
+from radiance_tpu_torch.ops.intersect import FLT_MAX
 from radiance_tpu_torch.ops.traversal import HitRecord
 
 # Parking spot for lanes that must not trace: a ray starting here misses
@@ -88,8 +108,7 @@ def _trace_dispatch(scene, o, d, tmin, tmax, *, any_hit_terminate=False,
             return packet_trace.trace_rays_packet(
                 scene, o, d, tmin, tmax, any_hit=any_hit_terminate, live=live)
         if packet_trace.supports_multi(scene):
-            if (stream3_multi.supports(scene)
-                    and len(scene.inst_kblas) >= MULTI_SCAN_MIN_INSTANCES):
+            if _many_instances(scene):
                 return stream3_multi.trace_rows_multi(
                     scene, stream3_multi.multi_tables(scene),
                     stream3.rows_from_aos(o, d), tmin, tmax,
@@ -102,10 +121,39 @@ def _trace_dispatch(scene, o, d, tmin, tmax, *, any_hit_terminate=False,
                                 any_hit_program=any_hit_program)
 
 
+def _many_instances(scene) -> bool:
+    """The scene takes trace_rows_multi (per-BLAS tables, at least
+    MULTI_SCAN_MIN_INSTANCES instances)."""
+    return (stream3_multi.supports(scene)
+            and len(scene.inst_kblas) >= MULTI_SCAN_MIN_INSTANCES)
+
+
+def _retrace_distrusted(scene, rec, o, d, tmin, tmax, alive, *, occl: bool,
+                        many: bool):
+    """Re-trace exactly, in place, every live ray that a bounded trace
+    marked slot == -2 (reference pathtracer.py:240-263, there through its
+    walk): through _trace_dispatch (the packet kernel) on one instance,
+    the per-instance packet sweeps on many (_trace_dispatch would take
+    the scan again); on occlusion waves t is normalised to 0 / FLT_MAX.
+    It must run before the slot clamp, which would make the marker a
+    silent miss and erase geometry from the accumulation."""
+    bad = torch.nonzero((rec.slot == -2) & alive).squeeze(1)
+    if bad.numel() == 0:
+        return
+    if many:
+        sub = packet_trace.trace_rays_packet_multi(scene, o[bad], d[bad], tmin,
+                                                   tmax, any_hit=occl)
+    else:
+        sub = _trace_dispatch(scene, o[bad], d[bad], tmin, tmax,
+                              any_hit_terminate=occl)
+    stream3.patch_retraced(rec, bad, sub, occl)
+
+
 def _traced_wavefront(scene, o, d, tmin, tmax, alive, *, route: str,
                       any_hit_terminate: bool = False,
                       any_hit_program=None,
-                      multi_route: str = "scan") -> HitRecord:
+                      multi_route: str = "scan",
+                      blk_bound=None) -> HitRecord:
     """Trace only the live rays of a wave; dead lanes report a miss.
 
     route "stream3": the stream3 pipeline on rays in pixel order, dead
@@ -117,6 +165,14 @@ def _traced_wavefront(scene, o, d, tmin, tmax, alive, *, route: str,
     and parked), traced, and scattered back to pixel order.
     A custom any-hit program forces "argsort" (reference :196-199).
     multi_route goes to _trace_dispatch.
+
+    blk_bound ([ceil(N / 128)] f32 per-block upper bounds on t, pixel
+    order): the temporal cull and residual of the stream3 route, and of a
+    scene with MULTI_SCAN_MIN_INSTANCES or more instances, which then
+    traces its live rays in pixel order through trace_rows_multi (on
+    multi_route) whatever `route` says.  Rays those traces mark
+    slot == -2 are re-traced exactly (_retrace_distrusted).  Other routes
+    ignore the bound, as the reference's do.
     """
     if any_hit_program is not None:
         route = "argsort"
@@ -124,9 +180,22 @@ def _traced_wavefront(scene, o, d, tmin, tmax, alive, *, route: str,
             and stream3.supports(scene)):
         rows = stream3.rows_from_aos_fast(o, d)
         rec = stream3.trace_rows_stream3(scene, rows, tmin, tmax,
-                                         live=alive)
+                                         live=alive, blk_bound=blk_bound)
+        if blk_bound is not None:
+            _retrace_distrusted(scene, rec, o, d, tmin, tmax, alive,
+                                occl=False, many=False)
         rec.slot = torch.clamp(rec.slot, min=-1)
         return rec
+    if (blk_bound is not None and any_hit_program is None
+            and _many_instances(scene)):
+        rec = stream3_multi.trace_rows_multi(
+            scene, stream3_multi.multi_tables(scene),
+            stream3.rows_from_aos(o, d), tmin, tmax, live=alive,
+            occl=any_hit_terminate, native=multi_route == "native",
+            blk_bound=blk_bound)
+        _retrace_distrusted(scene, rec, o, d, tmin, tmax, alive,
+                            occl=any_hit_terminate, many=True)
+        return rec.masked_miss(~alive)
     if route == "gen1_live" and packet_trace.supports(scene):
         rec = _trace_dispatch(scene, o, d, tmin, tmax, live=alive,
                               any_hit_terminate=any_hit_terminate,
@@ -179,10 +248,12 @@ def _make_context(scene: DeviceScene, hits: HitRecord, origin, direction,
 
 
 def _sample_step(tracer, scene, resources, pixel_index, frame_id, b, state,
-                 *, debug, hit_offset, miss_index, route, shadow_route):
+                 *, debug, hit_offset, miss_index, route, shadow_route,
+                 blk_bound=None, want_t: bool = False):
     """One engine wave: closest-hit trace, SBT shading (shaders trace
     occlusion rays inline), colour/throughput/alive update
-    (shader.cl:233-260)."""
+    (shader.cl:233-260).  blk_bound bounds the wave's closest-hit trace
+    (_traced_wavefront); want_t also returns its t (reference :338-415)."""
     sbt = tracer.sbt
     color, contribution, alive, o, d = state
     n = pixel_index.shape[0]
@@ -205,7 +276,7 @@ def _sample_step(tracer, scene, resources, pixel_index, frame_id, b, state,
     hits = _traced_wavefront(
         scene, o, d, tracer.tmin, tracer.tmax, alive, route=route,
         any_hit_program=sbt.make_any_hit_program(hit_offset, resources),
-        multi_route=tracer.multi_route)
+        multi_route=tracer.multi_route, blk_bound=blk_bound)
     ctx = _make_context(scene, hits, o, d, pixel_index, frame_id, b,
                         resources, debug, trace_occlusion,
                         functools.partial(_trace_dispatch, scene,
@@ -230,8 +301,9 @@ def _sample_step(tracer, scene, resources, pixel_index, frame_id, b, state,
     contribution = torch.where(add[:, None],
                                contribution * payload.next_factor,
                                contribution)
-    return (color, contribution, alive & hit, payload.next_origin,
-            payload.next_dir)
+    st_out = (color, contribution, alive & hit, payload.next_origin,
+              payload.next_dir)
+    return (st_out, hits.t) if want_t else st_out
 
 
 def _sample_init(tracer, resources, pixel_index, frame_id, total_samples0):
@@ -274,6 +346,8 @@ class WavefrontPathTracer:
     multi_route: the route of scenes with MULTI_SCAN_MIN_INSTANCES or
       more instances, "scan" (the reference's default) or "native" (the
       TLAS-native slots; the reference's RADIANCE_MULTI=native)
+    tbound: carry temporal t-bounds through the primary waves (the
+      reference's RADIANCE_ENGINE_TBOUND=1; module docstring)
     """
     ray_generator: Callable
     sbt: ShaderBindingTable
@@ -284,6 +358,14 @@ class WavefrontPathTracer:
     tmin: float = 0.001
     tmax: float = 1000.0
     multi_route: str = "scan"
+    tbound: bool = False
+    # the bounds carried between render calls: (id(scene), blocks) ->
+    # (scene, bounds), per tracer (two tracers with different cameras
+    # must not share them), oldest evicted past _TB_CAP (reference
+    # :756-770)
+    _tb_store: dict = dataclasses.field(default_factory=dict, init=False,
+                                        repr=False)
+    _TB_CAP = 8
 
     def render(self, scene: DeviceScene, resources: Dict, accum,
                total_samples: int, width: int, height: int,
@@ -293,7 +375,12 @@ class WavefrontPathTracer:
 
         Frame ids run from total_samples (shader.cl:197-281); callers own
         the totalSamples counter (sample1.cpp:479-490).  All tensors live
-        on the scene's device.
+        on the scene's device.  With tbound, each sample's primary wave is
+        bounded by the previous sample's (the first by the bounds this
+        tracer stored for the scene at the end of its last frame, unless
+        total_samples is 0: bounds share the accumulation's invalidation,
+        so a camera change must reset total_samples), and a sample stops
+        bouncing once no path is alive.
         """
         dev = scene.device
         n = width * height
@@ -309,19 +396,42 @@ class WavefrontPathTracer:
                                  pixel_index, debug=debug,
                                  hit_offset=hit_offset, miss_index=miss_index)
 
+        tb = key = None
+        if self.tbound:
+            nb = -(-n // stream3.BLK)
+            key = (id(scene), nb)
+            held = self._tb_store.get(key) if total_samples > 0 else None
+            if held is not None and held[0] is scene:
+                tb = held[1]
+            else:
+                tb = torch.full((nb,), FLT_MAX, dtype=torch.float32,
+                                device=dev)
+
         colors = torch.zeros(n, 3, dtype=torch.float32, device=dev)
         for s in range(int(batch)):
             fid = int(total_samples) + s
             state = _sample_init(self, resources, pixel_index, fid,
                                  int(total_samples))
             for b in range(effective_depth):
-                if b == 0:
+                if b == 0 and self.tbound:
+                    state, t1 = step(fid, b, state, route=primary_route,
+                                     shadow_route=primary_shadow,
+                                     blk_bound=tb, want_t=True)
+                    tb = stream3.block_bound_from_t(t1)
+                elif b == 0:
                     state = step(fid, b, state, route=primary_route,
                                  shadow_route=primary_shadow)
+                elif self.tbound and not bool(state[2].any()):
+                    break               # frame_fn's early exit (:572-575)
                 else:
                     state = step(fid, b, state, route="argsort",
                                  shadow_route="argsort")
             colors = colors + state[0]
         accum, image = _finish_frame(self, int(batch), debug, accum, colors,
                                      int(total_samples))
+        if self.tbound:
+            self._tb_store.pop(key, None)      # refresh insertion order
+            self._tb_store[key] = (scene, tb)
+            while len(self._tb_store) > self._TB_CAP:
+                self._tb_store.pop(next(iter(self._tb_store)))
         return accum, image.reshape(height, width, 4)

@@ -35,9 +35,10 @@ Differences from the JAX module, none visible in a hit record:
   * the residual drain re-walks flagged packets through the packet
     tracer (packet_trace.trace_rays_packet: the CUDA packet kernel on the
     card, any-hit on occlusion waves), where the JAX module uses its
-    per-ray traversal walk (ops/traversal.py, not ported yet).  Both are
-    exact tracers.  All flagged packets drain in one call (the JAX drain
-    runs RES_CAP packets a chunk under a while_loop);
+    per-ray traversal walk (ops/traversal.py, whose port costs a second
+    or more a call on the card).  Both are exact tracers.  All flagged
+    packets drain in one call (the JAX drain runs RES_CAP packets a chunk
+    under a while_loop);
   * occlusion waves refine their word lists, the JAX module's
     exact_refine=True (its default skips the refine there, a TPU trade);
     both forms are exact, so no occluded-or-not can change;
@@ -51,8 +52,24 @@ Differences from the JAX module, none visible in a hit record:
   * kernel D keeps no tq occlusion cull (a cull at equal t could change
     which of two tied triangles wins).
 
-Not ported: presort (_block_sort), temporal t-bounds, trace_rows_cascade,
-lean isect (_winner_barys) and build_tracer.
+Temporal t-bounds (blk_bound; stream3.py:1749-1801, :2647-2725): a
+per-128-ray-block upper bound on t, the previous progressive sample's
+worst hit (block_bound_from_t).  Between refine and isect the cull
+(_apply_block_bound, plain torch: an elementwise pass over the word
+lists, as the reference's XLA glue is) clears the keep bit of every
+(word, block) pair whose quantised entry distance lies past the block's
+bound, so kernels D and E skip those pairs.  Rays whose result the
+bounded trace cannot prove (closest hit: t past the bound; occlusion:
+unoccluded under a finite bound) form the temporal residual: the first
+max(TB_RES_RAYS, n // 128) of them in index order are re-traced exactly,
+the rest marked slot == -2, t = FLT_MAX (the reference's don't-trust
+marker).  The residual re-traces through the packet tracer, as the drain
+of flagged packets does; the JAX module re-walks it with its per-ray
+traversal walk (traversal.trace_rays), which on the card costs a second
+or more a call whatever its ray count.  Both are exact.
+
+Not ported: presort (_block_sort), trace_rows_cascade, lean isect
+(_winner_barys) and build_tracer.
 """
 
 from __future__ import annotations
@@ -63,9 +80,13 @@ from radiance_tpu_torch.ops import packet_trace
 from radiance_tpu_torch.ops.intersect import FLT_MAX
 from radiance_tpu_torch.ops.traversal import HitRecord
 from radiance_tpu_torch.ops.stream3_stages import (
-    BIG, BLK, EXTRA, FMAX, G, PCAP, PKT, STEP_CAP, W_LEAF_MAX,
-    feats_rows_to_major, octant_scalars, rows_from_aos_fast, stage_emit,
-    stage_isect, stage_refine)
+    BIG, BLK, EXTRA, FMAX, G, PCAP, PKT, STEP_CAP, TQ_BIAS3, TQ_SHIFT,
+    W_KEEP_SHIFT, W_LEAF_MAX, W_TQ_MASK, feats_rows_to_major, octant_scalars,
+    rows_from_aos_fast, stage_emit, stage_isect, stage_refine)
+
+# the temporal residual's floor: a wave re-traces at most
+# max(TB_RES_RAYS, n // 128) rays past their block bounds (stream3.py:65)
+TB_RES_RAYS = 16384
 
 
 def supports(scene) -> bool:
@@ -252,10 +273,128 @@ def _stage_glue(out_s, smeta, npk, n) -> HitRecord:
                      b2=torch.where(hit, b2, 0.0))
 
 
+# ------------------------------------------------------ temporal t-bounds
+
+def block_bound_from_t(t, slack: float = 1.02, eps: float = 1e-2):
+    """Per-block temporal bound from a previous sample's hit t ([n] f32,
+    FLT_MAX = miss) -> [ceil(n / BLK)] f32 for blk_bound
+    (stream3.py:1780-1801): each block's largest t * slack + eps, in f32
+    and in that order; a block holding a miss gets FLT_MAX (a miss cannot
+    be bounded).  The slack trades cull volume against residual volume;
+    exactness does not depend on it."""
+    f32 = torch.float32
+    t = t.to(f32)
+    pad = (-t.shape[0]) % BLK
+    if pad:
+        t = torch.cat([t, torch.full((pad,), FLT_MAX, dtype=f32,
+                                     device=t.device)])
+    b = torch.where(t < FLT_MAX,
+                    t * torch.tensor(slack, dtype=f32, device=t.device)
+                    + torch.tensor(eps, dtype=f32, device=t.device),
+                    FLT_MAX)
+    return b.reshape(-1, BLK).amax(dim=1)
+
+
+def pad_blk_bound(bbv, nblk):
+    """Caller-order block bounds padded to `nblk` wave blocks with FLT_MAX
+    (padding blocks hold copies of ray 0; an infinite bound culls nothing
+    there; stream3.py:2647-2656)."""
+    bbv = torch.as_tensor(bbv, dtype=torch.float32)
+    if bbv.shape[0] < nblk:
+        bbv = torch.cat([bbv, torch.full((nblk - bbv.shape[0],), FLT_MAX,
+                                         dtype=torch.float32,
+                                         device=bbv.device)])
+    return bbv
+
+
+def _apply_block_bound(words, slot_pkt, bounds_blk):
+    """The temporal cull (stream3.py:1749-1777): clear the keep bit of
+    every (word, block) pair whose leaf's quantised entry-distance lower
+    bound, (tq + TQ_BIAS3) << TQ_SHIFT as f32 bits (0 where tq == 0),
+    exceeds the block's bound.  words [nslot, PCAP] i32, slot_pkt [nslot]
+    (the packet whose 8 blocks a slot's keep bits name), bounds_blk
+    [npk * 8] f32.  Bounds compare as the int32 bits of min(|b|, FLT_MAX),
+    which order as the positive floats do.  A NaN bound stays NaN, as
+    jnp.minimum keeps it, with the bits of |b| (torch.minimum's NaN on
+    the CPU has all bits set, which as int32 would cull every pair): a
+    positive NaN's bits cull nothing.  Zero words stay zero; a word whose
+    keep mask empties keeps its place in the list."""
+    i32 = torch.int32
+    tq = words & W_TQ_MASK
+    lb_bits = torch.where(tq == 0, 0, (tq + TQ_BIAS3) << TQ_SHIFT)
+    fmax = torch.tensor(FLT_MAX, dtype=torch.float32, device=words.device)
+    b = bounds_blk.to(torch.float32).abs()
+    bb = torch.where(torch.isnan(b), b, torch.minimum(b, fmax)).view(i32)
+    sb = bb.reshape(-1, 8)[slot_pkt.to(torch.int64)]           # [nslot, 8]
+    kmask = (words >> W_KEEP_SHIFT) & 255
+    keep = torch.zeros_like(kmask)
+    for k in range(8):
+        ok = lb_bits <= sb[:, k:k + 1]
+        keep = keep | torch.where(ok, kmask & (1 << k), 0)
+    return torch.where(words != 0,
+                       (words & ~(255 << W_KEEP_SHIFT))
+                       | (keep << W_KEEP_SHIFT),
+                       words)
+
+
+_POP8 = [bin(v).count("1") for v in range(256)]
+
+
+def _kept_pairs(words, cnt, alive):
+    """(word, 128-ray block) pairs a list names: the keep bits of the
+    first min(cnt, PCAP) words of every alive slot, summed ([] i64)."""
+    pop = torch.tensor(_POP8, dtype=torch.int64, device=words.device)
+    pos = torch.arange(words.shape[1], device=words.device)
+    used = (pos[None, :] < cnt[:, None]) & alive[:, None]
+    kmask = ((words >> W_KEEP_SHIFT) & 255).to(torch.int64)
+    return torch.where(used, pop[kmask], 0).sum()
+
+
+def _tb_residual(rows_w, rec, blk_bound, trace, *, occl: bool, live,
+                 n: int):
+    """The temporal residual (stream3.py:2659-2725), on `rec` in place:
+    the rays whose result is not definitive under their block's bound
+    (closest hit: t past the bound; occlusion: unoccluded under a finite
+    bound), among the `live` ones, are re-traced exactly by
+    trace(origin [k, 3], direction [k, 3]) -> HitRecord, the first
+    min(n, max(TB_RES_RAYS, n // 128)) of them in index order (the
+    reference's jnp.nonzero(size=cap)); the rest are marked slot = -2,
+    t = FLT_MAX, prim = -1, b = 0: the reference's don't-trust marker,
+    never a plain miss (on an occlusion wave a miss reads as unoccluded).
+    On occlusion waves the re-traced t is normalised to 0 / FLT_MAX.
+    Returns {"tb_residual": rays re-traced, "tb_cap": the cap,
+    "tb_marked": rays marked -2}."""
+    cap = min(n, max(TB_RES_RAYS, n // 128))
+    bound = pad_blk_bound(blk_bound, -(-n // BLK)).to(rec.t.device)
+    bound_ray = bound.repeat_interleave(BLK)[:n]
+    if occl:
+        resid = (rec.t >= FLT_MAX) & (bound_ray < FLT_MAX)
+    else:
+        resid = rec.t > bound_ray
+    if live is not None:
+        resid = resid & live[:n]
+    idx = torch.nonzero(resid).squeeze(1)
+    take, late = idx[:cap], idx[cap:]
+    if take.numel():
+        patch_retraced(rec, take,
+                       trace(torch.stack([r[take] for r in rows_w[:3]], 1),
+                             torch.stack([r[take] for r in rows_w[3:]], 1)),
+                       occl)
+    if late.numel():
+        rec.t[late] = FLT_MAX
+        rec.prim[late] = -1
+        rec.slot[late] = -2
+        rec.b1[late] = 0.0
+        rec.b2[late] = 0.0
+    return {"tb_residual": int(take.numel()), "tb_cap": cap,
+            "tb_marked": int(late.numel())}
+
+
 # ----------------------------------------------------------------- run
 
 def _run(rows_w, tmin, tmax, nodef, kleaf, inv0, *, live=None,
-         stable: bool, occl: bool = False, with_diag: bool = False):
+         stable: bool, occl: bool = False, with_diag: bool = False,
+         blk_bound=None, count_pairs: bool = False):
     """The pipeline on world-space component rows (stream3.py::_run,
     non-work-stealing branch).  Returns a HitRecord, and with with_diag
     (rec, diag): diag["pkt_flag"] [npk] i32 marks packets whose walk was
@@ -264,7 +403,12 @@ def _run(rows_w, tmin, tmax, nodef, kleaf, inv0, *, live=None,
     runs an occlusion wave: kernel E, t = 0 on occluded rays (prim 0, no
     barycentrics).  Kernel C refines the word lists of both kinds of wave
     (on occlusion waves the JAX module's exact_refine=True,
-    stream3.py:2536-2543; its default, a TPU trade, skips it there)."""
+    stream3.py:2536-2543; its default, a TPU trade, skips it there).
+    blk_bound ([ceil(n / BLK)] f32, caller-order blocks): the temporal
+    cull between refine and isect (stream3.py:2555-2561); the caller owns
+    the residual (_tb_residual).  With it and count_pairs, diag also holds
+    "block_pairs" and "block_pairs_bounded", the (word, block) pairs of
+    the refined lists before and after the cull."""
     n = rows_w[0].shape[0]
     rows_w, live = _pad_wave(rows_w, live)
     rows, feats_t, scal, smeta, bscal, order = _stage_prep(
@@ -277,8 +421,12 @@ def _run(rows_w, tmin, tmax, nodef, kleaf, inv0, *, live=None,
     words_i, emeta_i = stage_refine(
         words, emeta, slot_pkt, feats_t,
         leaf_aabb8(nodef, kleaf.shape[0]), tmax, pcap=PCAP)
+    words_b = words_i
+    if blk_bound is not None:
+        words_b = _apply_block_bound(
+            words_i, slot_pkt, pad_blk_bound(blk_bound, npad // BLK))
     feats = feats_rows_to_major(feats_t)
-    out_s = stage_isect(words_i, emeta_i, slot_pkt, feats, kleaf, tmin,
+    out_s = stage_isect(words_b, emeta_i, slot_pkt, feats, kleaf, tmin,
                         tmax, stable=stable, pcap=PCAP, occl=occl)
     # back to storage order (slot p == packet p for base slots)
     inv_order = torch.empty_like(order)
@@ -301,6 +449,10 @@ def _run(rows_w, tmin, tmax, nodef, kleaf, inv0, *, live=None,
             "kept_words": (torch.clamp(emeta_i[:, 0], max=PCAP) * a64).sum(),
             "steps": emeta[:, 2].to(torch.int64).sum(),
             "capped": ((emeta[:, 1] > 0) & alive).sum()}
+    if blk_bound is not None and count_pairs:
+        cnt = torch.clamp(emeta_i[:, 0], max=PCAP)
+        diag["block_pairs"] = _kept_pairs(words_i, cnt, alive)
+        diag["block_pairs_bounded"] = _kept_pairs(words_b, cnt, alive)
     return rec, diag
 
 
@@ -327,17 +479,26 @@ def retrace_flagged(rec, rows_w, pkt_flag, occl, trace):
     sel = (flagged[:, None] * PKT
            + torch.arange(PKT, device=flagged.device)).reshape(-1)
     sel = sel[sel < n]
-    sub = trace(torch.stack([r[sel] for r in rows_w[:3]], dim=1),
-                torch.stack([r[sel] for r in rows_w[3:]], dim=1))
+    patch_retraced(rec, sel,
+                   trace(torch.stack([r[sel] for r in rows_w[:3]], dim=1),
+                         torch.stack([r[sel] for r in rows_w[3:]], dim=1)),
+                   occl)
+    return int(flagged.numel()), int(sel.numel())
+
+
+def patch_retraced(rec, sel, sub, occl):
+    """Write `sub`, the exact re-trace of rays `sel`, into rec in place;
+    on occlusion waves (sub traced any-hit) t normalised to 0 / FLT_MAX,
+    as stream3.py:2815-2821 does."""
     if occl:
         sub.t = torch.where(sub.hit, 0.0, FLT_MAX)
     for f in ("t", "prim", "slot", "b1", "b2"):
         getattr(rec, f)[sel] = getattr(sub, f).to(getattr(rec, f).dtype)
-    return int(flagged.numel()), int(sel.numel())
 
 
 def trace_rows_stream3(scene, rows_w, tmin, tmax, live=None,
-                       occl: bool = False, with_diag: bool = False):
+                       occl: bool = False, with_diag: bool = False,
+                       blk_bound=None):
     """Closest-hit trace of a wave given as six world-space [N] rows
     (ox, oy, oz, dx, dy, dz) against a single-instance scene (check
     supports(scene)); with occl, an occlusion trace: t = 0 on occluded
@@ -348,8 +509,23 @@ def trace_rows_stream3(scene, rows_w, tmin, tmax, live=None,
     occlusion waves, its t normalised to 0 / FLT_MAX as stream3.py:2815-
     2821 does).  `live` ([N] bool) masks dead lanes out of every frustum
     (they may hold NaN/Inf: they are parked first); dead lanes report a
-    miss.  With with_diag, returns (rec, diag) with the pipeline's
-    counters plus "flagged" packets and "residual_rays" re-traced."""
+    miss.
+
+    blk_bound ([ceil(N / BLK)] f32 per-block upper bounds on t, e.g.
+    block_bound_from_t of the previous progressive sample; FLT_MAX
+    disables a block): leaves provably past a block's bound are culled
+    before isect, and the temporal residual (_tb_residual: rays past
+    their bound, or unoccluded under a finite bound) is re-traced exactly
+    through the packet tracer after the flagged drain, up to
+    max(TB_RES_RAYS, N // 128) rays; the rays past that cap come back
+    marked slot == -2, t = FLT_MAX, which callers must re-trace or
+    distrust (the engine re-traces them).
+
+    With with_diag, returns (rec, diag) with the pipeline's counters plus
+    "flagged" packets and "residual_rays" re-traced; with blk_bound also
+    "block_pairs" and "block_pairs_bounded" (the (word, block) pairs
+    before and after the cull), "tb_residual" (rays re-traced for the
+    bound), "tb_cap" and "tb_marked" (rays marked -2)."""
     n = rows_w[0].shape[0]
     if live is not None:
         live = live.bool()
@@ -357,11 +533,18 @@ def trace_rows_stream3(scene, rows_w, tmin, tmax, live=None,
     rec, diag = _run(rows_w, tmin, tmax, scene.knode_f, scene.kleaf,
                      scene.inst_inv[0], live=live,
                      stable=bool(scene.stable_frames), occl=occl,
-                     with_diag=True)
+                     with_diag=True, blk_bound=blk_bound,
+                     count_pairs=with_diag)
+
+    def exact(o, d):
+        return packet_trace.trace_rays_packet(scene, o, d, tmin, tmax,
+                                              any_hit=occl)
+
     diag["flagged"], diag["residual_rays"] = retrace_flagged(
-        rec, rows_w, diag["pkt_flag"], occl,
-        lambda o, d: packet_trace.trace_rays_packet(scene, o, d, tmin, tmax,
-                                                    any_hit=occl))
+        rec, rows_w, diag["pkt_flag"], occl, exact)
+    if blk_bound is not None:
+        diag.update(_tb_residual(rows_w, rec, blk_bound, exact, occl=occl,
+                                 live=live, n=n))
     if live is not None:
         rec = rec.masked_miss(~live[:n])
     return (rec, diag) if with_diag else rec

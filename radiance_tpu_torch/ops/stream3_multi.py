@@ -49,7 +49,8 @@ The scan keeps the reference's contract: there is no residual re-walk.
 A ray of a sub-wave packet that was step-capped or word-overflowed, or of
 a block that overflowed some instance's `bcap` list, comes back as a miss
 with slot == -2 (stream3_multi.py:360-393).  On an occlusion wave such a
-ray reads as unoccluded, as in the JAX engine.
+ray reads as unoccluded, as in the JAX engine.  Under a temporal bound
+(below) a poisoned ray whose block bound is finite is re-traced.
 
 The native route re-traces every flagged packet exactly (a slot walk cut
 at STEP_CAP, a word list past PCAP, or a packet whose slots did not fit
@@ -61,7 +62,17 @@ normalised to 0 / FLT_MAX), as the stream3 residual does.  Both are exact
 tracers; the walk costs a second or more a call on the card whatever its
 ray count.
 
-Not ported: temporal t-bounds (blk_bound) on either route.
+Temporal t-bounds (blk_bound, stream3.py's contract) on both routes: the
+bound of a caller-order block is valid inside every instance, so the scan
+gives each instance's sub-wave its gathered blocks' bounds (FLT_MAX for
+fill blocks) and culls in each stream3._run (stream3_multi.py:298-352),
+and the native route culls per storage slot, a slot's 8 sub-blocks being
+its packet's 8 blocks (FLT_MAX for pool padding; :669-681).  Each route
+then runs the temporal residual over the whole wave (stream3._tb_residual:
+:394-398 after the scan's poisoning, :758-760 after the native route's
+live mask) through the per-instance packet sweeps, where the reference
+re-walks it with its two-level walk; rays past the residual's cap come
+back marked slot == -2.
 """
 
 from __future__ import annotations
@@ -216,7 +227,7 @@ def _block_overlap(rows_w, aabb_w, tmin, tmax, live=None):
 
 def trace_rows_multi(scene, mt, rows_w, tmin, tmax, *, bcap_blocks=None,
                      live=None, occl: bool = False, with_diag: bool = False,
-                     native: bool = False):
+                     native: bool = False, blk_bound=None):
     """Many-instance trace of six world-space [N] rows: closest hit, or
     with occl an occlusion wave (t = 0 on occluded rays).
 
@@ -231,12 +242,22 @@ def trace_rows_multi(scene, mt, rows_w, tmin, tmax, *, bcap_blocks=None,
     and every sub-wave frustum; dead lanes report a miss.  Rays poisoned
     by the reference's contract (module docstring), dead or not, report
     slot == -2.
+    blk_bound ([ceil(N / BLK)] f32, stream3.trace_rows_stream3's): every
+    instance's sub-wave culls leaves provably past its blocks' bounds, and
+    the rays whose combined result is not definitive (t past the bound,
+    unoccluded or poisoned under a finite bound) are re-traced exactly
+    through the per-instance packet sweeps, up to stream3's cap; past it
+    they are marked slot == -2.
     With with_diag, returns (rec, diag): "instances_run", "pairs"
     (overlapping (block, instance) pairs), "flagged" (sub-wave packets
-    flagged) and "poisoned" (rays)."""
+    flagged) and "poisoned" (rays); with blk_bound also "block_pairs" and
+    "block_pairs_bounded" (the (word, block) pairs of all sub-waves before
+    and after the cull), "tb_residual", "tb_cap" and "tb_marked"
+    (stream3.trace_rows_stream3's)."""
     if native and supports_native(mt):
         return trace_rows_tlas(scene, mt, rows_w, tmin, tmax, live=live,
-                               occl=occl, with_diag=with_diag)
+                               occl=occl, with_diag=with_diag,
+                               blk_bound=blk_bound)
     n = rows_w[0].shape[0]
     dev = rows_w[0].device
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
@@ -248,6 +269,8 @@ def trace_rows_multi(scene, mt, rows_w, tmin, tmax, *, bcap_blocks=None,
     rows_p, live_p = s3._pad_wave(rows_w, live)
     npad = rows_p[0].shape[0]
     nblk = npad // BLK
+    bbv_p = (None if blk_bound is None
+             else s3.pad_blk_bound(blk_bound, nblk).to(dev))
     if bcap_blocks is None:
         bcap_blocks = max(nblk // 4, _GROUP_BLOCKS)
     bcap = -(-bcap_blocks // _GROUP_BLOCKS) * _GROUP_BLOCKS
@@ -273,6 +296,7 @@ def trace_rows_multi(scene, mt, rows_w, tmin, tmax, *, bcap_blocks=None,
     lane = torch.arange(BLK, device=dev)
     stable = bool(scene.stable_frames)
     runs = flagged = 0
+    bpairs = [0, 0]
     for i in range(mt.ninst):
         if n_act[i] == 0:
             continue                    # an all-dead sub-wave finds nothing
@@ -288,14 +312,26 @@ def trace_rows_multi(scene, mt, rows_w, tmin, tmax, *, bcap_blocks=None,
         sub = s3.park_dead(tuple(r[gsel] for r in rows_p), live_i,
                            (1.0, 0.0, 0.0))
         nodef, kleaf = scene.kblas[mt.uniq[mt.inst_idx[i]]][:2]
+        bb_sub = None
+        if bbv_p is not None:
+            # the sub-wave keeps block granularity: its bounds are the
+            # gathered blocks' (the wave's closest-t bound holds inside
+            # every instance)
+            bb_sub = torch.where(blist < nblk,
+                                 bbv_p[torch.clamp(blist, max=nblk - 1)],
+                                 FLT_MAX)
         rec, diag = s3._run(sub, tmin, tmax, nodef, kleaf, scene.inst_inv[i],
                             live=live_i, stable=stable, occl=occl,
-                            with_diag=True)
+                            with_diag=True, blk_bound=bb_sub,
+                            count_pairs=with_diag)
         # a step-capped or word-overflowed sub-packet lost hits for this
         # instance: its rays are poisoned, not returned as silent misses
         pkt_bad = diag["pkt_flag"] > 0
         if with_diag:
             flagged += int(pkt_bad.sum())
+            if bb_sub is not None:
+                bpairs[0] += int(diag["block_pairs"])
+                bpairs[1] += int(diag["block_pairs_bounded"])
         sub_bad = pkt_bad.repeat_interleave(PKT) & live_i
         take = live_i & (rec.t < bt[gsel])  # the earlier instance wins ties
         tgt = torch.where(take, gsel, npad)
@@ -312,10 +348,25 @@ def trace_rows_multi(scene, mt, rows_w, tmin, tmax, *, bcap_blocks=None,
                     slot=torch.where(bad, -2, torch.where(hit, bs[:n], -1)),
                     b1=torch.where(bad, 0.0, b1[:n]),
                     b2=torch.where(bad, 0.0, b2[:n]))
+    tb = {}
+    if blk_bound is not None:
+        tb = s3._tb_residual(rows_w, rec, blk_bound,
+                             _sweeps(scene, tmin, tmax, occl), occl=occl,
+                             live=live, n=n)
+        tb["block_pairs"], tb["block_pairs_bounded"] = bpairs
     if not with_diag:
         return rec
     return rec, {"instances_run": runs, "pairs": int(ov.sum()),
-                 "flagged": flagged, "poisoned": int(bad.sum())}
+                 "flagged": flagged, "poisoned": int(bad.sum()), **tb}
+
+
+def _sweeps(scene, tmin, tmax, occl):
+    """The exact tracer of both routes' residuals: one packet sweep per
+    instance (any-hit on occlusion waves)."""
+    def trace(o, d):
+        return packet_trace.trace_rays_packet_multi(scene, o, d, tmin, tmax,
+                                                    any_hit=occl)
+    return trace
 
 
 # ------------------------------------------------------ TLAS-native slots
@@ -481,17 +532,19 @@ def trace_rows_tlas(scene, mt, rows_w, tmin, tmax, *, live=None,
     poisoned.  `live` ([N] bool) masks dead lanes out of the cull and
     every slot frustum; dead lanes report a miss.
 
-    blk_bound is not accepted: the temporal t-bounds of stream3 are not
-    ported, and the reference's native route leans on them
-    (stream3._apply_block_bound, _tb_residual).
+    blk_bound ([ceil(N / BLK)] f32, stream3.trace_rows_stream3's): the
+    cull per storage slot, a slot's 8 sub-blocks being its packet's 8
+    caller-order blocks (FLT_MAX on pool padding), then, after the live
+    mask, the temporal residual over the whole wave through the same
+    sweeps (stream3._tb_residual; past its cap, rays are marked
+    slot == -2).
 
     With with_diag, returns (rec, diag): "slots_alive", "scap",
     "pool_overflow" (packets with a slot past scap), "flagged" (packets
     re-traced), "residual_rays", "words", "kept_words", "steps" (slot walk
-    nodes) and "capped" (slots cut at STEP_CAP)."""
-    if blk_bound is not None:
-        raise ValueError("trace_rows_tlas: temporal t-bounds (blk_bound) "
-                         "are not ported")
+    nodes) and "capped" (slots cut at STEP_CAP); with blk_bound also
+    "block_pairs" and "block_pairs_bounded" ((word, block) pairs before
+    and after the cull), "tb_residual", "tb_cap" and "tb_marked"."""
     n = rows_w[0].shape[0]
     if live is not None:
         live = live.bool()
@@ -512,8 +565,18 @@ def trace_rows_tlas(scene, mt, rows_w, tmin, tmax, *, live=None,
     slot_pkt = smeta[:, 0].contiguous()
     words_i, emeta_i = stage_refine(words, emeta, slot_pkt, feats_t,
                                     mt.aabb8_cat, tmax, pcap=PCAP)
+    words_b = words_i
+    if blk_bound is not None:
+        # slot_pkt maps word rows to storage slots, as for the refine
+        bb8 = s3.pad_blk_bound(blk_bound, npk * (PKT // BLK)).to(
+            words.device).reshape(npk, PKT // BLK)
+        bb_slot = torch.where((pkt_of < npk)[:, None],
+                              bb8[torch.clamp(pkt_of, max=npk - 1).long()],
+                              FLT_MAX)
+        words_b = s3._apply_block_bound(words_i, slot_pkt,
+                                        bb_slot.reshape(-1))
     feats = feats_rows_to_major(feats_t)
-    out_s = stage_isect(words_i, emeta_i, slot_pkt, feats, mt.kleaf_cat,
+    out_s = stage_isect(words_b, emeta_i, slot_pkt, feats, mt.kleaf_cat,
                         tmin, tmax, stable=stable, pcap=PCAP, occl=occl)
     inv_order = torch.empty_like(order)
     inv_order[order] = torch.arange(order.shape[0], device=order.device)
@@ -526,15 +589,22 @@ def trace_rows_tlas(scene, mt, rows_w, tmin, tmax, *, live=None,
                            device=alive_s.device).scatter_reduce(
         0, smeta[:, 3].to(torch.int64), trunc.to(torch.int32), "amax")
     pkt_flag = torch.maximum(pool_of, pkt_flag[:npk])
-    n_flag, n_res = retrace_flagged(
-        rec, rows_w, pkt_flag, occl,
-        lambda o, d: packet_trace.trace_rays_packet_multi(
-            scene, o, d, tmin, tmax, any_hit=occl))
+    sweeps = _sweeps(scene, tmin, tmax, occl)
+    n_flag, n_res = retrace_flagged(rec, rows_w, pkt_flag, occl, sweeps)
     if live is not None:
         rec = rec.masked_miss(~live)
+    tb = {}
+    if blk_bound is not None:
+        tb = s3._tb_residual(rows_w, rec, blk_bound, sweeps, occl=occl,
+                             live=live, n=n)
     if not with_diag:
         return rec
     a64 = alive_s.to(torch.int64)
+    if blk_bound is not None:
+        cnt = torch.clamp(emeta_i[:, 0], max=PCAP)
+        tb["block_pairs"] = int(s3._kept_pairs(words_i, cnt, alive_s))
+        tb["block_pairs_bounded"] = int(s3._kept_pairs(words_b, cnt,
+                                                       alive_s))
     return rec, {
         "slots_alive": int(alive.sum()), "scap": scap,
         "pool_overflow": int((pool_of > 0).sum()),
@@ -543,4 +613,4 @@ def trace_rows_tlas(scene, mt, rows_w, tmin, tmax, *, live=None,
         "kept_words": int((torch.clamp(emeta_i[:, 0], max=PCAP)
                            * a64).sum()),
         "steps": int(emeta[:, 2].to(torch.int64).sum()),
-        "capped": int(((emeta[:, 1] > 0) & alive_s).sum())}
+        "capped": int(((emeta[:, 1] > 0) & alive_s).sum()), **tb}

@@ -3,7 +3,8 @@ packet-trace kernel and the stream3 pipeline's six kernels (the two
 transposes, emit walk, exact refine, closest-hit and occlusion pair
 intersection, prep octant scalars), the many-instance scan and the
 TLAS-native route on the card against their CPU routes, and sample1's RD-API route against a direct
-render of the same inputs.
+render of the same inputs; a temporally bounded stream3 wave against
+its unbounded trace, and the temporal cull on the card against the CPU.
 
 Every case is marked `gpu` and skips (with the reason) where no CUDA
 card is present; the `cuda` fixture decides at run time, never at
@@ -663,6 +664,85 @@ def test_s3_occl_wave_matches_packet_kernel(cuda):
     assert stg.refine_cuda.launches == 1
     assert stg.isect_cuda.launches == 0
     assert set(np.unique(got.t.cpu().numpy())) <= {0.0, np.float32(FLT_MAX)}
+
+
+@pytest.mark.parametrize("occl", [False, True])
+def test_s3_bounded_wave_matches_unbounded(cuda, occl):
+    """A temporally bounded stream3 wave on the card (the cull between
+    kernels C and D or E, the residual through the packet kernel), on a
+    soup cut by a wall that every ray hits, so every block has a finite
+    bound: a bound from the previous identical closest-hit wave
+    culls pairs and gives the unbounded trace bit for bit (occlusion:
+    t), with no residual; the tightest bound (half of each block's
+    nearest hit) makes every closest-hit ray residual (16384 rays, all
+    under the cap) and gives the same hits to the traversal bars."""
+    soup = _mesh(11, 4000, 8.0)
+    # one triangle through the middle of the soup, so the half of it
+    # behind the wall lies past every block's bound (two triangles' shared
+    # edge would cross the grid's diagonal, where a ray may slip between)
+    wall = np.float32([[-100, -100, 0], [300, -100, 0], [-100, 300, 0]])
+    v = np.concatenate([soup.vertices, wall])
+    ds = _scene(types.Mesh(v, np.arange(len(v), dtype=np.uint32)
+                           .reshape(-1, 3))).device_scene(cuda)
+    n = 128 * 128
+    ij = np.arange(n)
+    d = np.stack([((ij % 128) / 128 - 0.5) * 0.7,
+                  ((ij // 128) / 128 - 0.5) * 0.7, -np.ones(n)],
+                 -1).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = np.tile(np.float32([[0.0, 0.0, 30.0]]), (n, 1))
+    rows = s3.rows_from_aos_fast(torch.from_numpy(o).to(cuda),
+                                 torch.from_numpy(d).to(cuda))
+    closest = s3.trace_rows_stream3(ds, rows, 1e-3, 1e3)
+    base = s3.trace_rows_stream3(ds, rows, 1e-3, 1e3, occl=occl)
+    assert bool(closest.hit.all())
+    fields = ("t",) if occl else ("t", "prim", "slot", "b1", "b2")
+    stg.reset_launches()
+    rec, diag = s3.trace_rows_stream3(
+        ds, rows, 1e-3, 1e3, occl=occl, with_diag=True,
+        blk_bound=s3.block_bound_from_t(closest.t))
+    torch.cuda.synchronize()
+    assert (stg.isect_occl_cuda if occl else stg.isect_cuda).launches == 1
+    assert diag["tb_residual"] == 0 and diag["tb_marked"] == 0
+    assert int(diag["block_pairs_bounded"]) < int(diag["block_pairs"])
+    for f in fields:
+        assert torch.equal(getattr(rec, f), getattr(base, f)), f
+    tight = torch.where(closest.hit, closest.t * 0.5, FLT_MAX)
+    tight = tight.reshape(-1, 128).amin(dim=1)
+    pk_before = sum(pk.packet_trace_cuda.launches.values())
+    rec, diag = s3.trace_rows_stream3(ds, rows, 1e-3, 1e3, occl=occl,
+                                      with_diag=True, blk_bound=tight)
+    torch.cuda.synchronize()
+    assert sum(pk.packet_trace_cuda.launches.values()) > pk_before
+    # every closest hit lies past half its block's nearest; an occlusion
+    # ray is residual unless a kept leaf still occludes it
+    assert diag["tb_marked"] == 0 and diag["tb_residual"] > 0, diag
+    assert occl or diag["tb_residual"] == n
+    assert int(diag["block_pairs_bounded"]) < int(diag["block_pairs"])
+    assert (rec.slot >= -1).all()
+    _agree(base, rec, occl)
+
+
+def test_apply_block_bound_on_card_equals_cpu(cuda):
+    """The temporal cull on CUDA tensors gives the CPU's words, NaN, inf,
+    negative and zero bounds included (a NaN bound culls nothing on
+    either device)."""
+    rng = np.random.default_rng(5)
+    nslot, npk = 301, 37
+    words = ((rng.integers(0, stg.W_LEAF_MAX - 2, (nslot, 512)) + 1)
+             << stg.W_LEAF_SHIFT | rng.integers(0, 256, (nslot, 512))
+             << stg.W_KEEP_SHIFT | rng.integers(0, 512, (nslot, 512)))
+    words = words.astype(np.int32)
+    words[rng.uniform(size=words.shape) < 0.2] &= ~stg.W_TQ_MASK
+    words[rng.uniform(size=words.shape) < 0.1] = 0
+    slot_pkt = rng.integers(0, npk, nslot).astype(np.int32)
+    b = rng.uniform(0, 200, npk * 8).astype(np.float32)
+    b[:8] = [np.inf, -np.inf, np.nan, -np.nan, 0.0, -3.0, FLT_MAX, 1e-42]
+    args = [torch.from_numpy(x) for x in (words, slot_pkt, b)]
+    ref = s3._apply_block_bound(*args)
+    got = s3._apply_block_bound(*(x.to(cuda) for x in args))
+    assert not torch.equal(ref, args[0])
+    assert torch.equal(got.cpu(), ref)
 
 
 def _multi_scene(dev, n_inst=12, tris_per=200, seed=4):

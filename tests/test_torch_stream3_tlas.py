@@ -8,7 +8,8 @@ walk (an exact oracle), the port's instance scan and, on one small wave,
 the JAX trace_rows_tlas with its Pallas kernels in interpret mode; its
 forced residual, a refit that moves BLASes between slots, the route
 selector and the engine's images on the native route against the JAX
-engine.  Each package builds its own scene from the same numpy geometry:
+engine; and that a temporal bound (blk_bound) gives the unbounded
+trace.  Each package builds its own scene from the same numpy geometry:
 tests/test_stream3_multi.py::_tlas_scene's 9 instances of 3 shared
 BLASes under rotation, scale and placement, from the same seed.
 
@@ -375,12 +376,21 @@ def test_refit_that_moves_blases_traces_as_a_fresh_build():
                        fresh.inst_id[ref.slot.clamp(min=0).long()])
 
 
-def test_blk_bound_is_refused(nine):
+def test_blk_bound_matches_unbounded(nine):
+    """trace_rows_tlas takes a temporal bound: one from the previous
+    identical trace gives the unbounded trace bit for bit, with the cull
+    on and no ray residual (tests/test_torch_tbound.py holds the bounds
+    further)."""
     _, tds, _, tm = nine
     o, d = random_wave(1, 256)
-    with pytest.raises(ValueError, match="blk_bound"):
-        tsm.trace_rows_tlas(tds, tm, trows(o, d), TMIN, TMAX,
-                            blk_bound=torch.zeros(2))
+    base = tsm.trace_rows_tlas(tds, tm, trows(o, d), TMIN, TMAX)
+    rec, diag = tsm.trace_rows_tlas(tds, tm, trows(o, d), TMIN, TMAX,
+                                    blk_bound=ts3.block_bound_from_t(base.t),
+                                    with_diag=True)
+    assert (base.t < FLT_MAX).sum() > 10
+    assert diag["tb_residual"] == 0 and diag["tb_marked"] == 0
+    for f in ("t", "prim", "slot", "b1", "b2"):
+        assert torch.equal(getattr(rec, f), getattr(base, f)), f
 
 
 # ----------------------------------------------------------- routes
