@@ -146,19 +146,49 @@ prints no result):
      bounded by 0.5 on every block with the residual's floor at 8 rays,
      through the engine's _traced_wavefront: the unbounded hits, no slot
      below -1;
- 12. the kernels' JSON line (per kernel: the main path's launches, the
+ 12. ray and word ordering (chip_smoke.ordering_modes) on the city at
+     1920x1080, its runs driven (launch counts set to 0 just before and
+     read just after): (a) the engine's bucket sort
+     (reorder.coherence_perm) on the bounce wave against torch.argsort of
+     coherence_key, both timed, the permutation checked stable; (b)
+     bench.py's three waves with the secondaries on "gen1_sort" against
+     "gen1_live" (hits and t identical, occluded-or-not on the shadow
+     wave), each timed; (c) on the 1080p primary, kernel C with and
+     without its tq-sort form against its plain version (word lists
+     identical; the sorted lists the unsorted ones in stable bucket
+     order) and kernel D on both lists in its default, lean, cull and
+     lean-and-cull forms against its plain version with the same flags
+     (the parity bars; each form's t bit-equal to the same version's
+     default form, prims >= 0.999), each timed with its bound and the
+     cull's skipped pairs; (d) the block presort on the engine's
+     pixel-order primary and the bench's tile-ordered one: capped and
+     flagged packets, re-traced rays and words with and without it,
+     hits held to the unsorted trace; (e) trace_rows_cascade on the
+     shadow wave and the mirror bounce at the 50th and 90th percentile
+     of each wave's hit t: stage A's and B's words against a full-range
+     trace, results held to it; (f) build_tracer equal to
+     trace_rows_stream3 with its drain bit for bit, then with presort,
+     tqsort, lean and cull on both primaries (the slice's path: its
+     counts are the new forms' launches), lean barycentrics within 2e-3;
+     (g) city frames (1080p, batch 4, depth 4) with the bounce and
+     shadow waves on "gen1_sort" against the default "argsort",
+     accumulations allclose, and a 256x256 frame with "xla" bounces (the
+     walk takes 1-2 s a trace: a cut of size only) against the default;
+ 13. the kernels' JSON line (per kernel: the main path's launches, the
      per-launch means of kernel ms, plain ms and bound and their sums,
      by scene where a kernel runs in several; A from phase 5, B and C
      also phase 5's 1080p wave, F phase 7's masked 1080p rows; each
-     phase 8 path's launches, phase 9's, phase 10's and phase 11's,
-     phase 10's launch of each on the native 1080p waves, and D's
-     bounded launch on phase 11's interior waves), the card line, and
-     the contract's last line.
+     phase 8 path's launches, phase 9's, phase 10's, phase 11's and
+     phase 12's, phase 10's launch of each on the native 1080p waves,
+     and D's bounded launch on phase 11's interior waves; rows of C's
+     tq-sort form and D's lean and cull forms from phase 12), the card
+     line, and the contract's last line.
 
 Imports nothing of JAX or radiance_tpu (bench.py's numpy-only scene
 helpers are reused).  Needs one CUDA card; exits 2 without one.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -824,6 +854,20 @@ class Calls:
             setattr(m, n, fn)
 
 
+@contextlib.contextmanager
+def cuda_profile():
+    """torch.profiler over the CUDA activity, warmed by one small kernel
+    and a synchronize before the caller's work: on a slow host CUPTI can
+    miss the first kernels launched right after the profiler starts (a
+    missing record fails launch_ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        yield prof
+
+
 def kernel_records(prof):
     """torch.profiler's device records: (name, start ns, duration ns) in
     launch order."""
@@ -1205,6 +1249,9 @@ def launch_counts(pk, stg):
     out = {f"packet_trace[{k}]": v
            for k, v in pk.packet_trace_cuda.launches.items()}
     out.update({k: fn.launches for k, fn in stg.KERNELS.items()})
+    out.update({"refine[tqsort]": stg.refine_cuda.sort_launches,
+                "isect[lean]": stg.isect_cuda.lean_launches,
+                "isect[cull]": stg.isect_cuda.cull_launches})
     return out
 
 
@@ -1973,10 +2020,7 @@ def tlas_wave(name, s3m, stg, pk, scene, mt, rows, total, card, **kw):
 def recorded_wave(s3m, stg, pk, scene, mt, rows, total, **kw):
     """One trace_rows_tlas call with every kernel dispatcher's call
     recorded (Calls) under torch.profiler: (Calls.calls, launch_ms())."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with Calls(pk, s3m) as calls, profile(
-            activities=[ProfilerActivity.CUDA]) as prof:
+    with Calls(pk, s3m) as calls, cuda_profile() as prof:
         driven(pk, stg, total, lambda: s3m.trace_rows_tlas(
             scene, mt, rows, TMIN, TMAX, **kw))
     return calls.calls, launch_ms(prof, calls.calls)
@@ -2178,7 +2222,6 @@ def tlas_native(dev, card, tracer, light, pk, s3, s3m, stg):
     log(f"[10] (a) done in {time.time() - t0:.1f} s")
 
     # (b) engine frames on the native route beside the scan
-    from torch.profiler import ProfilerActivity, profile
     t1 = time.time()
     native_tracer = dataclasses.replace(tracer, multi_route="native")
     frames, waves = {}, []
@@ -2205,7 +2248,7 @@ def tlas_native(dev, card, tracer, light, pk, s3, s3m, stg):
         accum, image = count(frame)
         torch.cuda.synchronize()
         warm = (time.time() - tf0) * 1e3
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with cuda_profile() as prof:
             tf0 = time.time()
             count(frame)
             torch.cuda.synchronize()
@@ -2407,10 +2450,7 @@ def bounded_launch(s3, stg, pk, fn, hold):
     recorded: D's kernel ms (its one launch) and the packet kernel's
     launches' ms; with hold, D held against its plain version on its
     recorded arguments and bounded (isect_launch)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with Calls(pk, s3, keep_args=hold) as calls, profile(
-            activities=[ProfilerActivity.CUDA]) as prof:
+    with Calls(pk, s3, keep_args=hold) as calls, cuda_profile() as prof:
         out = fn()
         torch.cuda.synchronize()
     ms = launch_ms(prof, calls.calls)
@@ -2649,7 +2689,10 @@ def temporal_bounds(dev, card, tracer, bench, pk, s3, s3m, stg):
                               if m not in ("accum", "image")}
                      for k, f in frames.items()}
     out["frames"].update(rmse=rmse, pixels_differ=differ)
-    del frames, a_t, a_f, i_t, i_f, res, scene, tlas, blas
+    del frames, a_t, a_f, i_t, i_f, res, tlas, blas
+    # the interior's scene for phase [12] (main() takes it out of `out`)
+    out["interior"] = scene
+    del scene
 
     # (d) the many-instance routes
     t1 = time.time()
@@ -2757,6 +2800,470 @@ def temporal_bounds(dev, card, tracer, bench, pk, s3, s3m, stg):
     if any(total.get(k, 0) <= 0 for k in need):
         raise AssertionError(f"phase 11 missed a kernel: {total}")
     log(f"[11] launches of the bounded runs in the phase: {total}")
+    return out
+
+
+# ---- phase 12: ray and word ordering --------------------------------------
+
+XLA_SIDE = 256                # the xla-bounce frame's side: the walk takes
+                              # 1-2 s a trace (phase [9]), so a 1080p frame
+                              # would not fit the time limit (a size cut)
+ORDER_STAGES = ("_block_sort", "_stage_prep", "stage_emit", "stage_refine",
+                "feats_rows_to_major", "stage_isect", "_stage_glue", "_run",
+                "retrace_flagged", "trace_rows_stream3")
+ORDER_FORMS = {   # JSON name -> (form count key, source, TPU kernel)
+    "stream3_refine[tqsort]": ("refine[tqsort]", S3_SRC + "s3_refine.cu",
+                               "radiance_tpu/ops/stream3.py:1635"),
+    "stream3_isect[lean]": ("isect[lean]", S3_SRC + "s3_isect.cu",
+                            "radiance_tpu/ops/stream3.py:1853"),
+    "stream3_isect[cull]": ("isect[cull]", S3_SRC + "s3_isect.cu",
+                            "radiance_tpu/ops/stream3.py:1853"),
+}
+
+
+def bits_equal(a, b) -> bool:
+    """Two f32 tensors equal bit for bit."""
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def hold_same(name, got, ref):
+    """Two exact tracers' records of the same closest-hit rays: the
+    parity bars (hold_prims), and the share of rays with bit-equal t and
+    equal prims logged (a ray re-traced by the packet kernel in one and
+    by D in the other rounds its t apart)."""
+    res = hold_prims(name, got.t, got.prim, ref.t, ref.prim)
+    res["t_bit_equal"] = float((got.t.view(torch.int32)
+                                == ref.t.view(torch.int32)).float().mean())
+    res["prim_equal"] = float((got.prim == ref.prim).float().mean())
+    log(f"    {name}: t bit-equal on {res['t_bit_equal']:.7f}, prims equal "
+        f"on {res['prim_equal']:.7f} of the rays")
+    return res
+
+
+def bary64(scene, o, d, prim):
+    """Float64 Moeller-Trumbore barycentrics (b1, b2) of rays o, d [k, 3]
+    (world space) on their winning primitives prim [k] (kernel face
+    through the inverse of kprim), the witness for two f32 forms."""
+    kp = scene.kprim.long()
+    nf = kp.shape[0]
+    iprim = torch.zeros(nf, dtype=torch.long, device=kp.device)
+    iprim[torch.where(kp >= 0, kp, nf - 1)] = torch.arange(nf,
+                                                           device=kp.device)
+    geo = scene.ktri_geo[iprim[prim.long()]].double()
+    inv = scene.inst_inv[0].double()
+    o = o.double() @ inv[:3, :3].T + inv[:3, 3]
+    d = d.double() @ inv[:3, :3].T
+    v0, e1, e2 = geo[:, 0:3], geo[:, 3:6], geo[:, 6:9]
+    p = torch.cross(d, e2, dim=1)
+    inv_det = 1.0 / (e1 * p).sum(1)
+    tv = o - v0
+    q = torch.cross(tv, e1, dim=1)
+    return (tv * p).sum(1) * inv_det, (d * q).sum(1) * inv_det
+
+
+def hold_lean_barys(name, scene, rec, base, o, d):
+    """The lean form's barycentrics (stream3._winner_barys, the
+    reference's: Moeller-Trumbore from ktri_geo) against the default
+    form's (Pluecker ratios in kernel D) on the rays both hit with one
+    prim: within tests/test_stream3.py:117-122's bar (allclose, rtol 2e-3,
+    atol 2e-3) on at least 1 - 1e-4 of them.  Where a ray misses that
+    bar, the float64 witness (bary64) says how far each f32 form is from
+    the truth: the lean form's tvec = o - v0 carries |o| * eps, which the
+    default's leaf-local frames do not, and a sliver triangle amplifies
+    both.  Returns the counts and maxima."""
+    same = rec.hit & base.hit & (rec.prim == base.prim)
+    idx = torch.nonzero(same).squeeze(1)
+    bl = torch.stack([rec.b1[idx], rec.b2[idx]], 1)
+    bd = torch.stack([base.b1[idx], base.b2[idx]], 1)
+    off = ((bl - bd).abs() > 2e-3 + 2e-3 * bd.abs()).any(1)
+    bad = idx[off]
+    res = dict(name=name, rays=int(idx.numel()), beyond_bar=int(bad.numel()),
+               max_diff=float((bl - bd).abs().max()) if idx.numel() else 0.0)
+    if bad.numel():
+        w = torch.stack(bary64(scene, o[bad], d[bad], rec.prim[bad]), 1)
+        res.update(lean_vs_f64_max=float((bl[off].double() - w).abs().max()),
+                   default_vs_f64_max=float(
+                       (bd[off].double() - w).abs().max()))
+    log("  ", json.dumps(res))
+    if res["beyond_bar"] > 1e-4 * max(res["rays"], 1):
+        raise AssertionError(f"{name}: lean barycentrics: {res}")
+    return res
+
+
+def c_and_d_forms(where, card, scene, rows, tmax, s3, stg):
+    """Phase 12 (c) on one 1080p wave: kernel C with and without its
+    tq-sort form against _refine_plain (word lists identical; the sorted
+    lists the unsorted ones in stable bucket order), then kernel D on
+    both lists in each of its forms against _isect_plain with the same
+    flags (the parity bars on live slots; each version's t bit-equal to
+    its own default form's, prims >= 0.999 of it; lean lanes 2-3 zero),
+    each timed with CUDA events, with its plain ms, bound and the pairs
+    each cull skipped: the kernel's, counted on the card, must be more
+    than none where the plain cull skips any (on the interior it must)
+    and no more than the plain's whole-list rule skips.  Returns {form:
+    numbers}."""
+    dev = rows[0].device
+    stable = scene.stable_frames
+    _, feats_t, scal, smeta, bscal, _ = s3._stage_prep(
+        rows, scene.knode_f, scene.inst_inv[0], stable=stable)
+    words, emeta = stg.emit_cuda(scal, smeta, bscal, scene.knode_f, tmax,
+                                 stg.STEP_CAP, stg.PCAP)
+    slot_pkt = smeta[:, 0].contiguous()
+    c_args = (words, emeta, slot_pkt, feats_t,
+              s3.leaf_aabb8(scene.knode_f, scene.kleaf.shape[0]), tmax,
+              stg.PCAP)
+    forms, lists = {}, {}
+    for sort in (False, True):
+        ms, (rk, rek) = cuda_ms(lambda: stg.refine_cuda(*c_args, sort=sort),
+                                5)
+        p_ms, (rp, rep) = cuda_ms(lambda: stg._refine_plain(
+            *c_args, sort=sort), 1, warmup=False)
+        diff = first_word_diff(rk, rp, rep[:, 0])
+        if not torch.equal(rek, rep) or diff is not None:
+            raise AssertionError(f"{where} refine sort={sort}: kernel and "
+                                 f"plain differ: {diff}")
+        b, nw, kept = refine_bound(stg, words, emeta, rek, stg.PCAP)
+        lists[sort] = (rk, rek)
+        forms[f"refine/sort={sort}"] = dict(ms=ms, plain_ms=p_ms, bound=b,
+                                            words=nw, kept=kept,
+                                            max_abs_err=0.0)
+    valid = (torch.arange(stg.PCAP, device=dev)[None, :]
+             < lists[False][1][:, :1])
+    u = lists[False][0]
+    order = torch.argsort(torch.where(valid, stg.tq_bucket(u), 32), dim=1,
+                          stable=True)
+    if not torch.equal(torch.gather(u, 1, order)[valid],
+                       lists[True][0][valid]):
+        raise AssertionError(f"{where}: C's sorted lists are not its "
+                             f"unsorted lists in stable tq-bucket order")
+    log(f"[12] (c) C on the {where} 1080p primary ({card}): word lists "
+        f"identical to plain, sorted and unsorted; "
+        f"{json.dumps({k: round(v['ms'], 4) for k, v in forms.items()})} ms")
+    feats = stg.transpose_cuda(feats_t)
+    live = smeta[:, 1] > 0
+    for sort in (False, True):
+        args = (*lists[sort], slot_pkt, feats, scene.kleaf, TMIN, tmax,
+                stg.PCAP, stable)
+        base_k = stg.isect_cuda(*args)
+        base_p = stg._isect_plain(*args)
+        for lean, cull in ((False, False), (True, False), (False, True),
+                           (True, True)):
+            name = f"isect/sort={sort}/lean={lean}/cull={cull}"
+            ms, ok = cuda_ms(lambda: stg.isect_cuda(*args, lean=lean,
+                                                    cull=cull), 5)
+            st = {}
+            p_ms, op = cuda_ms(lambda: stg._isect_plain(
+                *args, lean=lean, cull=cull, stats=st), 1, warmup=False)
+            h = hold_prims(f"D {name} vs plain, {where}",
+                           ok[live][..., 0].reshape(-1),
+                           ok[live][..., 1].reshape(-1),
+                           op[live][..., 0].reshape(-1),
+                           op[live][..., 1].reshape(-1))
+            for got, base, who in ((ok, base_k, "kernel"),
+                                   (op, base_p, "plain")):
+                share = float((got[..., 1] == base[..., 1])[live]
+                              .float().mean())
+                if not bits_equal(got[..., 0], base[..., 0]) or share < 0.999:
+                    raise AssertionError(f"D {name}, {where}: the {who}'s t "
+                                         f"or prims moved from its default "
+                                         f"form (prims {share})")
+            if lean and (bool(ok[..., 2:].any()) or bool(op[..., 2:].any())):
+                raise AssertionError(f"D {name}: lean lanes 2-3 not zero")
+            kst = {}
+            stg.isect_cuda(*args, lean=lean, cull=cull, stats=kst)
+            k_cul, p_cul = kst.get("culled", 0), st.get("culled", 0)
+            if cull and (k_cul > p_cul or (k_cul > 0) != (p_cul > 0)
+                         or (where == "interior" and p_cul == 0)):
+                raise AssertionError(f"D {name}, {where}: the kernel's cull "
+                                     f"skipped {k_cul} pairs, the plain "
+                                     f"cull {p_cul}")
+            b = pair_bound(stg, args, st, ok)[0]
+            forms[name] = dict(ms=ms, plain_ms=p_ms, bound=b,
+                               pairs=st["pairs"], culled=p_cul,
+                               kernel_culled=k_cul,
+                               max_abs_err=h["max_abs_err"])
+            log(f"    D {name}, {where} ({card}): {ms:.4f} ms, plain "
+                f"{p_ms:.1f} ms, bound {b[0]:.4f} ms ({b[1]}); pairs "
+                f"{st['pairs']}, culled {p_cul} (plain), {k_cul} (kernel); "
+                f"t bit-equal to the default form")
+    out = {k: dict(v, bound_ms=v["bound"][0], bound_by=v["bound"][1])
+           for k, v in forms.items()}
+    for v in out.values():
+        del v["bound"]
+    return out
+
+
+def ordering_modes(dev, card, tracer, scene, res, verts, tris, waves, hit1,
+                   interior, bench, pk, s3, stg):
+    """Phase 12: ray and word ordering on the city at 1080p.  (a) the
+    engine's bucket sort (reorder.coherence_perm) on the bounce wave
+    against torch.argsort of coherence_key; (b) bench.py's three waves,
+    the secondaries on "gen1_sort" and on "gen1_live"; (c) kernel C's
+    tq-sort form and kernel D's lean and cull forms on the 1080p primary
+    of the city and of phase [11]'s interior hall (`interior`: a closed
+    scene, whose blocks hold no miss, so the cull has pairs to skip),
+    each against its plain version and timed, with its bound; (d) the
+    block presort on the engine's pixel-order primary and the bench's
+    tile-ordered one; (e) trace_rows_cascade on the shadow wave and the
+    mirror bounce at the 50th and 90th percentile of each wave's hit t;
+    (f) build_tracer, plain and with every mode on (the slice's own path:
+    its counts are the new forms' launches); (g) engine frames with the
+    bounce and shadow waves on "gen1_sort" against the default
+    "argsort", and an XLA_SIDE frame with "xla" bounces.  Every run but
+    the comparisons' plain versions is driven (counts set to 0 just before
+    and read just after); returns the counts and the metrics."""
+    from radiance_tpu_torch.engine import pathtracer
+    from radiance_tpu_torch.ops import reorder
+    from radiance_tpu_torch.ops.intersect import FLT_MAX
+
+    total, out = {}, {}
+    n = W * H
+    (o1, d1), (o2, d2), (so, light) = (waves["primary"], waves["bounce"],
+                                       waves["shadow"])
+    t0 = time.time()
+
+    # (a) the bucket sort against the argsort on the bounce wave
+    key = torch.where(hit1, pk.coherence_key(o2, d2), 2 ** 31 - 1)
+    a_ms, _ = cuda_ms(lambda: torch.argsort(key, stable=True), 10)
+    b_ms, (perm, inv) = cuda_ms(lambda: reorder.coherence_perm(d2, hit1), 10)
+    ks = reorder.octant_key(d2, hit1)[perm]
+    if not (bool(((ks[1:] > ks[:-1]) | ((ks[1:] == ks[:-1])
+                                       & (perm[1:] > perm[:-1]))).all())
+            and torch.equal(perm[inv], torch.arange(n, device=dev))):
+        raise AssertionError("coherence_perm is not the stable sort of the "
+                             "octant keys")
+    out["reorder"] = dict(bucket_ms=b_ms, argsort_ms=a_ms,
+                          live=int(hit1.sum()))
+    log(f"[12] (a) bounce wave, {n} rays, {int(hit1.sum())} live ({card}): "
+        f"coherence_perm {b_ms:.4f} ms (9 buckets, a stable sort of its "
+        f"keys), torch.argsort of coherence_key "
+        f"{a_ms:.4f} ms")
+    del key, perm, inv, ks
+
+    # (b) bench.py's three waves, the secondaries on gen1_sort / gen1_live
+    rows1 = s3.rows_from_aos_fast(o1, d1)
+    p_ms, _ = driven(pk, stg, total, lambda: cuda_ms(
+        lambda: s3.trace_rows_stream3(scene, rows1, TMIN, TMAX), 3))
+    wave_ms = {}
+    for name, (o, d, occl) in (("bounce", (o2, d2, False)),
+                               ("shadow", (so, light, True))):
+        recs = {}
+        for route in ("gen1_live", "gen1_sort"):
+            wave_ms[f"{name}/{route}"], recs[route] = driven(
+                pk, stg, total, lambda: cuda_ms(
+                    lambda: pathtracer._traced_wavefront(
+                        scene, o, d, TMIN, TMAX, hit1, route=route,
+                        any_hit_terminate=occl), 3))
+        a, b = recs["gen1_live"], recs["gen1_sort"]
+        same = bool(torch.equal(a.hit, b.hit))
+        if not occl:
+            same = same and bits_equal(a.t, b.t)
+            hold_prims(f"{name} wave gen1_sort vs gen1_live", b.t, b.prim,
+                       a.t, a.prim)
+        if not same:
+            raise AssertionError(f"{name} wave: gen1_sort and gen1_live "
+                                 f"differ")
+        log(f"[12] (b) {name} wave ({card}): gen1_sort "
+            f"{wave_ms[name + '/gen1_sort']:.4f} ms, gen1_live "
+            f"{wave_ms[name + '/gen1_live']:.4f} ms; "
+            f"{'occluded-or-not' if occl else 'hits and t'} identical, "
+            f"prims differ on {int((a.prim != b.prim).sum())} rays")
+    for route in ("gen1_live", "gen1_sort"):
+        tot = p_ms + wave_ms[f"bounce/{route}"] + wave_ms[f"shadow/{route}"]
+        wave_ms[f"mrays/{route}"] = 3 * n / tot / 1e3
+    wave_ms["primary/stream3"] = p_ms
+    out["waves"] = wave_ms
+    log(f"[12] (b) three waves ({card}): primary (stream3) {p_ms:.4f} ms; "
+        f"{wave_ms['mrays/gen1_sort']:.2f} Mrays/s with the secondaries "
+        f"on gen1_sort, {wave_ms['mrays/gen1_live']:.2f} on gen1_live")
+
+    # (c) C's sort form and D's lean and cull forms on the 1080p primaries
+    # of the city and the interior
+    io, idr = interior_rays(dev, W, H, 0, bench._pcg3d_np)
+    forms = {}
+    for where, sc, rows_c, tmax in (
+            ("city", scene, rows1, TMAX),
+            ("interior", interior, s3.rows_from_aos_fast(io, idr), TB_TMAX)):
+        forms[where] = c_and_d_forms(where, card, sc, rows_c, tmax, s3, stg)
+    out["forms"] = forms
+    log(f"[12] (a)-(c) done in {time.time() - t0:.1f} s")
+
+    # (d) the block presort on the engine's and the bench's primaries
+    t1 = time.time()
+    pix = torch.arange(n, device=dev)
+    eo, ed = pathtracer._sample_init(tracer, res, pix, 0, 0)[3:]
+    out["presort"] = {}
+    for name, (o, d) in (("engine pixel-order", (eo, ed)),
+                         ("bench tile-ordered", (o1, d1))):
+        rows = s3.rows_from_aos_fast(o, d)
+        recs, row = {}, {}
+        for ps in (False, True):
+            ms, (recs[ps], dg) = driven(pk, stg, total, lambda: cuda_ms(
+                lambda: s3.trace_rows_stream3(scene, rows, TMIN, TMAX,
+                                              presort=ps, with_diag=True), 3))
+            row[f"presort={ps}"] = dict(ms=ms, **{k: int(dg[k]) for k in (
+                "words", "kept_words", "steps", "capped", "flagged",
+                "residual_rays")})
+        for ps in (False, True):
+            _, spans, _ = call_spans(s3, ORDER_STAGES, lambda: (
+                s3.trace_rows_stream3(scene, rows, TMIN, TMAX, presort=ps)))
+            row[f"presort={ps}"]["stages"] = {
+                k: round(sum(v), 4) for k, v in spans.items() if v}
+        row.update(hold_same(f"{name} primary, presorted vs caller order",
+                             recs[True], recs[False]))
+        out["presort"][name] = row
+        log(f"[12] (d) {name} primary ({card}): "
+            f"{json.dumps({k: v for k, v in row.items() if 'presort' in k})}")
+    del recs, rows
+
+    # (e) the cascade on the shadow wave and the mirror bounce
+    out["cascade"] = {}
+    for name, (o, d, occl) in (("shadow", (so, light, True)),
+                               ("bounce", (o2, d2, False))):
+        rows = s3.rows_from_aos_fast(o, d)
+        th = s3.trace_rows_stream3(scene, rows, TMIN, TMAX, live=hit1).t
+        th = th[th < FLT_MAX]
+        if th.numel() == 0:
+            raise AssertionError(f"the {name} wave hits nothing")
+        f_ms, (full, fdg) = driven(pk, stg, total, lambda: cuda_ms(
+            lambda: s3.trace_rows_stream3(scene, rows, TMIN, TMAX, live=hit1,
+                                          occl=occl, with_diag=True), 3))
+        row = dict(full_ms=f_ms, full_words=int(fdg["words"]),
+                   hits=int(th.numel()))
+        for q in (0.5, 0.9):
+            near = float(torch.quantile(th, q))
+            c_ms, (rec, cdg) = driven(pk, stg, total, lambda: cuda_ms(
+                lambda: s3.trace_rows_cascade(scene, rows, TMIN, TMAX, near,
+                                              live=hit1, occl=occl,
+                                              with_diag=True), 3))
+            if occl:
+                hold_occluded(f"{name} cascade at p{int(q * 100)} vs one "
+                              f"stage", rec.hit, full.hit, hit1)
+                same = int((rec.hit != full.hit).sum())
+            else:
+                same = hold_same(f"{name} cascade at p{int(q * 100)} vs one "
+                                 f"stage", rec, full)["t_bit_equal"]
+            row[f"p{int(q * 100)}"] = dict(
+                near=near, ms=c_ms, words_a=int(cdg["a"]["words"]),
+                words_b=int(cdg["b"]["words"]),
+                **({"hits_differ": same} if occl else {"t_bit_equal": same}))
+        out["cascade"][name] = row
+        log(f"[12] (e) {name} cascade ({card}): {json.dumps(row)}")
+    del rows, th, full, rec
+    log(f"[12] (d)-(e) done in {time.time() - t1:.1f} s")
+
+    # (f) build_tracer, plain and with every mode on (the slice's path)
+    t1 = time.time()
+    bt = s3.build_tracer(scene)
+    bt_ms, brec = driven(pk, stg, total, lambda: cuda_ms(
+        lambda: bt(o1, d1, TMIN, TMAX), 3))
+    ref = s3.trace_rows_stream3(scene, rows1, TMIN, TMAX)
+    if not (bits_equal(brec.t, ref.t) and torch.equal(brec.prim, ref.prim)
+            and bits_equal(brec.b1, ref.b1) and bits_equal(brec.b2, ref.b2)):
+        raise AssertionError("build_tracer differs from trace_rows_stream3 "
+                             "with its drain")
+    modes = {w: s3.build_tracer(sc, presort=True, tqsort=True, lean=True,
+                                cull=True)
+             for w, sc in (("city", scene), ("interior", interior))}
+    prims = (("bench", "city", o1, d1, TMAX), ("engine", "city", eo, ed, TMAX),
+             ("interior", "interior", io, idr, TB_TMAX))
+    main = {}
+    reset_counts(pk, stg)
+    mrecs = [modes[w](o, d, TMIN, tm) for _, w, o, d, tm in prims]
+    torch.cuda.synchronize()
+    for k, v in launch_counts(pk, stg).items():
+        main[k] = v
+        total[k] = total.get(k, 0) + v
+    m_ms, _ = driven(pk, stg, total, lambda: cuda_ms(
+        lambda: modes["city"](o1, d1, TMIN, TMAX), 3))
+    lean_barys = {}
+    for rec, (name, w, o, d, tm) in zip(mrecs, prims):
+        sc = scene if w == "city" else interior
+        base = s3.trace_rows_stream3(sc, s3.rows_from_aos_fast(o, d), TMIN,
+                                     tm)
+        hold_same(f"build_tracer(all modes) vs default, {name} primary",
+                  rec, base)
+        lean_barys[name] = hold_lean_barys(
+            f"lean barycentrics vs default, {name} primary", sc, rec, base,
+            o, d)
+    out["build_tracer"] = dict(ms=bt_ms, modes_ms=m_ms,
+                               lean_barys=lean_barys, main_launches=main)
+    log(f"[12] (f) build_tracer on the 1080p primary ({card}): {bt_ms:.4f} "
+        f"ms, equal to trace_rows_stream3 bit for bit; with presort, tqsort, "
+        f"lean and cull {m_ms:.4f} ms; its launches on the bench's, the "
+        f"engine's and the interior's primaries {json.dumps(main)}")
+    for key, _, _ in ORDER_FORMS.values():
+        if main.get(key, 0) <= 0:
+            raise AssertionError(f"the modes' path launched no {key}")
+    del mrecs, ref, brec, eo, ed, io, idr
+    log(f"[12] (f) done in {time.time() - t1:.1f} s")
+
+    # (g) engine frames: bounce and shadow waves on gen1_sort vs argsort;
+    # an XLA_SIDE frame with xla bounces
+    t1 = time.time()
+    frames = {}
+    for name, tr in (("argsort", tracer), ("gen1_sort", dataclasses.replace(
+            tracer, bounce_route="gen1_sort", shadow_route="gen1_sort"))):
+        driven(pk, stg, total, lambda: tr.render(
+            scene, res, torch.zeros(n, 3, device=dev), 0, W, H, batch=4,
+            depth=4))
+        accum, ms = torch.zeros(n, 3, device=dev), []
+        for ts in (0, 4):
+            tf0 = time.time()
+            accum, image = driven(pk, stg, total, lambda: tr.render(
+                scene, res, accum, ts, W, H, batch=4, depth=4))
+            ms.append((time.time() - tf0) * 1e3)
+        frames[name] = dict(ms=ms, accum=accum, image=image)
+        log(f"[12] (g) city frame 1920x1080 batch 4 depth 4, bounce and "
+            f"shadow waves on {name} ({card}): "
+            f"{', '.join(f'{m:.1f}' for m in ms)} ms")
+    check_frame("city gen1_sort", frames["gen1_sort"]["accum"],
+                frames["gen1_sort"]["image"], n)
+    a_s, a_a = frames["gen1_sort"]["accum"], frames["argsort"]["accum"]
+    rmse = float((frames["gen1_sort"]["image"][..., :3].float()
+                  - frames["argsort"]["image"][..., :3].float())
+                 .pow(2).mean().sqrt())
+    diff = float((a_s - a_a).abs().max())
+    log(f"[12] (g) gen1_sort against argsort: accum max |diff| {diff:.3e}, "
+        f"u8 RMSE {rmse:.4f}")
+    if not torch.allclose(a_s, a_a, rtol=1e-3, atol=1e-4) or rmse > 0.5:
+        raise AssertionError(f"gen1_sort frames differ from argsort: RMSE "
+                             f"{rmse}, max |diff| {diff}")
+    out["frames"] = {k: v["ms"] for k, v in frames.items()}
+    out["frames"].update(rmse=rmse, accum_max_diff=diff)
+    del frames, a_s, a_a
+    xres = city_resources(dev, verts, tris, XLA_SIDE, XLA_SIDE)
+    xn = XLA_SIDE * XLA_SIDE
+    xf = {}
+    for name, tr in (("argsort", tracer),
+                     ("xla", dataclasses.replace(tracer, bounce_route="xla"))):
+        tf0 = time.time()
+        acc, img = driven(pk, stg, total, lambda: tr.render(
+            scene, xres, torch.zeros(xn, 3, device=dev), 0, XLA_SIDE,
+            XLA_SIDE, batch=1, depth=2))
+        xf[name] = (acc, img, (time.time() - tf0) * 1e3)
+    check_frame("city xla bounces", xf["xla"][0], xf["xla"][1], xn)
+    rmse = float((xf["xla"][1][..., :3].float()
+                  - xf["argsort"][1][..., :3].float()).pow(2).mean().sqrt())
+    log(f"[12] (g) city frame {XLA_SIDE}x{XLA_SIDE} batch 1 depth 2 "
+        f"({card}): xla bounces {xf['xla'][2]:.1f} ms, argsort "
+        f"{xf['argsort'][2]:.1f} ms; u8 RMSE {rmse:.4f}")
+    if rmse >= 2.0:
+        raise AssertionError(f"xla-bounce frame differs: RMSE {rmse}")
+    out["xla_frame"] = dict(side=XLA_SIDE, xla_ms=xf["xla"][2],
+                            argsort_ms=xf["argsort"][2], rmse=rmse)
+    del xf, xres
+    log(f"[12] (g) done in {time.time() - t1:.1f} s")
+
+    out["launches"] = total
+    need = ("emit", "refine", "transpose", "aos_rows", "isect", "isect_occl",
+            "oscal", "packet_trace[closest]", "packet_trace[masked_closest]",
+            "packet_trace[any_hit]", "packet_trace[masked_any_hit]",
+            "refine[tqsort]", "isect[lean]", "isect[cull]")
+    if any(total.get(k, 0) <= 0 for k in need):
+        raise AssertionError(f"phase 12 missed a kernel: {total}")
+    log(f"[12] launches of the driven runs in the phase: {total}")
     return out
 
 
@@ -3181,8 +3688,6 @@ def main() -> int:
     # reset just before and read just after; every launch of the packet
     # kernel and of D recorded (arguments and output) and timed on its own
     # shape from torch.profiler's kernel records
-    from torch.profiler import ProfilerActivity, profile
-
     res = city_resources(dev, verts, tris, W, H)
     cscene, cres = cornell_inputs(dev, CW)
     torch.cuda.synchronize()
@@ -3192,8 +3697,7 @@ def main() -> int:
     frame_ms = []
     accum = torch.zeros(n, 3, device=dev)
     ts = 0
-    with Calls(pk, s3) as main_calls, profile(
-            activities=[ProfilerActivity.CUDA]) as prof:
+    with Calls(pk, s3) as main_calls, cuda_profile() as prof:
         main_calls.tag = "city"
         for _ in range(2):
             t0 = time.time()
@@ -3542,8 +4046,7 @@ def main() -> int:
         m_calls.tag = f"multi64/{len(waves_seen)}-{waves_seen[-1]}"
         return scan(*a, **k)
 
-    with Calls(pk, s3) as m_calls, profile(
-            activities=[ProfilerActivity.CUDA]) as prof:
+    with Calls(pk, s3) as m_calls, cuda_profile() as prof:
         s3m.trace_rows_multi = tagged
         try:
             tf0 = time.time()
@@ -3677,9 +4180,17 @@ def main() -> int:
     # ---- 11. temporal t-bounds ---------------------------------------
     t0 = time.time()
     tbound = temporal_bounds(dev, card, tracer, bench, pk, s3, s3m, stg)
+    interior = tbound.pop("interior")
     log(f"[11] done in {time.time() - t0:.1f} s")
 
-    # ---- 12. results -------------------------------------------------
+    # ---- 12. ray and word ordering -----------------------------------
+    t0 = time.time()
+    order = ordering_modes(dev, card, tracer, scene, res, verts, tris, waves,
+                           hit1, interior, bench, pk, s3, stg)
+    del interior
+    log(f"[12] done in {time.time() - t0:.1f} s")
+
+    # ---- 13. results -------------------------------------------------
     # per kernel: the main path's launches (the packet kernel: the city
     # frames and sample1; B, C, D and F: the city frames and the
     # 64-instance frame; E: the 64-instance frame), each timed on its own
@@ -3690,7 +4201,13 @@ def main() -> int:
     # tlas_phase_launches: the native route's runs in phase [10], and
     # tlas_wave_1080p its launch on phase [10]'s primary (E: shadow) wave;
     # tbound_phase_launches: the bounded runs of phase [11], and D's
-    # tbound_wave_1080p its mean launch on the interior's bounded samples.
+    # tbound_wave_1080p its mean launch on the interior's bounded samples;
+    # ordering_phase_launches: the driven runs of phase [12].  The new
+    # forms' rows (C's tq sort, D's lean and cull): launches are those of
+    # phase [12] (f)'s path (build_tracer with every mode on, on the two
+    # 1080p primaries), ms, plain ms and bound their launch on the 1080p
+    # primary's tq-sorted lists (C: the sorted refine), as phase [12] (c)
+    # timed it.
     kernels = []
     for var in PATH_VARIANTS:
         errs = [r["max_abs_err"] for k, r in results.items()
@@ -3714,6 +4231,8 @@ def main() -> int:
             "tlas_phase_launches": tlas["launches"].get(
                 f"packet_trace[{var}]", 0),
             "tbound_phase_launches": tbound["launches"].get(
+                f"packet_trace[{var}]", 0),
+            "ordering_phase_launches": order["launches"].get(
                 f"packet_trace[{var}]", 0)})
     d_all = summary(*(x + y for x, y in zip(d_lists, dm_lists)))
     frame_rows = {"isect": dict(d_all, max_abs_err=max(
@@ -3761,13 +4280,36 @@ def main() -> int:
                 tlas["launches"]["aos_rows"] if key == "transpose" else 0),
             "tlas_wave_1080p": tlas["held"][key],
             "tbound_phase_launches": tbound["launches"][key] + (
-                tbound["launches"]["aos_rows"] if key == "transpose" else 0)},
+                tbound["launches"]["aos_rows"] if key == "transpose" else 0),
+            "ordering_phase_launches": order["launches"].get(key, 0) + (
+                order["launches"].get("aos_rows", 0)
+                if key == "transpose" else 0)},
             **r))
     kernels[[k["name"] for k in kernels].index("stream3_isect")][
         "tbound_wave_1080p"] = tbound["isect_1080p"]
+    for name, (key, src, replaced) in ORDER_FORMS.items():
+        form = ("refine/sort=True" if key == "refine[tqsort]" else
+                "isect/sort=True/lean=True/cull=False"
+                if key == "isect[lean]" else
+                "isect/sort=True/lean=False/cull=True")
+        f = order["forms"]["city"][form]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaced,
+            "launches": order["build_tracer"]["main_launches"][key],
+            "max_abs_err": f.get("max_abs_err", 0.0), "ms": f["ms"],
+            "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+            "bound_by": f["bound_by"], "library_ms": None,
+            "ordering_phase_launches": order["launches"][key],
+            "interior_1080p": order["forms"]["interior"][form],
+            "forms_1080p": {w: {k: v for k, v in fs.items()
+                                if k.startswith(key.split("[")[0])}
+                            for w, fs in order["forms"].items()}})
     log(f"[10] metrics: {json.dumps({k: v for k, v in tlas.items() if k not in ('launches', 'held')})}")
     log(f"[11] metrics: "
         f"{json.dumps({k: v for k, v in tbound.items() if k != 'launches'})}")
+    log(f"[12] metrics: "
+        f"{json.dumps({k: v for k, v in order.items() if k != 'launches'})}")
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -20,6 +20,15 @@ constexpr int kLeafShift = kTqBits + 8;
 constexpr int kTqMask = (1 << kTqBits) - 1;
 constexpr int kTqShift = 27 - kTqBits;
 constexpr int kTqBias3 = 125 << (kTqBits - 4);
+constexpr int kTqBucketShift = kTqBits - 5;   // 32 tq counting-sort buckets
+
+// The quantised lower bound of a word's leaf entry distance as f32 bits
+// (0 where tq is 0): the temporal and occlusion culls compare it with
+// the bits of a positive t.
+__device__ __forceinline__ int word_lb_bits(int w) {
+  const int tq = w & kTqMask;
+  return tq == 0 ? 0 : (tq + kTqBias3) << kTqShift;
+}
 
 // torch.minimum / torch.maximum (and jnp.minimum / maximum): NaN in, NaN
 // out.  fminf / fmaxf would drop the NaN.

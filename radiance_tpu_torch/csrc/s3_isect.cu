@@ -13,8 +13,39 @@
 // b2), (FLT_MAX, -1, 0, 0) where nothing was hit -- the layout the glue
 // stage folds.  The tie rule is the reference's (per-(ray, lane) minima
 // with strict < across words, then the lowest lane among equal t,
-// :2054-2082): the lowest (t, lane, word position).  The TPU kernel's tq
-// occlusion cull is not kept: at equal t it could drop a lower lane.
+// :2054-2082): the lowest (t, lane, word position).
+//
+// Two forms of the TPU kernel are template flags, both off by default so
+// that the default route keeps its hits bit for bit:
+//  * kLean (lean=True, :1870-1894, :2085-2087; the reference's
+//    RADIANCE_ISECT_LEAN): isect_finish writes zeros in lanes 2-3; the
+//    caller recomputes the winner's barycentrics (stream3._winner_barys);
+//  * kCull (cull=True, :1935-1946, the reference's default): the tq
+//    occlusion cull.  A kept (word, block) pair is skipped when the word's
+//    quantised entry distance, lb = (tq + kTqBias3) << kTqShift as f32 bits
+//    (0 where tq is 0), is not below wbits, the largest over the block's
+//    128 rays of the bits of each ray's best t so far.  Every hit in the
+//    leaf lies at t >= lb >= that ray's best, so no ray's t can change; at
+//    an exact tie a lower lane in the skipped leaf would have won, so prims
+//    may differ there, as they do on the TPU.  The TPU kernel reads the
+//    best of the whole slot's list so far from its scratch.  Here a block
+//    holds a chunk of 128 list positions and its own running bests, so the
+//    cull reads the bests of the chunk's words before the current one:
+//    the same as the TPU's in a list's first chunk, looser (fewer pairs
+//    skipped, never a wrong one) in later chunks, which start from "no
+//    hit".  A ray's best is split over the 4 warps that hold its
+//    quads: after each leaf every thread writes the bits of its partial
+//    bests to a shared-memory row, double-buffered so the next leaf's
+//    barrier orders the writes before the reads; every warp then takes
+//    the minimum over the 4 rows for its rays, the maximum over its rays
+//    and one warp reduction, so all warps reach the same decision.  A
+//    block with parked rays (they never hit, their best stays FLT_MAX)
+//    never culls, as on the TPU; nor does a launch with tmin < 0, where a
+//    negative t's bits would not order as the floats do.  With a
+//    tq-sorted list (kernel C's sort form) near leaves come first and the
+//    cull skips more.  If the caller passes a counter, each block adds the
+//    pairs it skipped (one atomicAdd a block), so a run can show that the
+//    cull fired and skipped no more pairs than the whole-list rule does.
 //
 // Design, three launches:
 //  1. every ray's 64-bit key set to "no hit";
@@ -41,7 +72,7 @@
 //  3. isect_finish: per ray, the key's winner -- t from the key, prim
 //     from the leaf's row 10, b1 and b2 recomputed with the same
 //     arithmetic (leaf_tile.cuh's explicit-rounding products give the
-//     same bits in both passes).
+//     same bits in both passes), or zeros in the lean form.
 //
 // What bounds it: FLOPs.  The work the function needs is, for each kept
 // (leaf, block) pair, the block's rays that are not parked against the
@@ -84,14 +115,18 @@ __device__ __forceinline__ lt::Ray ray_of(const float4& x0, const float4& x1,
   return lt::Ray{x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w, x2.x};
 }
 
-template <bool kStable, int R>
+// wb: the cull's double-buffered rows of partial-best bits [2][kWarps *
+// kThreads] (unused without kCull).
+template <bool kStable, bool kCull, int R>
 __device__ __forceinline__ void run_block(
     float4 (*ring)[lt::kLeafF4], const float4 (*s_ray)[3], const int* s_idx,
-    const int* s_leaf, const int* s_pos, int nkept, int nact,
-    const float* __restrict__ kleaf, float tmin, float tmax,
-    unsigned long long* __restrict__ key_row) {
+    const int* s_leaf, const int* s_pos, const int* s_lb, int* wb,
+    int nkept, int nact, const float* __restrict__ kleaf, float tmin,
+    float tmax, unsigned long long* __restrict__ key_row,
+    int* __restrict__ culled) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const bool ahead_only = tmin >= 0.f;
+  const bool cull = kCull && ahead_only && nact == kThreads;
   lt::Ray ray[R];
   lt::Best best[R];
   int best_pos[R];
@@ -103,6 +138,7 @@ __device__ __forceinline__ void run_block(
     best[i] = lt::Best{kFltMax, kT};
     best_pos[i] = 0;
   }
+  int nskip = 0;
   for (int k = 0; k < nkept; ++k) {
     lt::cp_async_wait<0>();           // this thread's copies of leaf k
     __syncthreads();                  // everyone's; leaf k - 1 is done
@@ -121,15 +157,41 @@ __device__ __forceinline__ void run_block(
       for (int i = 0; i < R; ++i) lt::set_moment(ray[i], cx, cy, cz);
     }
     const int pos = s_pos[k];
-    for (int q = warp; q < nq; q += kWarps) {
-      bool changed[R];
-      lt::test_quad<R, false>(L, q, ray, tmin, tmax, ahead_only, best,
-                              changed);
+    bool skip = false;
+    if (cull && k > 0) {   // the bests after leaf k - 1
+      const int* prev = wb + ((k - 1) & 1) * kWarps * kThreads;
+      int worst = 0;
 #pragma unroll
       for (int i = 0; i < R; ++i) {
-        if (changed[i]) best_pos[i] = pos;
+        int m = prev[lane + 32 * i];
+#pragma unroll
+        for (int v = 1; v < kWarps; ++v) {
+          m = min(m, prev[v * kThreads + lane + 32 * i]);
+        }
+        worst = max(worst, m);
+      }
+      skip = s_lb[k] >= __reduce_max_sync(~0u, worst);
+      nskip += skip;
+    }
+    if (!skip) {
+      for (int q = warp; q < nq; q += kWarps) {
+        bool changed[R];
+        lt::test_quad<R, false>(L, q, ray, tmin, tmax, ahead_only, best,
+                                changed);
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          if (changed[i]) best_pos[i] = pos;
+        }
       }
     }
+    if (cull) {
+      int* cur = wb + (k & 1) * kWarps * kThreads + warp * kThreads;
+#pragma unroll
+      for (int i = 0; i < R; ++i) cur[lane + 32 * i] = __float_as_int(best[i].t);
+    }
+  }
+  if (kCull && culled != nullptr && tid == 0 && nskip > 0) {
+    atomicAdd(culled, nskip);
   }
 #pragma unroll
   for (int i = 0; i < R; ++i) {
@@ -142,19 +204,23 @@ __device__ __forceinline__ void run_block(
   }
 }
 
-template <bool kStable>
+template <bool kStable, bool kCull>
 __global__ void __launch_bounds__(kThreads, 3)
 isect_kernel(const int* __restrict__ words, const int* __restrict__ emeta,
              const int* __restrict__ slot_pkt,
              const float* __restrict__ feats, const float* __restrict__ kleaf,
              int pcap, float tmin, float tmax, int nslot,
-             unsigned long long* __restrict__ keys) {
+             unsigned long long* __restrict__ keys, int* __restrict__ culled) {
   __shared__ float4 s_ring[2][lt::kLeafF4];
   __shared__ float4 s_ray[kThreads][3];   // the compacted rays' features
   __shared__ int s_idx[kThreads];         // their lanes in the block
   __shared__ int s_leaf[kChunk];          // the chunk's kept leaves
   __shared__ int s_pos[kChunk];           // and their list positions
   __shared__ int s_scan[2][kWarps];
+  // the cull's entry bounds of the kept leaves, and its rows of partial
+  // bests (one int each without kCull)
+  __shared__ int s_lb[kCull ? kChunk : 1];
+  __shared__ int s_wb[kCull ? 2 * kWarps * kThreads : 1];
 
   // chunk-major, as kernel E's grid
   const int chunk = blockIdx.x / (nslot * 8);
@@ -198,6 +264,7 @@ isect_kernel(const int* __restrict__ words, const int* __restrict__ emeta,
   if (kept) {
     s_leaf[koff] = s3::word_leaf(wd);
     s_pos[koff] = j;
+    if (kCull) s_lb[koff] = s3::word_lb_bits(wd);
   }
   if (act) {
     s_ray[aoff][0] = x0;
@@ -213,10 +280,10 @@ isect_kernel(const int* __restrict__ words, const int* __restrict__ emeta,
   unsigned long long* key_row =
       keys + static_cast<int64_t>(slot) * s3::kPkt + blk * s3::kBlk;
   switch ((nact + 31) >> 5) {
-    case 1: run_block<kStable, 1>(s_ring, s_ray, s_idx, s_leaf, s_pos, nkept, nact, kleaf, tmin, tmax, key_row); break;
-    case 2: run_block<kStable, 2>(s_ring, s_ray, s_idx, s_leaf, s_pos, nkept, nact, kleaf, tmin, tmax, key_row); break;
-    case 3: run_block<kStable, 3>(s_ring, s_ray, s_idx, s_leaf, s_pos, nkept, nact, kleaf, tmin, tmax, key_row); break;
-    default: run_block<kStable, kMaxR>(s_ring, s_ray, s_idx, s_leaf, s_pos, nkept, nact, kleaf, tmin, tmax, key_row); break;
+    case 1: run_block<kStable, kCull, 1>(s_ring, s_ray, s_idx, s_leaf, s_pos, s_lb, s_wb, nkept, nact, kleaf, tmin, tmax, key_row, culled); break;
+    case 2: run_block<kStable, kCull, 2>(s_ring, s_ray, s_idx, s_leaf, s_pos, s_lb, s_wb, nkept, nact, kleaf, tmin, tmax, key_row, culled); break;
+    case 3: run_block<kStable, kCull, 3>(s_ring, s_ray, s_idx, s_leaf, s_pos, s_lb, s_wb, nkept, nact, kleaf, tmin, tmax, key_row, culled); break;
+    default: run_block<kStable, kCull, kMaxR>(s_ring, s_ray, s_idx, s_leaf, s_pos, s_lb, s_wb, nkept, nact, kleaf, tmin, tmax, key_row, culled); break;
   }
   lt::cp_async_wait<0>();
 }
@@ -226,8 +293,9 @@ __global__ void isect_keys(unsigned long long* __restrict__ keys, int64_t n) {
   if (i < n) keys[i] = kNoHit;
 }
 
-// One thread per slot lane: the key's winner -> (t, prim, b1, b2).
-template <bool kStable>
+// One thread per slot lane: the key's winner -> (t, prim, b1, b2), or
+// (t, prim, 0, 0) with kLean.
+template <bool kStable, bool kLean>
 __global__ void isect_finish(const unsigned long long* __restrict__ keys,
                              const int* __restrict__ words,
                              const int* __restrict__ slot_pkt,
@@ -246,6 +314,11 @@ __global__ void isect_finish(const unsigned long long* __restrict__ keys,
   const int pos = static_cast<int>(k & 0xffff);
   const float* W = kleaf + static_cast<int64_t>(
       s3::word_leaf(words[slot * pcap + pos])) * 16 * 4 * kT;
+  const float t = lt::unordered(static_cast<unsigned>(k >> 32));
+  if (kLean) {
+    out[i] = make_float4(t, __ldg(W + 10 * 4 * kT + ln), 0.f, 0.f);
+    return;
+  }
   const int64_t ray = static_cast<int64_t>(slot_pkt[slot]) * s3::kPkt +
                       i % s3::kPkt;
   const float4* x = reinterpret_cast<const float4*>(feats + ray * 16);
@@ -257,9 +330,21 @@ __global__ void isect_finish(const unsigned long long* __restrict__ keys,
   float s[3], num;
   lt::lane_products(W, kT, ln, r, s, num);
   const float rv = __frcp_rn(lt::ssum3(s[0], s[1], s[2]));
-  out[i] = make_float4(lt::unordered(static_cast<unsigned>(k >> 32)),
-                       __ldg(W + 10 * 4 * kT + ln), __fmul_rn(s[2], rv),
+  out[i] = make_float4(t, __ldg(W + 10 * 4 * kT + ln), __fmul_rn(s[2], rv),
                        __fmul_rn(s[0], rv));
+}
+
+template <bool kStable, bool kCull, bool kLean>
+void launch(const int* words, const int* emeta, const int* slot_pkt,
+            const float* feats, const float* kleaf, int nslot, int pcap,
+            float tmin, float tmax, unsigned long long* k, float4* o,
+            int* culled, unsigned grid, unsigned fill, int64_t lanes,
+            cudaStream_t s) {
+  isect_kernel<kStable, kCull><<<grid, kThreads, 0, s>>>(
+      words, emeta, slot_pkt, feats, kleaf, pcap, tmin, tmax, nslot, k,
+      culled);
+  isect_finish<kStable, kLean><<<fill, 256, 0, s>>>(
+      k, words, slot_pkt, feats, kleaf, pcap, lanes, o);
 }
 
 }  // namespace
@@ -269,12 +354,13 @@ extern "C" {
 // words [nslot, pcap] i32 (refined lists, pcap <= 65536), emeta [nslot,
 // 8] i32 (lane 0: count), slot_pkt [nslot] i32, feats [npad, 16] f32
 // (ray-major), kleaf [nl, 16, 512] f32 (both 16-byte aligned), keys
-// [nslot * 1024] u64 scratch -> out [nslot, 1024, 4] f32.  Returns
-// cudaGetLastError().
+// [nslot * 1024] u64 scratch -> out [nslot, 1024, 4] f32.  lean: lanes
+// 2-3 left zero; cull: the tq occlusion cull, which adds the pairs it
+// skipped to *culled unless culled is null.  Returns cudaGetLastError().
 int rt_s3_isect(const int* words, const int* emeta, const int* slot_pkt,
                 const float* feats, const float* kleaf, int nslot, int pcap,
-                float tmin, float tmax, int stable, void* keys, float* out,
-                void* stream) {
+                float tmin, float tmax, int stable, int lean, int cull,
+                void* keys, float* out, int* culled, void* stream) {
   if (nslot <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* k = static_cast<unsigned long long*>(keys);
@@ -285,17 +371,18 @@ int rt_s3_isect(const int* words, const int* emeta, const int* slot_pkt,
   const unsigned grid = static_cast<unsigned>(nchunk) * nslot *
                         (s3::kPkt / s3::kBlk);
   auto* o = reinterpret_cast<float4*>(out);
-  if (stable) {
-    isect_kernel<true><<<grid, kThreads, 0, s>>>(
-        words, emeta, slot_pkt, feats, kleaf, pcap, tmin, tmax, nslot, k);
-    isect_finish<true><<<fill, 256, 0, s>>>(k, words, slot_pkt, feats, kleaf,
-                                            pcap, lanes, o);
-  } else {
-    isect_kernel<false><<<grid, kThreads, 0, s>>>(
-        words, emeta, slot_pkt, feats, kleaf, pcap, tmin, tmax, nslot, k);
-    isect_finish<false><<<fill, 256, 0, s>>>(k, words, slot_pkt, feats, kleaf,
-                                             pcap, lanes, o);
-  }
+  using Fn = void (*)(const int*, const int*, const int*, const float*,
+                      const float*, int, int, float, float,
+                      unsigned long long*, float4*, int*, unsigned,
+                      unsigned, int64_t, cudaStream_t);
+  static const Fn forms[8] = {
+      launch<false, false, false>, launch<false, false, true>,
+      launch<false, true, false>, launch<false, true, true>,
+      launch<true, false, false>, launch<true, false, true>,
+      launch<true, true, false>, launch<true, true, true>};
+  forms[(stable ? 4 : 0) + (cull ? 2 : 0) + (lean ? 1 : 0)](
+      words, emeta, slot_pkt, feats, kleaf, nslot, pcap, tmin, tmax, k, o,
+      culled, grid, fill, lanes, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,15 +2,18 @@
 // chunk of 32 words per barrier.
 //
 // Replaces the TPU kernel radiance_tpu/ops/stream3.py::_refine3_kernel
-// (:1635, launched by _stage_refine_exact :1808; the sort=False form).
+// (:1635, launched by _stage_refine_exact :1808), both its forms.
 // The emit walk's keep bits are conservative over 32-ray sub-frusta.
 // This stage re-tests every (leaf, 128-ray block) pair of a slot's word
 // list ray by ray with the slab test of :1683-1687 against the leaf's
 // box (aabb8 [nlp, 8]: min xyz, max xyz, 0, 0), ANDs the exact result
 // into the keepmask, and compacts the list: a word whose mask becomes
-// empty is dropped, the order of the others is kept.  emeta' lane 0 is
-// the kept count, lane 4 the pre-refine count (min(count, pcap)), lanes
-// 1-3 and 5-7 are copied.
+// empty is dropped.  The sort=False form keeps the order of the others;
+// the sort=True form (:1703-1737, the reference's RADIANCE_TQSORT)
+// orders them by a stable counting sort on tq in 32 buckets of
+// kTqBucketShift bits, near leaves first, for kernel D's occlusion cull.
+// emeta' lane 0 is the kept count, lane 4 the pre-refine count
+// (min(count, pcap)), lanes 1-3 and 5-7 are copied.
 //
 // What bounds it on an H100: the work is ~28 instructions a (ray, word)
 // -- 6 differences, 6 products, 12 NaN-propagating minima and maxima and
@@ -40,7 +43,15 @@
 // the refined word, or 0 for a dropped one, to a scratch row.
 // refine_compact_kernel: one warp a slot compacts the scratch row 128
 // words at a time (loads first, then a ballot and a popcount a 32), and
-// writes emeta'.  The test grid is kBlocksPerSm blocks on every SM
+// writes emeta'.  Its sort form reads the row twice, 32 words a step:
+// the first pass counts the kept words of each tq bucket (__match_any_sync
+// groups a step's equal buckets, the group's first lane adds its size to
+// the warp's 32 counters in shared memory), a warp scan turns the counts
+// into offsets, and the second pass places each kept word at its
+// bucket's offset plus its rank among the step's earlier lanes of that
+// bucket, so equal buckets keep list order (stable).  That is ~2 x 32
+// steps of a few instructions for a full list, beside the test kernel's
+// 1024 rays a word; a simple form, not yet tuned.  The test grid is kBlocksPerSm blocks on every SM
 // unless the caller asks for another (rt_s3_refine_grid).
 //
 // Exactness: built with -fmad=false; (box - o) * iv and IEEE 1/d give
@@ -257,31 +268,69 @@ refine_test_kernel(const int* __restrict__ words,
   }
 }
 
+template <bool kSort>
 __global__ void __launch_bounds__(kCompactWarps * 32)
 refine_compact_kernel(const int* __restrict__ emeta,
                       const int* __restrict__ wtmp, int nslot, int pcap,
                       int* __restrict__ words_out,
                       int* __restrict__ emeta_out) {
-  const int lane = threadIdx.x & 31;
-  const int slot = blockIdx.x * kCompactWarps + (threadIdx.x >> 5);
+  __shared__ int s_off[kCompactWarps][32];   // the sort form's buckets
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int slot = blockIdx.x * kCompactWarps + warp;
   if (slot >= nslot) return;  // whole warps only
   const int cnt = min(emeta[slot * 8], pcap);
   const int* tmp = wtmp + static_cast<int64_t>(slot) * pcap;
   int* out = words_out + static_cast<int64_t>(slot) * pcap;
   const unsigned below = (1u << lane) - 1u;
   int kept = 0;
-  for (int b = 0; b < cnt; b += 4 * 32) {
-    int w[4];
+  if (!kSort) {
+    for (int b = 0; b < cnt; b += 4 * 32) {
+      int w[4];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int j = b + q * 32 + lane;
-      w[q] = j < cnt ? tmp[j] : 0;
+      for (int q = 0; q < 4; ++q) {
+        const int j = b + q * 32 + lane;
+        w[q] = j < cnt ? tmp[j] : 0;
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const unsigned keep = __ballot_sync(kFull, w[q] != 0);
+        if (w[q] != 0) out[kept + __popc(keep & below)] = w[q];
+        kept += __popc(keep);
+      }
     }
+  } else {
+    int* off = s_off[warp];
+    off[lane] = 0;
+    __syncwarp();
+    // a dropped word (0) takes key 32, no bucket
+    for (int b = 0; b < cnt; b += 32) {
+      const int j = b + lane;
+      const int w = j < cnt ? tmp[j] : 0;
+      const int key = w != 0 ? (w & s3::kTqMask) >> s3::kTqBucketShift : 32;
+      const unsigned peers = __match_any_sync(kFull, key);
+      if (key < 32 && lane == __ffs(peers) - 1) off[key] += __popc(peers);
+      __syncwarp();
+    }
+    const int c = off[lane];
+    int x = c;      // inclusive scan of the bucket counts
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const unsigned keep = __ballot_sync(kFull, w[q] != 0);
-      if (w[q] != 0) out[kept + __popc(keep & below)] = w[q];
-      kept += __popc(keep);
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(kFull, x, d);
+      if (lane >= d) x += y;
+    }
+    kept = __shfl_sync(kFull, x, 31);
+    __syncwarp();
+    off[lane] = x - c;
+    __syncwarp();
+    for (int b = 0; b < cnt; b += 32) {
+      const int j = b + lane;
+      const int w = j < cnt ? tmp[j] : 0;
+      const int key = w != 0 ? (w & s3::kTqMask) >> s3::kTqBucketShift : 32;
+      const unsigned peers = __match_any_sync(kFull, key);
+      if (key < 32) out[off[key] + __popc(peers & below)] = w;
+      __syncwarp();
+      if (key < 32 && lane == __ffs(peers) - 1) off[key] += __popc(peers);
+      __syncwarp();
     }
   }
   if (lane < 8) {
@@ -306,15 +355,16 @@ int rt_s3_refine_grid() {
 // words [nslot, pcap] i32, emeta [nslot, 8] i32, slot_pkt [nslot] i32,
 // feats_t [16, npad] f32 (16-byte aligned, npad whole packets), aabb8
 // [nlp, 8] f32 (16-byte aligned) -> words_out [nslot, pcap] (the first
-// emeta_out[:, 0] of a row defined), emeta_out [nslot, 8].  Scratch:
-// wtmp [nslot, pcap] i32, start [nslot + 1] i32, item_slot [nslot *
-// ceil(pcap / 32)] i32.  grid: refine_test_kernel's blocks, or <= 0 for
-// rt_s3_refine_grid().  Returns cudaGetLastError().
+// emeta_out[:, 0] of a row defined; with sort, in tq-bucket order),
+// emeta_out [nslot, 8].  Scratch: wtmp [nslot, pcap] i32, start
+// [nslot + 1] i32, item_slot [nslot * ceil(pcap / 32)] i32.  grid:
+// refine_test_kernel's blocks, or <= 0 for rt_s3_refine_grid().  Returns
+// cudaGetLastError().
 int rt_s3_refine(const int* words, const int* emeta, const int* slot_pkt,
                  const float* feats_t, int64_t npad, const float* aabb8,
-                 int nslot, int pcap, float tmax, int grid, int* wtmp,
-                 int* start, int* item_slot, int* words_out, int* emeta_out,
-                 void* stream) {
+                 int nslot, int pcap, float tmax, int grid, int sort,
+                 int* wtmp, int* start, int* item_slot, int* words_out,
+                 int* emeta_out, void* stream) {
   if (nslot <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (grid <= 0) grid = rt_s3_refine_grid();
@@ -323,9 +373,14 @@ int rt_s3_refine(const int* words, const int* emeta, const int* slot_pkt,
   refine_test_kernel<<<grid, kThreads, 0, st>>>(
       words, emeta, slot_pkt, feats_t, npad, aabb8, nslot, pcap, tmax,
       start, item_slot, wtmp);
-  refine_compact_kernel<<<(nslot + kCompactWarps - 1) / kCompactWarps,
-                          kCompactWarps * 32, 0, st>>>(
-      emeta, wtmp, nslot, pcap, words_out, emeta_out);
+  const int cgrid = (nslot + kCompactWarps - 1) / kCompactWarps;
+  if (sort) {
+    refine_compact_kernel<true><<<cgrid, kCompactWarps * 32, 0, st>>>(
+        emeta, wtmp, nslot, pcap, words_out, emeta_out);
+  } else {
+    refine_compact_kernel<false><<<cgrid, kCompactWarps * 32, 0, st>>>(
+        emeta, wtmp, nslot, pcap, words_out, emeta_out);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,15 +13,36 @@ the SBT's skip of shaders no lane selects):
       colour/throughput/alive update (shader.cl:233-260)
   running average into the accumulation image, tonemap, u8 quantize
 
-Wave routes, as the JAX engine picks them on its accelerator
-(radiance_tpu/engine/pathtracer.py:722-726), the same on the card and
-on the CPU (where every kernel runs its plain version):
+Wave routes (_traced_wavefront; reference :151-335):
+  "stream3"    the stream3 pipeline (ops/stream3.py: emit walk, exact
+               refine, pair intersection) on rays in pixel order, dead
+               lanes masked out of every frustum; closest hit or, on
+               shadow waves, occlusion;
+  "gen1_live"  the live-masked packet kernel on rays in pixel order;
+  "gen1_sort"  the live-masked packet kernel on rays bucket-sorted by
+               direction octant, dead lanes last (ops/reorder.py's
+               coherence_perm, a stable sort of 9 bucket keys), gathered
+               back after;
+  "argsort"    live rays argsorted by coherence_key, dead lanes parked,
+               through the scene's dispatch (_trace_dispatch), unsorted
+               after;
+  "xla"        dead lanes parked in place, the two-level walk
+               (ops/traversal.py) on the whole wave.
+Routes that need the single-instance tables ("stream3", "gen1_*") fall
+back to "argsort" elsewhere, and a custom any-hit program forces
+"argsort", as the reference's explicit routes do (:194-207); unlike the
+reference, they run on the CPU too (every kernel's plain version).
+
+Each wave's route is a field of WavefrontPathTracer: primary_route,
+bounce_route and shadow_route (the reference's
+RADIANCE_ENGINE_{PRIMARY,BOUNCE,SHADOW}, route names here).  The
+reference's RADIANCE_ENGINE_STREAM3 and RADIANCE_GEN1_SORT=1, one route
+on every wave, are the three fields set to "stream3" or "gen1_sort".
+Unset, the staged defaults, as the JAX engine picks them on its
+accelerator (:722-726):
   * single-instance scenes with kernel tables: the primary wave's
-    closest-hit trace takes "stream3" (ops/stream3.py: emit walk, exact
-    refine, pair intersection, rays in pixel order, live-masked); its
-    shadow rays take "gen1_live" (the live-masked packet kernel); bounce
-    waves and their shadow rays take "argsort" (coherence_key sort of
-    live rays, dead lanes parked, unsorted after);
+    closest-hit trace takes "stream3"; its shadow rays take "gen1_live";
+    bounce waves and their shadow rays take "argsort";
   * multi-instance scenes: every wave takes "argsort".  A scene with
     more than 8 instances (and per-BLAS kernel tables) is traced, closest
     hits and shadows alike, by ops/stream3_multi.trace_rows_multi (as the
@@ -63,7 +84,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -71,8 +92,8 @@ from radiance_tpu_torch.api.sbt import ShaderBindingTable
 from radiance_tpu_torch.bvh.device import DeviceScene
 from radiance_tpu_torch.core import math as rmath
 from radiance_tpu_torch.engine.context import Payload, ShadeContext
-from radiance_tpu_torch.ops import (compaction, packet_trace, stream3,
-                                    stream3_multi, traversal)
+from radiance_tpu_torch.ops import (compaction, packet_trace, reorder,
+                                    stream3, stream3_multi, traversal)
 from radiance_tpu_torch.ops import tonemap as tonemap_ops
 from radiance_tpu_torch.ops.intersect import FLT_MAX
 from radiance_tpu_torch.ops.traversal import HitRecord
@@ -88,6 +109,7 @@ MULTI_SCAN_MIN_INSTANCES = 9
 
 
 MULTI_ROUTES = ("scan", "native")
+ROUTES = ("stream3", "gen1_live", "gen1_sort", "argsort", "xla")
 
 
 def _trace_dispatch(scene, o, d, tmin, tmax, *, any_hit_terminate=False,
@@ -154,16 +176,11 @@ def _traced_wavefront(scene, o, d, tmin, tmax, alive, *, route: str,
                       any_hit_program=None,
                       multi_route: str = "scan",
                       blk_bound=None) -> HitRecord:
-    """Trace only the live rays of a wave; dead lanes report a miss.
-
-    route "stream3": the stream3 pipeline on rays in pixel order, dead
-    lanes masked out of every frustum (closest hit on scenes where
-    stream3.supports holds; others fall back to "argsort").
-    route "gen1_live": the live-masked packet kernel on rays in pixel
-    order (single-instance scenes only; others fall back to "argsort").
-    route "argsort": live rays sorted by coherence_key (dead lanes last
-    and parked), traced, and scattered back to pixel order.
-    A custom any-hit program forces "argsort" (reference :196-199).
+    """Trace only the live rays of a wave on `route` (module docstring);
+    dead lanes report a miss.  "stream3" takes single-instance scenes
+    where stream3.supports holds, "gen1_live" and "gen1_sort" those where
+    packet_trace.supports does; elsewhere, and under a custom any-hit
+    program (reference :196-199), they fall back to "argsort".
     multi_route goes to _trace_dispatch.
 
     blk_bound ([ceil(N / 128)] f32 per-block upper bounds on t, pixel
@@ -174,16 +191,23 @@ def _traced_wavefront(scene, o, d, tmin, tmax, alive, *, route: str,
     slot == -2 are re-traced exactly (_retrace_distrusted).  Other routes
     ignore the bound, as the reference's do.
     """
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}")
     if any_hit_program is not None:
         route = "argsort"
-    if (route == "stream3" and not any_hit_terminate
-            and stream3.supports(scene)):
+    elif route == "stream3" and not stream3.supports(scene):
+        route = "argsort"
+    elif route in ("gen1_live", "gen1_sort") and not packet_trace.supports(
+            scene):
+        route = "argsort"
+    if route == "stream3":
         rows = stream3.rows_from_aos_fast(o, d)
         rec = stream3.trace_rows_stream3(scene, rows, tmin, tmax,
-                                         live=alive, blk_bound=blk_bound)
+                                         live=alive, occl=any_hit_terminate,
+                                         blk_bound=blk_bound)
         if blk_bound is not None:
             _retrace_distrusted(scene, rec, o, d, tmin, tmax, alive,
-                                occl=False, many=False)
+                                occl=any_hit_terminate, many=False)
         rec.slot = torch.clamp(rec.slot, min=-1)
         return rec
     if (blk_bound is not None and any_hit_program is None
@@ -196,11 +220,24 @@ def _traced_wavefront(scene, o, d, tmin, tmax, alive, *, route: str,
         _retrace_distrusted(scene, rec, o, d, tmin, tmax, alive,
                             occl=any_hit_terminate, many=True)
         return rec.masked_miss(~alive)
-    if route == "gen1_live" and packet_trace.supports(scene):
+    if route == "xla":
+        o_c = torch.where(alive[:, None], o, _PARK_ORIGIN)
+        d_c = torch.where(alive[:, None], d, 1.0)
+        rec = traversal.trace_rays(scene, o_c, d_c, tmin, tmax,
+                                   any_hit_terminate=any_hit_terminate)
+        return rec.masked_miss(~alive)
+    if route == "gen1_live":
         rec = _trace_dispatch(scene, o, d, tmin, tmax, live=alive,
                               any_hit_terminate=any_hit_terminate,
                               multi_route=multi_route)
         return rec.masked_miss(~alive)
+    if route == "gen1_sort":
+        perm, inv = reorder.coherence_perm(d, alive)
+        rec = _trace_dispatch(scene, o[perm], d[perm], tmin, tmax,
+                              live=alive[perm],
+                              any_hit_terminate=any_hit_terminate,
+                              multi_route=multi_route)
+        return rec.take(inv).masked_miss(~alive)
     key = torch.where(alive, packet_trace.coherence_key(o, d), _INT32_MAX)
     perm = torch.argsort(key, stable=True)
     parked = ~alive[perm]
@@ -348,6 +385,11 @@ class WavefrontPathTracer:
       TLAS-native slots; the reference's RADIANCE_MULTI=native)
     tbound: carry temporal t-bounds through the primary waves (the
       reference's RADIANCE_ENGINE_TBOUND=1; module docstring)
+    primary_route, bounce_route, shadow_route: a route of ROUTES for
+      the primary waves, the bounce waves and every shadow wave (the
+      reference's RADIANCE_ENGINE_{PRIMARY,BOUNCE,SHADOW}); None keeps
+      the staged default.  The reference's RADIANCE_ENGINE_STREAM3 and
+      RADIANCE_GEN1_SORT=1 set all three to "stream3" or "gen1_sort"
     """
     ray_generator: Callable
     sbt: ShaderBindingTable
@@ -359,6 +401,9 @@ class WavefrontPathTracer:
     tmax: float = 1000.0
     multi_route: str = "scan"
     tbound: bool = False
+    primary_route: Optional[str] = None
+    bounce_route: Optional[str] = None
+    shadow_route: Optional[str] = None
     # the bounds carried between render calls: (id(scene), blocks) ->
     # (scene, bounds), per tracer (two tracers with different cameras
     # must not share them), oldest evicted past _TB_CAP (reference
@@ -366,6 +411,15 @@ class WavefrontPathTracer:
     _tb_store: dict = dataclasses.field(default_factory=dict, init=False,
                                         repr=False)
     _TB_CAP = 8
+
+    def wave_route(self, wave: str, default: str) -> str:
+        """The route of `wave` ("primary", "bounce" or "shadow"): its
+        field, else the staged `default` (the reference's _staged_route,
+        :678-692)."""
+        route = getattr(self, f"{wave}_route") or default
+        if route not in ROUTES:
+            raise ValueError(f"{wave}_route must be one of {ROUTES}")
+        return route
 
     def render(self, scene: DeviceScene, resources: Dict, accum,
                total_samples: int, width: int, height: int,
@@ -389,9 +443,14 @@ class WavefrontPathTracer:
         miss_index = self.miss_index + miss_group_offset
         effective_depth = 1 if debug else depth
         single = packet_trace.supports(scene)
-        primary_route = "stream3" if stream3.supports(scene) else (
-            "gen1_live" if single else "argsort")
-        primary_shadow = "gen1_live" if single else "argsort"
+        primary_route = self.wave_route("primary", "stream3" if
+                                        stream3.supports(scene) else (
+                                            "gen1_live" if single
+                                            else "argsort"))
+        primary_shadow = self.wave_route("shadow", "gen1_live" if single
+                                         else "argsort")
+        bounce_route = self.wave_route("bounce", "argsort")
+        bounce_shadow = self.wave_route("shadow", "argsort")
         step = functools.partial(_sample_step, self, scene, resources,
                                  pixel_index, debug=debug,
                                  hit_offset=hit_offset, miss_index=miss_index)
@@ -424,8 +483,8 @@ class WavefrontPathTracer:
                 elif self.tbound and not bool(state[2].any()):
                     break               # frame_fn's early exit (:572-575)
                 else:
-                    state = step(fid, b, state, route="argsort",
-                                 shadow_route="argsort")
+                    state = step(fid, b, state, route=bounce_route,
+                                 shadow_route=bounce_shadow)
             colors = colors + state[0]
         accum, image = _finish_frame(self, int(batch), debug, accum, colors,
                                      int(total_samples))

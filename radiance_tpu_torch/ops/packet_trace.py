@@ -38,7 +38,7 @@ from typing import Tuple
 import torch
 
 from radiance_tpu_torch.core import math as rmath
-from radiance_tpu_torch.ops import cuda_build
+from radiance_tpu_torch.ops import compaction, cuda_build
 from radiance_tpu_torch.ops.intersect import FLT_MAX, intersect_triangle
 # HitRecord lives with the walk (ops/traversal.py), as in the JAX package;
 # it is re-exported here for existing imports
@@ -445,6 +445,17 @@ def coherence_key(origin, direction) -> torch.Tensor:
     morton = (_part1by2(q[:, 0]) | (_part1by2(q[:, 1]) << 1)
               | (_part1by2(q[:, 2]) << 2))
     return ((oct_ << 28) + (morton >> 2)).to(torch.int32)
+
+
+def trace_rays_packet_sorted(scene, origin, direction, tmin, tmax,
+                             any_hit: bool = False) -> HitRecord:
+    """trace_rays_packet over rays sorted by coherence_key (a stable
+    argsort, as the JAX module's), results gathered back to caller
+    order."""
+    perm = torch.argsort(coherence_key(origin, direction), stable=True)
+    rec = trace_rays_packet(scene, origin[perm], direction[perm], tmin, tmax,
+                            any_hit=any_hit)
+    return rec.take(compaction.invert_perm(perm))
 
 
 def build_tracer(scene, any_hit: bool = False):

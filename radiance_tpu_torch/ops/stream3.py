@@ -42,15 +42,20 @@ Differences from the JAX module, none visible in a hit record:
   * occlusion waves refine their word lists, the JAX module's
     exact_refine=True (its default skips the refine there, a TPU trade);
     both forms are exact, so no occluded-or-not can change;
-  * the other constants are the compiled-TPU defaults and no environment
-    variable is read: exact refine on closest-hit waves, lean isect off,
-    presort off, f32 only, the 9-bit tq word format, the lockstep
-    walk's slot order (one GPU warp per slot replaces the TPU's lockstep,
-    treelet and work-stealing walks, which all emit the same words);
+  * no environment variable is read: the reference's knobs are keywords
+    of _run, trace_rows_stream3 and build_tracer (presort, tqsort for
+    RADIANCE_TQSORT, lean for RADIANCE_ISECT_LEAN, cull for kernel D's tq
+    occlusion cull), each off by default; the other constants are the
+    compiled-TPU defaults: exact refine on closest-hit waves, f32 only,
+    the 9-bit tq word format, the lockstep walk's slot order (one GPU
+    warp per slot replaces the TPU's lockstep, treelet and work-stealing
+    walks, which all emit the same words);
+  * kernel D's tq occlusion cull is off by default (the reference's is
+    on): at an exact t tie it can drop a lower lane, so the prim can
+    differ there, never t; off, the default route keeps its hits bit for
+    bit;
   * emeta lane 2 counts each slot's own walk steps (the TPU kernel stamps
-    its 8-slot group's count), and diag["steps"] sums them;
-  * kernel D keeps no tq occlusion cull (a cull at equal t could change
-    which of two tied triangles wins).
+    its 8-slot group's count), and diag["steps"] sums them.
 
 Temporal t-bounds (blk_bound; stream3.py:1749-1801, :2647-2725): a
 per-128-ray-block upper bound on t, the previous progressive sample's
@@ -68,21 +73,31 @@ of flagged packets does; the JAX module re-walks it with its per-ray
 traversal walk (traversal.trace_rays), which on the card costs a second
 or more a call whatever its ray count.  Both are exact.
 
-Not ported: presort (_block_sort), trace_rows_cascade, lean isect
-(_winner_barys) and build_tracer.
+Ordering modes and kernel forms (stream3.py:222-291, :1703-1737,
+:1870-1946, :2411-2456): presort (_block_sort) traces a wave's 128-ray
+blocks sorted by their mean rays and restores caller order, its flagged
+packets mapped back through diag["blk_perm"]; tqsort orders each refined
+list near leaves first (kernel C's sort form); cull skips a (word, block)
+pair whose entry bound is at or past every ray's best (kernel D's cull
+form); lean leaves the barycentrics out of kernel D and recomputes the
+winner's (_winner_barys).  trace_rows_cascade traces a wave first to a
+near distance, then its misses over the full window; build_tracer is
+trace_rows_stream3 of one scene with its modes fixed (the reference's
+_residual_retrace is its flagged drain), without the reference's probe
+self-checks.
 """
 
 from __future__ import annotations
 
 import torch
 
-from radiance_tpu_torch.ops import packet_trace
+from radiance_tpu_torch.ops import compaction, packet_trace
 from radiance_tpu_torch.ops.intersect import FLT_MAX
 from radiance_tpu_torch.ops.traversal import HitRecord
 from radiance_tpu_torch.ops.stream3_stages import (
-    BIG, BLK, EXTRA, FMAX, G, PCAP, PKT, STEP_CAP, TQ_BIAS3, TQ_SHIFT,
-    W_KEEP_SHIFT, W_LEAF_MAX, W_TQ_MASK, feats_rows_to_major, octant_scalars,
-    rows_from_aos_fast, stage_emit, stage_isect, stage_refine)
+    BIG, BLK, EXTRA, FMAX, G, PCAP, PKT, STEP_CAP, W_KEEP_SHIFT, W_LEAF_MAX,
+    feats_rows_to_major, lb_bits, octant_scalars, rows_from_aos_fast,
+    stage_emit, stage_isect, stage_refine)
 
 # the temporal residual's floor: a wave re-traces at most
 # max(TB_RES_RAYS, n // 128) rays past their block bounds (stream3.py:65)
@@ -142,6 +157,72 @@ def _pad_wave(rows_w, live):
             live = torch.cat([live, torch.zeros(pad, dtype=torch.bool,
                                                 device=live.device)])
     return rows_w, live
+
+
+def _block_sort(rows_w, live=None):
+    """Block presort (stream3.py::_block_sort, :222-291): the wave's
+    128-ray blocks stably sorted by a key of their mean rays -- the sign
+    octant of the mean direction, then 4-bit-an-axis Morton code of the
+    mean direction, then 5-bit-an-axis Morton code of the mean origin,
+    each quantised between the wave's block extremes -- so that a
+    scattered wave's packets become direction-coherent, and a tile-
+    ordered one keeps its order within a cell.  With `live`, dead lanes
+    are left out of the means and blocks with no live ray sort last.
+    rows_w: six [npad] rows, npad whole blocks.  Returns (sorted rows, inv
+    [nb] i64: caller block i's sorted position, sorted live or None).
+
+    A mean is the f32 sum of the block's 128 values over 128 (or over its
+    live count), as jnp.mean and jnp.sum / count compute it: the keys then
+    equal the JAX module's as long as the two sums round alike
+    (tests/test_torch_stream3_modes.py holds them bit-equal)."""
+    i32, f32 = torch.int32, torch.float32
+    nb = rows_w[0].shape[0] // BLK
+    if live is None:
+        def bmean(v):
+            return v.reshape(nb, BLK).sum(dim=1) / BLK
+        nlive = None
+    else:
+        lv = live.reshape(nb, BLK).to(f32)
+        nlive = lv.sum(dim=1)
+        denom = torch.clamp(nlive, min=1.0)
+
+        def bmean(v):
+            return (v.reshape(nb, BLK) * lv).sum(dim=1) / denom
+
+    dmean = [bmean(rows_w[3 + k].to(f32)) for k in range(3)]
+    omean = [bmean(rows_w[k].to(f32)) for k in range(3)]
+    oct_b = ((dmean[0] < 0).to(i32) + 2 * (dmean[1] < 0).to(i32)
+             + 4 * (dmean[2] < 0).to(i32))
+
+    def norm_q(ms, bits):
+        top = (1 << bits) - 1
+        out = []
+        for m in ms:
+            lo, hi = m.amin(), m.amax()
+            q = ((m - lo) / torch.clamp(hi - lo, min=1e-6) * top).to(i32)
+            out.append(torch.clamp(q, 0, top))
+        return out
+
+    def spread2(v):
+        # 8 bits interleaved with 2-bit gaps (a Morton component)
+        v = (v | (v << 8)) & 0x0F00F
+        v = (v | (v << 4)) & 0xC30C3
+        return (v | (v << 2)) & 0x249249
+
+    dq = norm_q(dmean, 4)
+    oq = norm_q(omean, 5)
+    dmorton = (spread2(dq[0]) | (spread2(dq[1]) << 1)
+               | (spread2(dq[2]) << 2)) & 0xFFF
+    omorton = (spread2(oq[0]) | (spread2(oq[1]) << 1)
+               | (spread2(oq[2]) << 2)) & 0x7FFF
+    key = (oct_b << 27) | (dmorton << 15) | omorton
+    if nlive is not None:
+        key = torch.where(nlive > 0, key, 2 ** 31 - 1)
+    perm = torch.argsort(key, stable=True)
+    inv = compaction.invert_perm(perm)
+    rows_s = tuple(r.reshape(nb, BLK)[perm].reshape(-1) for r in rows_w)
+    live_s = None if live is None else live.reshape(nb, BLK)[perm].reshape(-1)
+    return rows_s, inv, live_s
 
 
 def _stage_prep(rows_w, nodef, inv0, live=None, *, stable: bool):
@@ -320,8 +401,7 @@ def _apply_block_bound(words, slot_pkt, bounds_blk):
     positive NaN's bits cull nothing.  Zero words stay zero; a word whose
     keep mask empties keeps its place in the list."""
     i32 = torch.int32
-    tq = words & W_TQ_MASK
-    lb_bits = torch.where(tq == 0, 0, (tq + TQ_BIAS3) << TQ_SHIFT)
+    lb = lb_bits(words)
     fmax = torch.tensor(FLT_MAX, dtype=torch.float32, device=words.device)
     b = bounds_blk.to(torch.float32).abs()
     bb = torch.where(torch.isnan(b), b, torch.minimum(b, fmax)).view(i32)
@@ -329,7 +409,7 @@ def _apply_block_bound(words, slot_pkt, bounds_blk):
     kmask = (words >> W_KEEP_SHIFT) & 255
     keep = torch.zeros_like(kmask)
     for k in range(8):
-        ok = lb_bits <= sb[:, k:k + 1]
+        ok = lb <= sb[:, k:k + 1]
         keep = keep | torch.where(ok, kmask & (1 << k), 0)
     return torch.where(words != 0,
                        (words & ~(255 << W_KEEP_SHIFT))
@@ -392,9 +472,49 @@ def _tb_residual(rows_w, rec, blk_bound, trace, *, occl: bool, live,
 
 # ----------------------------------------------------------------- run
 
+def _winner_barys(rows_w, inv0, kprim, ktri_geo, prim, t, n):
+    """The winners' (b1, b2) of a lean wave (stream3.py::_winner_barys,
+    :2411-2456): Moeller-Trumbore on the first n rays of the world-space
+    rows, moved to object space per component, against the winning
+    triangle's ktri_geo row (v0, e1, e2).  ktri_geo is indexed by kernel
+    face, prim is the primitive id (kleaf row 10), so the gather goes
+    through the inverse of kprim; its padding rows (-1) land on the last
+    face, which no primitive id reaches.  Misses get (0, 0)."""
+    f32, i64 = torch.float32, torch.int64
+    nf = kprim.shape[0]
+    kp = kprim.to(i64)
+    idx = torch.where(kp >= 0, kp, nf - 1)
+    iprim = torch.zeros(nf, dtype=i64, device=kprim.device)
+    iprim[idx] = torch.arange(nf, dtype=i64, device=kprim.device)
+    hit = (t < FLT_MAX) & (prim >= 0)
+    geo = ktri_geo[iprim[torch.clamp(prim.to(i64), 0, nf - 1)]]
+    ox, oy, oz, dx, dy, dz = (r[:n].to(f32) for r in rows_w[:6])
+    m = inv0.to(f32)
+    ox, oy, oz = (m[0, 0] * ox + m[0, 1] * oy + m[0, 2] * oz + m[0, 3],
+                  m[1, 0] * ox + m[1, 1] * oy + m[1, 2] * oz + m[1, 3],
+                  m[2, 0] * ox + m[2, 1] * oy + m[2, 2] * oz + m[2, 3])
+    dx, dy, dz = (m[0, 0] * dx + m[0, 1] * dy + m[0, 2] * dz,
+                  m[1, 0] * dx + m[1, 1] * dy + m[1, 2] * dz,
+                  m[2, 0] * dx + m[2, 1] * dy + m[2, 2] * dz)
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = geo.unbind(1)
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    inv_det = 1.0 / (e1x * px + e1y * py + e1z * pz)
+    tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
+    b1 = (tx * px + ty * py + tz * pz) * inv_det
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    b2 = (dx * qx + dy * qy + dz * qz) * inv_det
+    return torch.where(hit, b1, 0.0), torch.where(hit, b2, 0.0)
+
+
 def _run(rows_w, tmin, tmax, nodef, kleaf, inv0, *, live=None,
          stable: bool, occl: bool = False, with_diag: bool = False,
-         blk_bound=None, count_pairs: bool = False):
+         blk_bound=None, count_pairs: bool = False, presort: bool = False,
+         tqsort: bool = False, lean: bool = False, cull: bool = False,
+         kprim=None, ktri_geo=None):
     """The pipeline on world-space component rows (stream3.py::_run,
     non-work-stealing branch).  Returns a HitRecord, and with with_diag
     (rec, diag): diag["pkt_flag"] [npk] i32 marks packets whose walk was
@@ -408,9 +528,28 @@ def _run(rows_w, tmin, tmax, nodef, kleaf, inv0, *, live=None,
     cull between refine and isect (stream3.py:2555-2561); the caller owns
     the residual (_tb_residual).  With it and count_pairs, diag also holds
     "block_pairs" and "block_pairs_bounded", the (word, block) pairs of
-    the refined lists before and after the cull."""
+    the refined lists before and after the cull.
+
+    The reference's ordering modes, each off by default: presort traces
+    the wave's blocks in _block_sort's order (bounds mapped into sorted
+    block space, the record restored to caller order; diag["pkt_flag"] is
+    then in sorted packet space and diag["blk_perm"] maps a sorted block
+    to its caller block); tqsort runs kernel C's tq-sort form (the
+    reference's RADIANCE_TQSORT); lean runs kernel D's lean form and
+    recomputes the winners' barycentrics from ktri_geo through kprim
+    (_winner_barys; RADIANCE_ISECT_LEAN); cull runs D's tq occlusion cull
+    (the reference's default, stream3.py:1935-1946).  lean and cull apply
+    to closest-hit waves only."""
     n = rows_w[0].shape[0]
     rows_w, live = _pad_wave(rows_w, live)
+    rows_keep = rows_w          # caller order, for the lean barycentrics
+    nb = rows_w[0].shape[0] // BLK
+    inv_blk = None
+    if presort:
+        rows_w, inv_blk, live = _block_sort(rows_w, live)
+    lean = lean and not occl
+    if lean and (kprim is None or ktri_geo is None):
+        raise ValueError("_run(lean=True) needs kprim and ktri_geo")
     rows, feats_t, scal, smeta, bscal, order = _stage_prep(
         rows_w, nodef, inv0, live=live, stable=stable)
     npad = rows[0].shape[0]
@@ -420,22 +559,36 @@ def _run(rows_w, tmin, tmax, nodef, kleaf, inv0, *, live=None,
     slot_pkt = smeta[:, 0].contiguous()
     words_i, emeta_i = stage_refine(
         words, emeta, slot_pkt, feats_t,
-        leaf_aabb8(nodef, kleaf.shape[0]), tmax, pcap=PCAP)
+        leaf_aabb8(nodef, kleaf.shape[0]), tmax, pcap=PCAP, sort=tqsort)
     words_b = words_i
     if blk_bound is not None:
-        words_b = _apply_block_bound(
-            words_i, slot_pkt, pad_blk_bound(blk_bound, npad // BLK))
+        bbv = pad_blk_bound(blk_bound, nb)
+        if presort:
+            # caller-order bounds -> sorted block space
+            bbv_s = torch.empty_like(bbv)
+            bbv_s[inv_blk.to(bbv.device)] = bbv
+            bbv = bbv_s
+        words_b = _apply_block_bound(words_i, slot_pkt, bbv)
     feats = feats_rows_to_major(feats_t)
     out_s = stage_isect(words_b, emeta_i, slot_pkt, feats, kleaf, tmin,
-                        tmax, stable=stable, pcap=PCAP, occl=occl)
+                        tmax, stable=stable, pcap=PCAP, occl=occl,
+                        lean=lean, cull=cull and not occl)
     # back to storage order (slot p == packet p for base slots)
     inv_order = torch.empty_like(order)
     inv_order[order] = torch.arange(order.shape[0], device=order.device)
     smeta_u = torch.empty_like(smeta)
     smeta_u[order] = smeta
     rec = _stage_glue(out_s[inv_order], smeta_u, npk, npad)
-    rec = HitRecord(t=rec.t[:n], prim=rec.prim[:n], slot=rec.slot[:n],
-                    b1=rec.b1[:n], b2=rec.b2[:n])
+    if presort:             # back to caller ray order
+        rec = HitRecord(*(getattr(rec, f).reshape(nb, BLK)[inv_blk]
+                          .reshape(-1)[:n]
+                          for f in ("t", "prim", "slot", "b1", "b2")))
+    else:
+        rec = HitRecord(t=rec.t[:n], prim=rec.prim[:n], slot=rec.slot[:n],
+                        b1=rec.b1[:n], b2=rec.b2[:n])
+    if lean:
+        rec.b1, rec.b2 = _winner_barys(rows_keep, inv0, kprim, ktri_geo,
+                                       rec.prim, rec.t, n)
     if not with_diag:
         return rec
     alive = smeta[:, 1] > 0
@@ -444,7 +597,11 @@ def _run(rows_w, tmin, tmax, nodef, kleaf, inv0, *, live=None,
         .scatter_reduce(0, smeta[:, 0].to(torch.int64), trunc.to(torch.int32),
                         "amax")
     a64 = alive.to(torch.int64)
-    diag = {"pkt_flag": pkt_flag,
+    if presort:             # sorted block -> caller block
+        blk_perm = compaction.invert_perm(inv_blk)
+    else:
+        blk_perm = torch.arange(nb, dtype=torch.int64, device=alive.device)
+    diag = {"pkt_flag": pkt_flag, "blk_perm": blk_perm,
             "words": (torch.clamp(emeta[:, 0], max=PCAP) * a64).sum(),
             "kept_words": (torch.clamp(emeta_i[:, 0], max=PCAP) * a64).sum(),
             "steps": emeta[:, 2].to(torch.int64).sum(),
@@ -465,19 +622,28 @@ def park_dead(rows_w, live, park_dir=(1.0, 1.0, 1.0)):
                  for r, f in zip(rows_w, fill))
 
 
-def retrace_flagged(rec, rows_w, pkt_flag, occl, trace):
+def retrace_flagged(rec, rows_w, pkt_flag, occl, trace, blk_perm=None):
     """The residual: re-trace exactly every ray (of the first N of the
     six world-space rows) of the packets flagged in pkt_flag ([npk]), by
     trace(origin [k, 3], direction [k, 3]) -> HitRecord, and patch them
-    into rec in place.  On occlusion waves (occl, trace any-hit) t is
-    normalised to 0 / FLT_MAX, as stream3.py:2815-2821 does.  Returns
-    (packets flagged, rays re-traced)."""
+    into rec in place.  With blk_perm (a presorted wave's: sorted block ->
+    caller block), pkt_flag is in sorted packet space and each flagged
+    packet's blocks are mapped back to the caller's (stream3.py:2786-
+    2806).  On occlusion waves (occl, trace any-hit) t is normalised to
+    0 / FLT_MAX, as stream3.py:2815-2821 does.  Returns (packets flagged,
+    rays re-traced)."""
     n = rows_w[0].shape[0]
     flagged = torch.nonzero(pkt_flag > 0).squeeze(1)
     if flagged.numel() == 0:
         return 0, 0
-    sel = (flagged[:, None] * PKT
-           + torch.arange(PKT, device=flagged.device)).reshape(-1)
+    dev = flagged.device
+    nsub = PKT // BLK
+    blocks = (flagged[:, None] * nsub
+              + torch.arange(nsub, device=dev)).reshape(-1)
+    if blk_perm is not None:
+        blocks = blk_perm.to(dev)[blocks]
+    sel = (blocks[:, None] * BLK
+           + torch.arange(BLK, device=dev)).reshape(-1)
     sel = sel[sel < n]
     patch_retraced(rec, sel,
                    trace(torch.stack([r[sel] for r in rows_w[:3]], dim=1),
@@ -498,7 +664,9 @@ def patch_retraced(rec, sel, sub, occl):
 
 def trace_rows_stream3(scene, rows_w, tmin, tmax, live=None,
                        occl: bool = False, with_diag: bool = False,
-                       blk_bound=None):
+                       blk_bound=None, presort: bool = False,
+                       tqsort: bool = False, lean: bool = False,
+                       cull: bool = False):
     """Closest-hit trace of a wave given as six world-space [N] rows
     (ox, oy, oz, dx, dy, dz) against a single-instance scene (check
     supports(scene)); with occl, an occlusion trace: t = 0 on occluded
@@ -521,6 +689,11 @@ def trace_rows_stream3(scene, rows_w, tmin, tmax, live=None,
     marked slot == -2, t = FLT_MAX, which callers must re-trace or
     distrust (the engine re-traces them).
 
+    presort, tqsort, lean and cull select the ordering modes and kernel
+    forms of _run (each off by default, which keeps the default route's
+    hits bit for bit); the flagged drain maps a presorted wave's packets
+    back to caller blocks.
+
     With with_diag, returns (rec, diag) with the pipeline's counters plus
     "flagged" packets and "residual_rays" re-traced; with blk_bound also
     "block_pairs" and "block_pairs_bounded" (the (word, block) pairs
@@ -534,14 +707,17 @@ def trace_rows_stream3(scene, rows_w, tmin, tmax, live=None,
                      scene.inst_inv[0], live=live,
                      stable=bool(scene.stable_frames), occl=occl,
                      with_diag=True, blk_bound=blk_bound,
-                     count_pairs=with_diag)
+                     count_pairs=with_diag, presort=presort, tqsort=tqsort,
+                     lean=lean, cull=cull, kprim=scene.kprim,
+                     ktri_geo=scene.ktri_geo)
 
     def exact(o, d):
         return packet_trace.trace_rays_packet(scene, o, d, tmin, tmax,
                                               any_hit=occl)
 
     diag["flagged"], diag["residual_rays"] = retrace_flagged(
-        rec, rows_w, diag["pkt_flag"], occl, exact)
+        rec, rows_w, diag["pkt_flag"], occl, exact,
+        diag["blk_perm"] if presort else None)
     if blk_bound is not None:
         diag.update(_tb_residual(rows_w, rec, blk_bound, exact, occl=occl,
                                  live=live, n=n))
@@ -556,3 +732,54 @@ def trace_rays_stream3(scene, origin, direction, tmin, tmax,
     any_hit runs the occlusion wave."""
     return trace_rows_stream3(scene, rows_from_aos_fast(origin, direction),
                               tmin, tmax, occl=any_hit)
+
+
+def trace_rows_cascade(scene, rows_w, tmin, tmax, near, live=None,
+                       occl: bool = False, with_diag: bool = False,
+                       **modes):
+    """The two-stage t-cascade (stream3.py::trace_rows_cascade, :2858-
+    2885): stage A traces the wave with tmax = near (short shafts, few
+    leaves emitted), stage B re-traces only A's misses over the full
+    window through the live mask.  Exact: a hit inside (tmin, near) is
+    the closest one, and a miss re-runs the whole window.  modes go to
+    both trace_rows_stream3 calls (presort, tqsort, lean, cull).  With
+    with_diag, returns (rec, {"a": diag of A, "b": diag of B})."""
+    rec_a, diag_a = trace_rows_stream3(scene, rows_w, tmin, near, live=live,
+                                       occl=occl, with_diag=True, **modes)
+    miss_a = rec_a.t >= FLT_MAX
+    live_b = miss_a if live is None else (miss_a & live.bool())
+    rec_b, diag_b = trace_rows_stream3(scene, rows_w, tmin, tmax,
+                                       live=live_b, occl=occl,
+                                       with_diag=True, **modes)
+    hit_a = ~miss_a
+    rec = HitRecord(*(torch.where(hit_a, getattr(rec_a, f), getattr(rec_b, f))
+                      for f in ("t", "prim", "slot", "b1", "b2")))
+    return (rec, {"a": diag_a, "b": diag_b}) if with_diag else rec
+
+
+# ------------------------------------------------------- build_tracer
+
+def build_tracer(scene, presort: bool = False, tqsort: bool = False,
+                 lean: bool = False, cull: bool = False):
+    """A host-loop closest-hit tracer for one single-instance scene
+    (check supports(scene); stream3.py::build_tracer, :2940-2995):
+    tracer(o, d, tmin, tmax) -> HitRecord, o and d [N, 3], or o the six
+    world-space rows and d None.  It is trace_rows_stream3 with its modes
+    fixed: every flagged packet is re-traced exactly through the packet
+    kernel (the reference's _residual_retrace, :2911-2937, which walks
+    them in fixed RES_CAP chunks, a jit shape), so the record is
+    complete.  presort, tqsort, lean and cull are _run's modes.  The
+    reference's probe self-checks (_spot_check, _probe_check: defences
+    against the TPU compiler miscompiling a kernel) are left out; the
+    parity tests take their place."""
+    if not supports(scene):
+        raise ValueError("stream3 requires a single-instance scene with "
+                         "kernel tables (see kernel_pack.py)")
+
+    def tracer(o, d, tmin, tmax):
+        rows_w = tuple(o) if isinstance(o, (tuple, list)) \
+            else rows_from_aos_fast(o, d)
+        return trace_rows_stream3(scene, rows_w, tmin, tmax, presort=presort,
+                                  tqsort=tqsort, lean=lean, cull=cull)
+
+    return tracer

@@ -26,7 +26,16 @@ Each kernel wrapper counts its launches in `<wrapper>.launches`.
 Word format (the compiled-TPU default, 9 tq bits): one i32 per emitted
 (leaf, slot) pair, (leaf + 1) << 17 | keepmask << 9 | tq.  keepmask has
 one bit per 128-ray block of the slot's packet; tq is a quantised lower
-bound on the leaf's entry distance (carried, not read by this port).
+bound on the leaf's entry distance: C's sort form orders a list by it,
+D's cull and the temporal cull (stream3._apply_block_bound) compare it
+with a bound.
+
+Forms of C and D beside the default ones, as in the JAX module (each off
+by default): C's tq sort (sort=True, _refine3_kernel(sort=True)); D's
+lean form (lean=True: no barycentrics, stream3._winner_barys recomputes
+the winner's) and its tq occlusion cull (cull=True).  Their launches also
+count in refine_cuda.sort_launches, isect_cuda.lean_launches and
+isect_cuda.cull_launches.
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ W_LEAF_SHIFT = W_TQ_BITS + 8
 W_TQ_MASK = (1 << W_TQ_BITS) - 1
 TQ_SHIFT = 27 - W_TQ_BITS
 TQ_BIAS3 = 125 << (W_TQ_BITS - 4)
+TQ_BUCKET_SHIFT = W_TQ_BITS - 5         # 32 tq counting-sort buckets
 W_LEAF_MAX = 1 << (31 - W_LEAF_SHIFT)   # leaf + 1 must stay below this
 
 FMAX = 3.4028234663852886e38    # float32 max, exactly representable
@@ -75,11 +85,11 @@ LIBS = {
         ("rt_s3_emit_window", ())), ("-fmad=false",)),
     "refine": cuda_build.KernelLib("s3_refine", (
         ("rt_s3_refine", (_P, _P, _P, _P, _I64, _P, _I32, _I32, _F32, _I32,
-                          _P, _P, _P, _P, _P, _P)),
+                          _I32, _P, _P, _P, _P, _P, _P)),
         ("rt_s3_refine_grid", ())), ("-fmad=false",)),
     "isect": cuda_build.KernelLib("s3_isect", (
         ("rt_s3_isect", (_P, _P, _P, _P, _P, _I32, _I32, _F32, _F32, _I32,
-                         _P, _P, _P)),)),
+                         _I32, _I32, _P, _P, _P, _P)),)),
     "isect_occl": cuda_build.KernelLib("s3_isect_occl", (
         ("rt_s3_isect_occl", (_P, _P, _P, _P, _P, _I32, _I32, _F32, _F32,
                               _I32, _P, _P)),)),
@@ -471,9 +481,17 @@ def _slot_rays(feats_t, slot_pkt, rows):
     return x[:, slot_pkt.to(torch.int64)]
 
 
-def _refine_plain(words, emeta, slot_pkt, feats_t, aabb8, tmax, pcap):
-    """Plain version of kernel C: _refine3_kernel (sort=False) over every
-    slot, one word position per loop step."""
+def tq_bucket(words):
+    """The tq counting-sort bucket (0-31) of each word."""
+    return (words & W_TQ_MASK) >> TQ_BUCKET_SHIFT
+
+
+def _refine_plain(words, emeta, slot_pkt, feats_t, aabb8, tmax, pcap,
+                  sort=False):
+    """Plain version of kernel C: _refine3_kernel over every slot, one
+    word position per loop step; with sort, each kept list then in stable
+    tq-bucket order (a stable argsort by bucket, the rest of the row
+    zero)."""
     dev = words.device
     i32, i64 = torch.int32, torch.int64
     nslot = words.shape[0]
@@ -507,6 +525,10 @@ def _refine_plain(words, emeta, slot_pkt, feats_t, aabb8, tmax, pcap):
             w2 = (w & ~(255 << W_KEEP_SHIFT)) | (km << W_KEEP_SHIFT)
             out[s[keep], kept[s[keep]]] = w2[keep]
             kept[s] += keep.to(i64)
+    if sort:
+        pos = torch.arange(words.shape[1], device=dev)
+        key = torch.where(pos[None, :] < kept[:, None], tq_bucket(out), 32)
+        out = torch.gather(out, 1, torch.argsort(key, dim=1, stable=True))
     emeta_out = emeta.clone()
     emeta_out[:, 0] = kept.to(i32)
     emeta_out[:, 4] = cnt.to(i32)
@@ -514,11 +536,12 @@ def _refine_plain(words, emeta, slot_pkt, feats_t, aabb8, tmax, pcap):
 
 
 def refine_cuda(words, emeta, slot_pkt, feats_t, aabb8, tmax, pcap,
-                grid=0):
+                sort=False, grid=0):
     """Kernel C: (words', emeta'); only the first emeta'[:, 0] words of
-    a row are defined.  grid: the test kernel's blocks, each taking an
-    equal share of the lists' 32-word chunks; 0 is the kernel's own
-    choice, a full complement of blocks on every SM (refine_grid())."""
+    a row are defined, in tq-bucket order with sort.  grid: the test
+    kernel's blocks, each taking an equal share of the lists' 32-word
+    chunks; 0 is the kernel's own choice, a full complement of blocks on
+    every SM (refine_grid())."""
     dev = _cuda_only("refine_cuda", words)
     chk = functools.partial(cuda_build.check_tensor, "refine_cuda",
                             dev=dev)
@@ -546,14 +569,16 @@ def refine_cuda(words, emeta, slot_pkt, feats_t, aabb8, tmax, pcap,
         cuda_build.check_launch("s3_refine", _lib("refine").rt_s3_refine(
             words.data_ptr(), emeta.data_ptr(), slot_pkt.data_ptr(),
             feats_t.data_ptr(), feats_t.shape[1], aabb8.data_ptr(), nslot,
-            int(pcap), float(tmax), int(grid), at,
+            int(pcap), float(tmax), int(grid), int(bool(sort)), at,
             at + 4 * wtmp, at + 4 * (wtmp + nslot + 1), out.data_ptr(),
             emeta_out.data_ptr(), _stream(dev)))
         refine_cuda.launches += 1
+        refine_cuda.sort_launches += bool(sort)
     return out, emeta_out
 
 
 refine_cuda.launches = 0
+refine_cuda.sort_launches = 0
 
 
 def refine_grid(dev) -> int:
@@ -570,12 +595,13 @@ def emit_window() -> int:
 
 
 def stage_refine(words, emeta, slot_pkt, feats_t, aabb8, tmax, *,
-                 pcap=PCAP):
+                 pcap=PCAP, sort: bool = False):
     """Exact per-ray slab refine of every word list: keep bits ANDed with
     the exact (leaf, 128-ray block) overlap, empty words dropped, order
-    kept; emeta' lane 0 kept count, lane 4 the pre-refine count."""
+    kept or, with sort, stable tq-bucket order (near leaves first); emeta'
+    lane 0 kept count, lane 4 the pre-refine count."""
     fn = refine_cuda if _route(words) == "cuda" else _refine_plain
-    return fn(words, emeta, slot_pkt, feats_t, aabb8, tmax, pcap)
+    return fn(words, emeta, slot_pkt, feats_t, aabb8, tmax, pcap, sort)
 
 
 # ---------------------------------------------------------------------------
@@ -629,14 +655,19 @@ def unparked(feats):
 
 
 def _isect_plain(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
-                 stable, stats=None):
+                 stable, lean=False, cull=False, stats=None):
     """Plain version of kernel D: for each word position, the Pluecker
     tests of every kept (slot, block) pair (_pair_tests), then a running
     per-ray best with the reference's tie rule (lower t, then lower leaf
-    lane, then the earlier word).  stats, if a dict, receives "pairs":
-    the kept (leaf, block) pairs, "ray_tests": their rays that are not
-    parked (unparked()), and "tri_tests": each such ray times its leaf's
-    triangle lanes -- the ray-triangle tests the function needs."""
+    lane, then the earlier word).  lean leaves lanes 2-3 zero.  cull (when
+    tmin >= 0) skips a pair whose word's entry bound, lb_bits(), is not
+    below the largest f32 bits of its block's per-ray bests so far, as the
+    TPU kernel does over a whole list (kernel D over 128-position chunks
+    skips a subset of these).  stats, if a dict, receives "pairs": the
+    kept (leaf, block) pairs tested, "ray_tests": their rays that are not
+    parked (unparked()), "tri_tests": each such ray times its leaf's
+    triangle lanes -- the ray-triangle tests the function needs -- and,
+    with the cull, "culled": the pairs it skipped."""
     dev = words.device
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
     nslot = words.shape[0]
@@ -644,7 +675,8 @@ def _isect_plain(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
     tmin_t = torch.tensor(tmin, dtype=f32, device=dev)
     tmax_t = torch.tensor(tmax, dtype=f32, device=dev)
     cnt = torch.clamp(emeta[:, 0], max=pcap).to(i64)
-    pairs = 0
+    pairs = culled = 0
+    cull = cull and tmin >= 0
     ray_tests = torch.zeros((), dtype=i64, device=dev)
     tri_tests = torch.zeros((), dtype=i64, device=dev)
     if stats is not None:
@@ -664,6 +696,11 @@ def _isect_plain(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
         w = words[sel, j]
         kmask = (w >> W_KEEP_SHIFT) & 255
         ps, pb = torch.nonzero((kmask[:, None] >> bits) & 1, as_tuple=True)
+        if cull:
+            wbits = best_t.view(i32).view(nslot, 8, BLK).amax(dim=2)
+            run = lb_bits(w[ps]) < wbits[sel[ps], pb]
+            culled += int((~run).sum())
+            ps, pb = ps[run], pb[run]
         pairs += ps.numel()
         for c in range(0, ps.numel(), _ISECT_CHUNK):
             q, b = ps[c:c + _ISECT_CHUNK], pb[c:c + _ISECT_CHUNK]
@@ -696,7 +733,20 @@ def _isect_plain(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
         stats["pairs"] = pairs
         stats["ray_tests"] = int(ray_tests)
         stats["tri_tests"] = int(tri_tests)
+        if cull:
+            stats["culled"] = culled
+    if lean:
+        best_b1.zero_()
+        best_b2.zero_()
     return torch.stack([best_t, best_prim, best_b1, best_b2], dim=2)
+
+
+def lb_bits(words):
+    """The quantised lower bound of each word's leaf entry distance as
+    f32 bits, (tq + TQ_BIAS3) << TQ_SHIFT, or 0 where tq is 0
+    (stream3.py:1915)."""
+    tq = words & W_TQ_MASK
+    return torch.where(tq == 0, 0, (tq + TQ_BIAS3) << TQ_SHIFT)
 
 
 def _check_isect_args(fn, words, emeta, slot_pkt, feats, kleaf, pcap):
@@ -714,10 +764,14 @@ def _check_isect_args(fn, words, emeta, slot_pkt, feats, kleaf, pcap):
 
 
 def isect_cuda(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
-               stable):
+               stable, lean=False, cull=False, stats=None):
     """Kernel D: out [nslot, PKT, 4] f32 (t, prim, b1, b2); rays with no
-    hit hold (FLT_MAX, -1, 0, 0).  Its three launches share a [nslot *
-    PKT] i64 scratch of per-ray keys."""
+    hit hold (FLT_MAX, -1, 0, 0).  lean leaves b1, b2 zero; cull skips
+    the (word, block) pairs whose entry bound is at or past every ray's
+    best.  Its three launches share a [nslot * PKT] i64 scratch of
+    per-ray keys.  stats, if a dict, receives with the cull "culled": the
+    pairs the kernel skipped, counted on the card (a subset of
+    _isect_plain's, which reads the bests of the whole list)."""
     dev = _check_isect_args("isect_cuda", words, emeta, slot_pkt, feats,
                             kleaf, pcap)
     if not _aligned(feats, kleaf):
@@ -727,18 +781,27 @@ def isect_cuda(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
         raise ValueError("isect_cuda: pcap must be at most 65536")
     nslot = words.shape[0]
     out = torch.empty(nslot, PKT, 4, dtype=torch.float32, device=dev)
+    culled = (torch.zeros(1, dtype=torch.int32, device=dev)
+              if cull and stats is not None else None)
     if nslot:
         keys = torch.empty(nslot * PKT, dtype=torch.int64, device=dev)
         cuda_build.check_launch("s3_isect", _lib("isect").rt_s3_isect(
             words.data_ptr(), emeta.data_ptr(), slot_pkt.data_ptr(),
             feats.data_ptr(), kleaf.data_ptr(), nslot, int(pcap),
-            float(tmin), float(tmax), int(bool(stable)), keys.data_ptr(),
-            out.data_ptr(), _stream(dev)))
+            float(tmin), float(tmax), int(bool(stable)), int(bool(lean)),
+            int(bool(cull)), keys.data_ptr(), out.data_ptr(),
+            None if culled is None else culled.data_ptr(), _stream(dev)))
         isect_cuda.launches += 1
+        isect_cuda.lean_launches += bool(lean)
+        isect_cuda.cull_launches += bool(cull)
+    if culled is not None:
+        stats["culled"] = int(culled)
     return out
 
 
 isect_cuda.launches = 0
+isect_cuda.lean_launches = 0
+isect_cuda.cull_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -831,17 +894,20 @@ isect_occl_cuda.launches = 0
 
 
 def stage_isect(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, *,
-                stable: bool, pcap=PCAP, occl: bool = False):
+                stable: bool, pcap=PCAP, occl: bool = False,
+                lean: bool = False, cull: bool = False):
     """Pair intersection of every slot's word list against its packet's
     rays (ray-major feats [Npad, 16]): closest hit (kernel D, on refined
-    lists) or, with occl, occlusion (kernel E, on refined or emitted
-    lists)."""
-    if _route(words) == "cuda":
-        fn = isect_occl_cuda if occl else isect_cuda
-    else:
-        fn = _isect_occl_plain if occl else _isect_plain
+    lists; lean and cull select its forms) or, with occl, occlusion
+    (kernel E, on refined or emitted lists)."""
+    cuda = _route(words) == "cuda"
+    if occl:
+        fn = isect_occl_cuda if cuda else _isect_occl_plain
+        return fn(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
+                  stable)
+    fn = isect_cuda if cuda else _isect_plain
     return fn(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
-              stable)
+              stable, lean=lean, cull=cull)
 
 
 KERNELS = {"aos_rows": aos_rows_cuda, "transpose": transpose_cuda,
@@ -850,6 +916,12 @@ KERNELS = {"aos_rows": aos_rows_cuda, "transpose": transpose_cuda,
            "isect_occl": isect_occl_cuda, "oscal": oscal_cuda}
 
 
+FORM_COUNTS = ((refine_cuda, "sort_launches"),
+               (isect_cuda, "lean_launches"), (isect_cuda, "cull_launches"))
+
+
 def reset_launches() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    for fn, attr in FORM_COUNTS:
+        setattr(fn, attr, 0)

@@ -4,7 +4,9 @@ transposes, emit walk, exact refine, closest-hit and occlusion pair
 intersection, prep octant scalars), the many-instance scan and the
 TLAS-native route on the card against their CPU routes, and sample1's RD-API route against a direct
 render of the same inputs; a temporally bounded stream3 wave against
-its unbounded trace, and the temporal cull on the card against the CPU.
+its unbounded trace, and the temporal cull on the card against the CPU;
+kernel C's tq-sort form and kernel D's lean and cull forms against their
+plain versions on hand-made lists, long lists and exact ties.
 
 Every case is marked `gpu` and skips (with the reason) where no CUDA
 card is present; the `cuda` fixture decides at run time, never at
@@ -1094,6 +1096,182 @@ def test_s3_isect_edge_cases(cuda, stable):
     for k in (2, 3):
         assert float((ok[..., k] - op[..., k]).abs()[same].max()) <= 1e-4
     assert stg.isect_cuda.launches >= 1
+
+
+# ------------------------------------- kernels C and D: their other forms
+
+@pytest.mark.parametrize("grid", [1, 0])
+def test_s3_refine_sort_form_matches_plain(cuda, grid):
+    """Kernel C's tq-sort form against _refine_plain(sort=True) on
+    hand-made lists over 8 packets (lengths 0 to past PCAP, a list of one
+    tq bucket, a list of two buckets interleaved, random tq): the same
+    emeta and kept words in the same order, each list the unsorted form's
+    kept words stably ordered by bucket; and on a wave's emitted lists."""
+    ds = _scene(_mesh(10, 3000, 8.0)).device_scene(cuda)
+    nl = ds.kleaf.shape[0]
+    aabb8 = s3.leaf_aabb8(ds.knode_f, nl)
+    npk = 8
+    o, d = _rays(6, npk * stg.PKT, 10.0)
+    feats_t = torch.zeros(16, npk * stg.PKT)
+    feats_t[0:3] = torch.from_numpy(d.T.copy())
+    feats_t[6:9] = torch.from_numpy(o.T.copy())
+    feats_t = feats_t.to(cuda)
+    rng = np.random.default_rng(11)
+    lens = [0, 1, 31, 33, 130, stg.PCAP, 1500, 200, 200, 64]
+    nslot = len(lens)
+    words = np.zeros((nslot, stg.PCAP), np.int32)
+    for s, n in enumerate(lens):
+        m = min(n, stg.PCAP)
+        tq = rng.integers(0, 512, m)
+        if s == 7:
+            tq[:] = 77                            # one bucket: list order
+        if s == 8:
+            tq = np.where(np.arange(m) % 2, 40, 500)
+        words[s, :m] = ((rng.integers(0, nl, m) + 1) << stg.W_LEAF_SHIFT) \
+            | (rng.integers(1, 256, m) << stg.W_KEEP_SHIFT) | tq
+    emeta = np.zeros((nslot, 8), np.int32)
+    emeta[:, 0] = lens
+    args = (torch.from_numpy(words).to(cuda), torch.from_numpy(emeta).to(cuda),
+            torch.arange(nslot, dtype=torch.int32, device=cuda) % npk,
+            feats_t, aabb8, 1e3, stg.PCAP)
+    before = stg.refine_cuda.sort_launches
+    rk, rek = stg.refine_cuda(*args, sort=True, grid=grid)
+    rp, rep = stg._refine_plain(*args, sort=True)
+    ru, _ = stg.refine_cuda(*args, grid=grid)
+    torch.cuda.synchronize()
+    assert stg.refine_cuda.sort_launches == before + 1
+    assert torch.equal(rek, rep) and int(rek[:, 0].sum()) > 1000
+    for s in range(nslot):
+        k = int(rek[s, 0])
+        assert torch.equal(rk[s, :k], rp[s, :k])
+        u = ru[s, :k]
+        order = torch.argsort(stg.tq_bucket(u), stable=True)
+        assert torch.equal(rk[s, :k], u[order])
+    k8 = int(rek[8, 0])
+    assert bool((stg.tq_bucket(rk[8, :k8]).diff() >= 0).all())
+    tlas = _scene(_mesh(10, 3000, 8.0))
+    ds, feats_t, scal, smeta, bscal = _s3_stages(cuda, tlas)
+    wk, ek = stg.emit_cuda(scal, smeta, bscal, ds.knode_f, 1e3,
+                           stg.STEP_CAP, stg.PCAP)
+    args = (wk, ek, smeta[:, 0].contiguous(), feats_t,
+            s3.leaf_aabb8(ds.knode_f, ds.kleaf.shape[0]), 1e3, stg.PCAP)
+    rk, rek = stg.refine_cuda(*args, sort=True)
+    rp, rep = stg._refine_plain(*args, sort=True)
+    assert torch.equal(rek, rep)
+    valid = torch.arange(stg.PCAP, device=cuda)[None, :] < rek[:, :1]
+    assert torch.equal(rk[valid], rp[valid])
+
+
+def _deep_scene(dev, stable):
+    """A wall at z = 0 over 20,000 small triangles in [-8, 8]^2 x
+    [-6, -1]: rays from z = 5 pointing down all hit the wall at t = 5,
+    and a packet spread over the square crosses more leaves than one of
+    kernel D's 128-position chunks."""
+    rng = np.random.default_rng(14)
+    wall = np.array([[-60, -60, 0], [120, -60, 0], [-60, 120, 0]],
+                    np.float32)
+    c = rng.uniform(-8, 8, (20000, 3)).astype(np.float32)
+    c[:, 2] = rng.uniform(-6, -1, 20000)
+    v = (c[:, None, :] + rng.normal(scale=0.2, size=(20000, 3, 3))
+         .astype(np.float32)).reshape(-1, 3)
+    verts = np.concatenate([wall, v]).astype(np.float32)
+    mesh = types.Mesh(verts, np.arange(len(verts), dtype=np.uint32)
+                      .reshape(-1, 3))
+    return _scene(mesh).device_scene(dev, stable_frames=stable)
+
+
+def _card_lists(ds, o, d, sort):
+    """A wave through the card's prep, emit and refine (tq-sorted with
+    sort): D's arguments."""
+    rows = s3.rows_from_aos(o, d)
+    _, feats_t, scal, smeta, bscal, _ = s3._stage_prep(
+        rows, ds.knode_f, ds.inst_inv[0], stable=ds.stable_frames)
+    words, emeta = stg.emit_cuda(scal, smeta, bscal, ds.knode_f, 1e3,
+                                 stg.STEP_CAP, stg.PCAP)
+    slot_pkt = smeta[:, 0].contiguous()
+    words, emeta = stg.refine_cuda(words, emeta, slot_pkt, feats_t,
+                                   s3.leaf_aabb8(ds.knode_f,
+                                                 ds.kleaf.shape[0]),
+                                   1e3, stg.PCAP, sort=sort)
+    return (words, emeta, slot_pkt, feats_t.t().contiguous(), ds.kleaf,
+            1e-3, 1e3, stg.PCAP, ds.stable_frames), smeta[:, 1] > 0
+
+
+def _hk(out):
+    return pk.HitRecord(t=out[..., 0].reshape(-1),
+                        prim=out[..., 1].reshape(-1), slot=None, b1=None,
+                        b2=None)
+
+
+@pytest.mark.parametrize("stable", [True, False])
+def test_s3_isect_lean_and_cull_match_plain(cuda, stable):
+    """Kernel D's lean and cull forms, alone and together, on tq-sorted
+    and unsorted lists longer than one chunk, against _isect_plain with
+    the same flags: the traversal bars; each form's t bit-equal to the
+    same version's default form (the cull skips only pairs that cannot
+    lower a t), prims >= 0.999 of it; lean lanes 2-3 zero; on the sorted
+    lists, where the wall's leaf comes first, the cull skipped pairs in
+    the plain version and in the kernel; the kernel never skips more than
+    the plain version's whole-list rule."""
+    ds = _deep_scene(cuda, stable)
+    rng = np.random.default_rng(3)
+    n = 8 * stg.PKT
+    o = np.zeros((n, 3), np.float32)
+    o[:, :2] = rng.uniform(-8, 8, (n, 2))
+    o[:, 2] = 5.0
+    # one direction octant: every slot is a whole packet, every ray hits
+    d = np.abs(rng.normal(scale=0.05, size=(n, 3))).astype(np.float32)
+    d[:, 2] = -1.0
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    for sort in (False, True):
+        args, live = _card_lists(ds, torch.from_numpy(o).to(cuda),
+                                 torch.from_numpy(d).to(cuda), sort)
+        assert int(args[1][live, 0].max()) > 128
+        base_k, base_p = _isect_pair(args)
+        assert bool((base_p[live][..., 0] < FLT_MAX).all())
+        for lean, cull in ((True, False), (False, True), (True, True)):
+            st, kst = {}, {}
+            ok = stg.isect_cuda(*args, lean=lean, cull=cull, stats=kst)
+            op = stg._isect_plain(*args, lean=lean, cull=cull, stats=st)
+            torch.cuda.synchronize()
+            _agree(_hk(op[live]), _hk(ok[live]), False)
+            for out, base in ((ok, base_k), (op, base_p)):
+                assert torch.equal(out[live][..., 0], base[live][..., 0])
+                same = (out[live][..., 1] == base[live][..., 1])
+                assert float(same.float().mean()) >= 0.999
+            if lean:
+                assert not bool(ok[..., 2:].any()) and not bool(op[..., 2:].any())
+            else:
+                assert torch.equal(ok[..., 2:] != 0, base_k[..., 2:] != 0)
+            if cull:
+                assert kst["culled"] <= st["culled"]
+            if cull and sort:
+                assert st["culled"] > 0 and kst["culled"] > 0
+
+
+@pytest.mark.parametrize("stable", [True, False])
+def test_s3_isect_cull_exact_ties(cuda, stable):
+    """On the duplicate-triangle scene (every ray ties at t = 5 over two
+    or more leaves, one list chunk) the cull form picks the plain cull
+    form's prim on every ray; t to f32 rounding.  In one chunk the
+    kernel applies the plain version's rule to its own bests, so the
+    kernel's cull fires where the plain one does; the counts may differ
+    by the few pairs whose entry bound a rounding of t moves a best
+    across (every ray here ties at the leaves' entry)."""
+    ds = _dup_scene(cuda, stable)
+    o, d = _down_rays(4 * stg.PKT)
+    args, live = _card_lists(ds, torch.from_numpy(o).to(cuda),
+                             torch.from_numpy(d).to(cuda), True)
+    assert int(args[1][live, 0].max()) <= 128
+    st, kst = {}, {}
+    ok = stg.isect_cuda(*args, cull=True, stats=kst)
+    op = stg._isect_plain(*args, cull=True, stats=st)
+    torch.cuda.synchronize()
+    assert (kst["culled"] > 0) == (st["culled"] > 0)
+    assert bool(((op[live][..., 0] - 5.0).abs() < 1e-4).all())
+    assert torch.equal(ok[live][..., 1], op[live][..., 1])
+    assert torch.allclose(ok[live][..., 0], op[live][..., 0], rtol=1e-6,
+                          atol=0.0)
 
 
 def test_rd_route_matches_direct_render(cuda, tmp_path, monkeypatch):
