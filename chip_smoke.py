@@ -782,6 +782,8 @@ FAMILIES = {
     "isect_occl": ("fill_miss", "isect_occl_kernel"),
     "oscal": ("oscal_kernel",),
 }
+# profiled(): the tries of one profile that lost kernel records
+PROFILE_TRIES = 3
 # the feature rows kernel C reads (d, then o): a recorded refine call
 # keeps only these
 REFINE_ROWS = [0, 1, 2, 6, 7, 8]
@@ -857,15 +859,17 @@ class Calls:
 @contextlib.contextmanager
 def cuda_profile():
     """torch.profiler over the CUDA activity, warmed by one small kernel
-    and a synchronize before the caller's work: on a slow host CUPTI can
-    miss the first kernels launched right after the profiler starts (a
-    missing record fails launch_ms)."""
+    and a synchronize before the caller's work, and closed by a
+    synchronize.  CUPTI can still drop a kernel's record, at a profile's
+    first kernel or inside one of 80,000 records: launch_ms then raises
+    MissingRecords and profiled() takes the profile again."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
         yield prof
+        torch.cuda.synchronize()
 
 
 def kernel_records(prof):
@@ -877,10 +881,14 @@ def kernel_records(prof):
                   key=lambda r: r[1])
 
 
+class MissingRecords(AssertionError):
+    """A profile holds fewer kernel records than its recorded calls."""
+
+
 def launch_ms(prof, calls):
     """Device ms of each recorded call's kernels, from torch.profiler's
-    kernel records in launch order: {wrapper key: [ms per call]}; fails
-    unless every call has its kernels."""
+    kernel records in launch order: {wrapper key: [ms per call]}; raises
+    MissingRecords unless every call has its kernels."""
     recs = kernel_records(prof)
     out = {}
     for key in calls:
@@ -888,11 +896,36 @@ def launch_ms(prof, calls):
         mine = [r for r in recs if any(x in r[0] for x in subs)]
         k = len(subs)
         if len(mine) != k * len(calls[key]):
-            raise AssertionError(f"{key}: {len(mine)} kernel records for "
-                                 f"{len(calls[key])} calls")
+            raise MissingRecords(
+                f"{key}: {len(mine)} kernel records for {len(calls[key])} "
+                f"calls ({len(recs)} device records in the profile; first "
+                f"{recs[:2]})")
         out[key] = [sum(r[2] for r in mine[i:i + k]) / 1e6
                     for i in range(0, len(mine), k)]
     return out
+
+
+def profiled(pk, s3, fn, keep_args=True):
+    """fn(calls) with every kernel dispatcher's call recorded (Calls) under
+    cuda_profile(): (fn's result, Calls.calls, launch_ms()).  A profile
+    that lost a call's kernel records is taken again, fn and all, with a
+    fresh Calls, up to PROFILE_TRIES in all; the last one's
+    MissingRecords is raised.  Every try's launches are real launches: a
+    caller that counts them counts them all."""
+    for i in range(PROFILE_TRIES):
+        with Calls(pk, s3, keep_args=keep_args) as calls, \
+                cuda_profile() as prof:
+            out = fn(calls)
+            torch.cuda.synchronize()
+        try:
+            return out, calls.calls, launch_ms(prof, calls.calls)
+        except MissingRecords as e:
+            if i + 1 == PROFILE_TRIES:
+                raise
+            log(f"    profile {i + 1} of {PROFILE_TRIES} lost kernel "
+                f"records, taken again: {e}")
+        finally:
+            del prof
 
 
 def summary(ms, plain_ms, bounds):
@@ -2020,10 +2053,10 @@ def tlas_wave(name, s3m, stg, pk, scene, mt, rows, total, card, **kw):
 def recorded_wave(s3m, stg, pk, scene, mt, rows, total, **kw):
     """One trace_rows_tlas call with every kernel dispatcher's call
     recorded (Calls) under torch.profiler: (Calls.calls, launch_ms())."""
-    with Calls(pk, s3m) as calls, cuda_profile() as prof:
-        driven(pk, stg, total, lambda: s3m.trace_rows_tlas(
-            scene, mt, rows, TMIN, TMAX, **kw))
-    return calls.calls, launch_ms(prof, calls.calls)
+    _, calls, ms = profiled(pk, s3m, lambda _: driven(
+        pk, stg, total, lambda: s3m.trace_rows_tlas(
+            scene, mt, rows, TMIN, TMAX, **kw)))
+    return calls, ms
 
 
 def hold_tlas_wave(stg, calls, ms, occl, card):
@@ -2450,16 +2483,13 @@ def bounded_launch(s3, stg, pk, fn, hold):
     recorded: D's kernel ms (its one launch) and the packet kernel's
     launches' ms; with hold, D held against its plain version on its
     recorded arguments and bounded (isect_launch)."""
-    with Calls(pk, s3, keep_args=hold) as calls, cuda_profile() as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    ms = launch_ms(prof, calls.calls)
+    out, calls, ms = profiled(pk, s3, lambda _: fn(), keep_args=hold)
     if len(ms["isect"]) != 1:
         raise AssertionError(f"a 1080p wave launched D {len(ms['isect'])} "
                              f"times")
     r = dict(ms=ms["isect"][0], packet_ms=ms["packet_trace"])
     if hold:
-        (_, a, k, res), = calls.calls["isect"]
+        (_, a, k, res), = calls["isect"]
         h = isect_launch(stg, a + (k["pcap"], k["stable"]), res)
         hold_prims("D on the bounded 1080p wave vs plain", h["t_k"],
                    h["prim_k"], h["t_p"], h["prim_p"])
@@ -3692,13 +3722,13 @@ def main() -> int:
     cscene, cres = cornell_inputs(dev, CW)
     torch.cuda.synchronize()
 
-    pk.packet_trace_cuda.launches.clear()
-    stg.reset_launches()
-    frame_ms = []
-    accum = torch.zeros(n, 3, device=dev)
-    ts = 0
-    with Calls(pk, s3) as main_calls, cuda_profile() as prof:
-        main_calls.tag = "city"
+    def main_frames(calls):
+        pk.packet_trace_cuda.launches.clear()
+        stg.reset_launches()
+        frame_ms = []
+        accum = torch.zeros(n, 3, device=dev)
+        ts = 0
+        calls.tag = "city"
         for _ in range(2):
             t0 = time.time()
             accum, image = tracer.render(scene, res, accum, ts, W, H,
@@ -3708,13 +3738,19 @@ def main() -> int:
             ts += 4
         city_launches = dict(pk.packet_trace_cuda.launches)
         city_s3 = {k: fn.launches for k, fn in stg.KERNELS.items()}
-        main_calls.tag = "cornell"
+        calls.tag = "cornell"
         t0 = time.time()
         caccum, cimage = tracer.render(cscene, cres,
                                        torch.zeros(CW * CW, 3, device=dev),
                                        0, CW, CW, batch=16, depth=4)
         torch.cuda.synchronize()
         cornell_ms = (time.time() - t0) * 1e3
+        return (frame_ms, accum, image, city_launches, city_s3, caccum,
+                cimage, cornell_ms)
+
+    # each try of the profile resets the counts and renders anew
+    ((frame_ms, accum, image, city_launches, city_s3, caccum, cimage,
+      cornell_ms), main_calls, main_ms) = profiled(pk, s3, main_frames)
     launches = dict(pk.packet_trace_cuda.launches)
     s3_launches = {k: fn.launches for k, fn in stg.KERNELS.items()}
 
@@ -3739,14 +3775,11 @@ def main() -> int:
     del accum, image, caccum, cimage
 
     # each launch's kernel ms, its plain version's ms and bound
-    t0 = time.time()
-    main_ms = launch_ms(prof, main_calls.calls)
-    del prof
     log(f"    kernel records of {sum(map(len, main_ms.values()))} launches "
-        f"read in {time.time() - t0:.1f} s")
+        f"read")
     groups = {}             # (variant, scene, tables) -> [call]
     pk_ms = {}              # (variant, scene) -> [kernel ms a launch]
-    for call, ms in zip(main_calls.calls["packet_trace"],
+    for call, ms in zip(main_calls["packet_trace"],
                         main_ms["packet_trace"]):
         tag, a, k, _ = call
         var = pk.variant(k["any_hit"], a[2] is not None, k["stable"])
@@ -3795,7 +3828,7 @@ def main() -> int:
             log_summary(f"  {tag}", r, card)
     t1 = time.time()
     d_city = [isect_launch(stg, a + (k["pcap"], k["stable"]), out)
-              for _, a, k, out in main_calls.calls["isect"]]
+              for _, a, k, out in main_calls["isect"]]
     log(f"    D's plain runs in {time.time() - t1:.1f} s")
     if len(d_city) != s3_launches["isect"]:
         raise AssertionError("D: recorded and counted launches differ")
@@ -3809,7 +3842,7 @@ def main() -> int:
     # B and C on each city launch, every one held against its plain
     # version on its recorded arguments
     t1 = time.time()
-    bc_city = chain_launches(stg, main_calls.calls, main_ms, "city",
+    bc_city = chain_launches(stg, main_calls, main_ms, "city",
                              lambda rows: range(len(rows)))
     if any(len(bc_city[k]) != city_s3[k] for k in bc_city):
         raise AssertionError("B, C: recorded and counted launches differ")
@@ -3820,9 +3853,9 @@ def main() -> int:
         f"share each launch's chunks")
     # F on each city launch (the stream3 primaries' preps), its four
     # outputs held against its plain version on the recorded arguments
-    if len(main_calls.calls["oscal"]) != s3_launches["oscal"]:
+    if len(main_calls["oscal"]) != s3_launches["oscal"]:
         raise AssertionError("F: recorded and counted launches differ")
-    f_lists = oscal_launches(stg, main_calls.calls["oscal"],
+    f_lists = oscal_launches(stg, main_calls["oscal"],
                              main_ms["oscal"], "city")
     f_city = summary(*f_lists)
     log_summary("F (stream3_oscal) over the city frames' launches, each "
@@ -4038,25 +4071,28 @@ def main() -> int:
     # launches of D, E and F recorded and timed on their own shapes from
     # torch.profiler's kernel records; then each held against its plain
     # version, which also bounds it
-    stg.reset_launches()
-    scan, waves_seen = s3m.trace_rows_multi, []
+    scan = s3m.trace_rows_multi
 
-    def tagged(*a, **k):    # each engine wave's launches tagged by wave
-        waves_seen.append("shadow" if k.get("occl") else "closest")
-        m_calls.tag = f"multi64/{len(waves_seen)}-{waves_seen[-1]}"
-        return scan(*a, **k)
+    def mframe(calls):      # each try resets the counts and renders anew
+        stg.reset_launches()
+        waves_seen = []
 
-    with Calls(pk, s3) as m_calls, cuda_profile() as prof:
+        def tagged(*a, **k):    # each engine wave's launches tagged by wave
+            waves_seen.append("shadow" if k.get("occl") else "closest")
+            calls.tag = f"multi64/{len(waves_seen)}-{waves_seen[-1]}"
+            return scan(*a, **k)
+
         s3m.trace_rows_multi = tagged
         try:
             tf0 = time.time()
-            maccum, mimage = tracer.render(mscene, mres,
-                                           torch.zeros(n, 3, device=dev), 0,
-                                           W, H, batch=1, depth=2)
+            out = tracer.render(mscene, mres, torch.zeros(n, 3, device=dev),
+                                0, W, H, batch=1, depth=2)
             torch.cuda.synchronize()
-            mframe_ms = (time.time() - tf0) * 1e3
+            return out, (time.time() - tf0) * 1e3
         finally:
             s3m.trace_rows_multi = scan
+
+    ((maccum, mimage), mframe_ms), m_calls, m_ms = profiled(pk, s3, mframe)
     m_launches = {k: fn.launches for k, fn in stg.KERNELS.items()}
     log(f"[7] 64-instance frame 1920x1080 batch 1 depth 2 ({card}; under "
         f"torch.profiler): {mframe_ms:.1f} ms; stream3 launches "
@@ -4067,14 +4103,12 @@ def main() -> int:
         raise AssertionError(f"64-instance frame missed a kernel: "
                              f"{m_launches}")
     t1 = time.time()
-    m_ms = launch_ms(prof, m_calls.calls)
-    del prof
     for key in ("emit", "refine", "isect", "isect_occl", "oscal"):
-        if len(m_calls.calls[key]) != m_launches[key]:
+        if len(m_calls[key]) != m_launches[key]:
             raise AssertionError(f"{key}: recorded and counted launches "
                                  f"differ")
     d_multi = [isect_launch(stg, a + (k["pcap"], k["stable"]), out)
-               for _, a, k, out in m_calls.calls["isect"]]
+               for _, a, k, out in m_calls["isect"]]
     res_dm2 = hold_launches(f"D over the 64-instance frame's "
                             f"{len(d_multi)} launches", d_multi)
     dm_lists = (m_ms["isect"], [r["plain_ms"] for r in d_multi],
@@ -4083,7 +4117,7 @@ def main() -> int:
     log_summary("D (stream3_isect) over the 64-instance frame's launches",
                 d_frame, card)
     e_runs = [occl_launch(stg, a + (k["pcap"], k["stable"]), out)
-              for _, a, k, out in m_calls.calls["isect_occl"]]
+              for _, a, k, out in m_calls["isect_occl"]]
     e_live = sum(int(r["live"].sum()) for r in e_runs)
     e_agree = sum(int(((r["occ_k"] == r["occ_p"]) & r["live"]).sum())
                   for r in e_runs) / max(e_live, 1)
@@ -4096,7 +4130,7 @@ def main() -> int:
                       [r["bound"] for r in e_runs])
     log_summary("E (stream3_isect_occl) over the 64-instance frame's "
                 "launches", e_frame, card)
-    fm_lists = oscal_launches(stg, m_calls.calls["oscal"], m_ms["oscal"],
+    fm_lists = oscal_launches(stg, m_calls["oscal"], m_ms["oscal"],
                               "64-instance frame")
     log(f"    the 64-instance frame's plain runs (D, E, F) in "
         f"{time.time() - t1:.1f} s")
@@ -4104,7 +4138,7 @@ def main() -> int:
     log_summary("F (stream3_oscal) over the 64-instance frame's launches, "
                 "each equal to plain", f_frame, card)
     t1 = time.time()
-    bc_multi = chain_launches(stg, m_calls.calls, m_ms, "multi64", multi_held)
+    bc_multi = chain_launches(stg, m_calls, m_ms, "multi64", multi_held)
     log(f"    B's and C's bounds on the 64-instance frame's "
         f"{len(bc_multi['emit'])} launches, and plain runs on "
         f"{sum('plain_ms' in r for r in bc_multi['emit'])} of them, in "
