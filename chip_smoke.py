@@ -174,12 +174,30 @@ prints no result):
      shadow waves on "gen1_sort" against the default "argsort",
      accumulations allclose, and a 256x256 frame with "xla" bounces (the
      walk takes 1-2 s a trace: a cut of size only) against the default;
- 13. the kernels' JSON line (per kernel: the main path's launches, the
+ 13. multi-device rendering (parallel/sharding.py, chip_smoke.
+     sharded_frames) on the city at 1920x1080, batch 2, depth 2, each
+     mode run twice (the second warm), timed through profiling.timed
+     (host clock ending in a synchronize) beside the unsharded frame on
+     the same inputs, its runs driven: render_sharded on 3 shards of the
+     card (691,200 pixels a shard: whole stream3 and packet-kernel
+     packets) and on 4 (unaligned), sample_parallel_frame on 4 shards of
+     batch 1 against render of batch 4, tile_sample_frame on a 3x2 mesh
+     against render of batch 2, staged_shard_frame with "auto" and with
+     the explicit SHARD_ROUTES (E on the primary's shadows) against
+     frame_fn of the same routes, and a real 2-card pixel mesh where the
+     machine has two cards (logged as not run on one); pixel modes must
+     reproduce the image and accum (rtol 1e-5, atol 1e-6) on >= 0.9999
+     of the pixels (a shard's waves make other packets, and a tie
+     between leaves may then go the other way; the others are logged
+     with their primary hits), the 2D mode accum to rtol 1e-4, atol 1e-5
+     on as many, the sample-parallel mode on every pixel;
+ 14. the kernels' JSON line (per kernel: the main path's launches, the
      per-launch means of kernel ms, plain ms and bound and their sums,
      by scene where a kernel runs in several; A from phase 5, B and C
      also phase 5's 1080p wave, F phase 7's masked 1080p rows; each
-     phase 8 path's launches, phase 9's, phase 10's, phase 11's and
-     phase 12's, phase 10's launch of each on the native 1080p waves,
+     phase 8 path's launches, phase 9's, phase 10's, phase 11's,
+     phase 12's and phase 13's, phase 10's launch of each on the native
+     1080p waves,
      and D's bounded launch on phase 11's interior waves; rows of C's
      tq-sort form and D's lean and cull forms from phase 12), the card
      line, and the contract's last line.
@@ -3297,6 +3315,164 @@ def ordering_modes(dev, card, tracer, scene, res, verts, tris, waves, hit1,
     return out
 
 
+# ---- phase 13: sharded frames --------------------------------------------
+
+SHARD_ROUTES = ("stream3", "gen1_sort", "stream3", "gen1_live")
+PIXEL_SHARE = 0.9999          # pixels a pixel mode must reproduce exactly
+SHARD_NEED = ("emit", "refine", "transpose", "aos_rows", "isect",
+              "isect_occl", "oscal", "packet_trace[closest]",
+              "packet_trace[masked_closest]", "packet_trace[any_hit]",
+              "packet_trace[masked_any_hit]")
+
+
+def hold_pixel_mode(name, got, want, tracer, scene, res, pk, shards,
+                    sample_axis=False):
+    """A mode that shards pixels against the unsharded frame: on >=
+    PIXEL_SHARE of the pixels the u8 image equal and accum within rtol
+    1e-5, atol 1e-6 (with sample_axis, the 2D mode, accum within the
+    sample modes' rtol 1e-4, atol 1e-5 and the image not compared).  A
+    shard's waves form other packets than the whole frame's, so a ray
+    whose two nearest leaves tie may take the other's prim, and its path
+    goes elsewhere from there: the pixels that differ are logged with
+    their shard, their place in a 1024-ray packet of it and the primary
+    hit of their sample 0."""
+    from radiance_tpu_torch.engine import pathtracer
+
+    acc, img = got[0], got[1].reshape(-1, 4)
+    racc, rimg = want[0], want[1].reshape(-1, 4)
+    if sample_axis:
+        ok = torch.isclose(acc, racc, rtol=1e-4, atol=1e-5).all(-1)
+    else:
+        ok = (img == rimg).all(-1) & torch.isclose(acc, racc, rtol=1e-5,
+                                                   atol=1e-6).all(-1)
+    n = ok.shape[0]
+    share = float(ok.float().mean())
+    bad = torch.nonzero(~ok).squeeze(1)
+    per = -(-n // shards)
+    log(f"    {name}: {n - bad.numel()} of {n} pixels equal ({share:.7f}); "
+        f"accum max |diff| {float((acc - racc).abs().max()):.3e}")
+    if bad.numel():
+        pick = bad[:8]
+        state = pathtracer._sample_init(tracer, res, pick, 0, 0)
+        rec = pk.trace_rays_packet(scene, state[3], state[4], tracer.tmin,
+                                   tracer.tmax)
+        for j, p in enumerate(pick.tolist()):
+            log(f"      pixel ({p % W}, {p // W}), shard {p // per}, ray "
+                f"{(p % per) % 1024} of its packet: accum "
+                f"{acc[p].tolist()} vs {racc[p].tolist()}, u8 "
+                f"{img[p].tolist()} vs {rimg[p].tolist()}; sample 0 primary "
+                f"prim {int(rec.prim[j])} t {float(rec.t[j]):.6f}")
+    if share < PIXEL_SHARE:
+        raise AssertionError(f"{name}: {bad.numel()} pixels differ from the "
+                             f"unsharded frame ({share})")
+    return dict(equal_share=share, differing=int(bad.numel()))
+
+
+def hold_sample_mode(name, got, want):
+    """The sample-parallel mode (whole-image shards) against render of
+    batch n_dev * batch: the JAX tests' rtol 1e-4, atol 1e-5 on every
+    pixel."""
+    diff = float((got[0] - want[0]).abs().max())
+    close = torch.allclose(got[0], want[0], rtol=1e-4, atol=1e-5)
+    log(f"    {name}: accum max |diff| {diff:.3e}, allclose {close}")
+    if not close:
+        raise AssertionError(f"{name}: accum differs ({diff})")
+    return dict(accum_max_diff=diff)
+
+
+def sharded_frames(dev, card, tracer, scene, res, pk, stg):
+    """Phase 13: parallel/sharding.py on the city at 1920x1080, batch 2,
+    depth 2, each mode beside the unsharded frame on the same inputs:
+    render_sharded on 3 shards of the card (691,200 pixels a shard: 675
+    whole stream3 packets, 10,800 whole packet-kernel packets) and on 4
+    (unaligned), sample_parallel_frame on 4 shards of batch 1 against
+    render of batch 4, tile_sample_frame on a 3x2 mesh, staged_shard_frame
+    with "auto" and with an explicit 4-tuple (SHARD_ROUTES: the primary's
+    shadows on stream3, so E runs, and gen1_sort bounces) against
+    frame_fn of the same routes, and, where the machine has two cards, a
+    real 2-card pixel mesh.  Each run twice (the second warm), timed by
+    profiling.timed (host clock ending in a synchronize) into a
+    FrameStats; the sharded runs driven (counts set to 0 just before and
+    read just after).  Returns the counts, times and gates."""
+    from radiance_tpu_torch.parallel import sharding
+    from radiance_tpu_torch.utils import profiling
+
+    total, out = {}, {"ms": {}, "gates": {}}
+    n = W * H
+    pix = torch.arange(n, device=dev)
+    zero = torch.zeros(n, 3, device=dev)
+
+    def frames(name, fn, drive=True):
+        stats = profiling.FrameStats()
+        for _ in range(2):
+            with profiling.timed(name, quiet=True) as box:
+                box["sync"] = (driven(pk, stg, total, fn) if drive
+                               else fn())
+            stats.record(box["seconds"])
+        out["ms"][name] = [s * 1e3 for s in stats.history]
+        log(f"[13] {name} ({card}): {stats.report()}")
+        return box["sync"]
+
+    def render(batch):
+        return lambda: tracer.render(scene, res, zero, 0, W, H, batch=batch,
+                                     depth=2)
+
+    ref2 = frames("render b2", render(2), drive=False)
+    check_frame("city b2", *ref2, n)
+    ref4 = frames("render b4", render(4), drive=False)
+    routed = tracer.frame_fn(batch=2, depth=2, routes=SHARD_ROUTES)
+    ref_routed = frames("frame_fn b2 routes", lambda: routed(
+        scene, res, zero, 0, pix), drive=False)
+    mesh3 = sharding.make_mesh(3, devices=[dev] * 3)
+    mesh4 = sharding.make_mesh(4, devices=[dev] * 4)
+    gates = out["gates"]
+
+    for k, mesh in ((3, mesh3), (4, mesh4)):
+        name = f"render_sharded {k} shards"
+        got = frames(name, lambda: sharding.render_sharded(
+            tracer, mesh, scene, res, zero, 0, W, H, batch=2, depth=2))
+        gates[name] = hold_pixel_mode(name, got, ref2, tracer, scene, res,
+                                      pk, k)
+    fn = sharding.sample_parallel_frame(tracer, mesh4, batch=1, depth=2)
+    got = frames("sample_parallel 4x b1", lambda: fn(scene, res, zero, 0,
+                                                    pix))
+    gates["sample_parallel 4x b1"] = hold_sample_mode(
+        "sample_parallel 4x b1 against render b4", got, ref4)
+    mesh32 = sharding.make_mesh2d(3, 2, devices=[dev] * 6)
+    fn = sharding.tile_sample_frame(tracer, mesh32, batch=1, depth=2)
+    got = frames("tile_sample 3x2 b1", lambda: fn(scene, res, zero, 0, pix))
+    gates["tile_sample 3x2 b1"] = hold_pixel_mode(
+        "tile_sample 3x2 b1 against render b2", got, ref2, tracer, scene,
+        res, pk, 3, sample_axis=True)
+    for name, routes, mesh, ref in (
+            ("staged auto", "auto", mesh3, ref2),
+            ("staged 4-tuple", SHARD_ROUTES, mesh4, ref_routed)):
+        fn = sharding.staged_shard_frame(tracer, mesh, batch=2, depth=2,
+                                         routes=routes)
+        got = frames(name, lambda: fn(scene, res, zero, 0, pix))
+        gates[name] = hold_pixel_mode(name, got, ref, tracer, scene, res,
+                                      pk, mesh.devices.size)
+    del got, ref4, ref_routed
+
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        mesh2 = sharding.make_mesh(2)
+        name = "render_sharded 2 cards"
+        got = frames(name, lambda: sharding.render_sharded(
+            tracer, mesh2, scene, res, zero, 0, W, H, batch=2, depth=2))
+        gates[name] = hold_pixel_mode(name, got, ref2, tracer, scene, res,
+                                      pk, 2)
+    else:
+        log(f"[13] {cards} card on this machine: the 2-card pixel mesh did "
+            f"not run")
+    out["cards"] = cards
+    out["launches"] = total
+    if any(total.get(k, 0) <= 0 for k in SHARD_NEED):
+        raise AssertionError(f"phase 13 missed a kernel: {total}")
+    log(f"[13] launches of the sharded runs in the phase: {total}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4224,7 +4400,12 @@ def main() -> int:
     del interior
     log(f"[12] done in {time.time() - t0:.1f} s")
 
-    # ---- 13. results -------------------------------------------------
+    # ---- 13. sharded frames ------------------------------------------
+    t0 = time.time()
+    shard = sharded_frames(dev, card, tracer, scene, res, pk, stg)
+    log(f"[13] done in {time.time() - t0:.1f} s")
+
+    # ---- 14. results -------------------------------------------------
     # per kernel: the main path's launches (the packet kernel: the city
     # frames and sample1; B, C, D and F: the city frames and the
     # 64-instance frame; E: the 64-instance frame), each timed on its own
@@ -4236,7 +4417,8 @@ def main() -> int:
     # tlas_wave_1080p its launch on phase [10]'s primary (E: shadow) wave;
     # tbound_phase_launches: the bounded runs of phase [11], and D's
     # tbound_wave_1080p its mean launch on the interior's bounded samples;
-    # ordering_phase_launches: the driven runs of phase [12].  The new
+    # ordering_phase_launches: the driven runs of phase [12];
+    # sharding_phase_launches: the sharded runs of phase [13].  The new
     # forms' rows (C's tq sort, D's lean and cull): launches are those of
     # phase [12] (f)'s path (build_tracer with every mode on, on the two
     # 1080p primaries), ms, plain ms and bound their launch on the 1080p
@@ -4267,6 +4449,8 @@ def main() -> int:
             "tbound_phase_launches": tbound["launches"].get(
                 f"packet_trace[{var}]", 0),
             "ordering_phase_launches": order["launches"].get(
+                f"packet_trace[{var}]", 0),
+            "sharding_phase_launches": shard["launches"].get(
                 f"packet_trace[{var}]", 0)})
     d_all = summary(*(x + y for x, y in zip(d_lists, dm_lists)))
     frame_rows = {"isect": dict(d_all, max_abs_err=max(
@@ -4317,6 +4501,9 @@ def main() -> int:
                 tbound["launches"]["aos_rows"] if key == "transpose" else 0),
             "ordering_phase_launches": order["launches"].get(key, 0) + (
                 order["launches"].get("aos_rows", 0)
+                if key == "transpose" else 0),
+            "sharding_phase_launches": shard["launches"].get(key, 0) + (
+                shard["launches"].get("aos_rows", 0)
                 if key == "transpose" else 0)},
             **r))
     kernels[[k["name"] for k in kernels].index("stream3_isect")][
@@ -4335,6 +4522,7 @@ def main() -> int:
             "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
             "bound_by": f["bound_by"], "library_ms": None,
             "ordering_phase_launches": order["launches"][key],
+            "sharding_phase_launches": shard["launches"].get(key, 0),
             "interior_1080p": order["forms"]["interior"][form],
             "forms_1080p": {w: {k: v for k, v in fs.items()
                                 if k.startswith(key.split("[")[0])}
@@ -4344,6 +4532,8 @@ def main() -> int:
         f"{json.dumps({k: v for k, v in tbound.items() if k != 'launches'})}")
     log(f"[12] metrics: "
         f"{json.dumps({k: v for k, v in order.items() if k != 'launches'})}")
+    log(f"[13] metrics: "
+        f"{json.dumps({k: v for k, v in shard.items() if k != 'launches'})}")
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

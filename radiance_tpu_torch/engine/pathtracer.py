@@ -74,10 +74,14 @@ rays) is re-traced exactly before anything reads the record: through
 _trace_dispatch (the packet kernel) on one instance, the per-instance
 packet sweeps on many.  A bounded frame keeps the staged scheduler's
 wave routes and, as frame_fn does, stops a sample's bounce loop once no
-path is alive (a host read a bounce).  There is no jit here, so frame_fn
-itself and its max_batch_per_dispatch (samples a device program, which
-changes where the running average rounds) have no counterpart: a frame
-averages all its samples at once.
+path is alive (a host read a bounce).
+
+WavefrontPathTracer.frame_fn is the reference's frame_fn (:518-631)
+without its jit: a frame over any pixel_index, and its sample_sum hook,
+the sum of a range of frame ids' samples, on which parallel/sharding.py
+builds; render is frame_fn over every pixel.  Its max_batch_per_dispatch
+(samples a device program, which changes where the running average
+rounds) has no counterpart: a frame averages all its samples at once.
 """
 
 from __future__ import annotations
@@ -421,76 +425,149 @@ class WavefrontPathTracer:
             raise ValueError(f"{wave}_route must be one of {ROUTES}")
         return route
 
+    def _routes(self, scene, routes):
+        """(primary, primary shadows, bounce, bounce shadows) routes of a
+        frame on `scene`: `routes` is None or (primary, bounce, shadow[,
+        shadow_bounce]), shadow covering both shadow waves when
+        shadow_bounce is left out; a None entry, like routes=None, takes
+        the wave's field, else its staged default (module docstring)."""
+        single = packet_trace.supports(scene)
+        if routes is None:
+            routes = (None, None, None)
+        if len(routes) not in (3, 4):
+            raise ValueError("routes must be (primary, bounce, shadow[, "
+                             "shadow_bounce])")
+        primary, bounce, shadow = routes[:3]
+        shadow_bounce = routes[3] if len(routes) == 4 else shadow
+
+        def pick(route, wave, default):
+            if route is None:
+                return self.wave_route(wave, default)
+            if route not in ROUTES:
+                raise ValueError(f"{wave} route must be one of {ROUTES}")
+            return route
+
+        return (pick(primary, "primary", "stream3" if stream3.supports(scene)
+                     else ("gen1_live" if single else "argsort")),
+                pick(shadow, "shadow", "gen1_live" if single else "argsort"),
+                pick(bounce, "bounce", "argsort"),
+                pick(shadow_bounce, "shadow", "argsort"))
+
+    def frame_fn(self, *, batch: int, depth: int, debug: int = 0,
+                 hit_group_offset: int = 0, miss_group_offset: int = 0,
+                 tbound: bool = False, routes=None):
+        """The frame for static (batch, depth, debug): the reference's
+        frame_fn (:518-631) without its jit.
+
+        Returns frame(scene, resources, accum [N,3] f32, total_samples,
+        pixel_index [N] int[, tb]) -> (accum', image u8 [N,4][, tb']): frame
+        ids run from total_samples over the pixels `pixel_index` names
+        (shader.cl:197-281), on their tensors' device.
+        frame.sample_sum(scene, resources, pixel_index, first_frame_id,
+        total_samples0[, tb]) -> the sum of the sample colours [N,3] of
+        frame ids [first_frame_id, first_frame_id + batch) ([, tb']); the
+        raygen seeds each ray from its frame id, total_samples0 and pixel
+        (the sharded sample modes, parallel/sharding.py, give each device
+        its own first_frame_id).
+
+        tbound bounds each sample's primary wave by the previous sample's
+        per-block t (tb [ceil(N / 128)] f32 in, tb' out; FLT_MAX on every
+        block when tb is None), and stops a sample's bounce loop once no
+        path is alive (a host read a bounce).  routes: None, or
+        (primary, bounce, shadow[, shadow_bounce]) for this frame's waves
+        (_routes: shadow_bounce is the bounce waves' shadows, shadow the
+        primary wave's, or both's when shadow_bounce is left out), each
+        entry a route of ROUTES or None for the tracer's field or the
+        staged default.
+        """
+        effective_depth = 1 if debug else depth
+        hit_offset = self.hit_offset + hit_group_offset
+        miss_index = self.miss_index + miss_group_offset
+
+        def sample_sum(scene, resources, pixel_index, first_frame_id,
+                       total_samples0, tb=None):
+            primary, primary_shadow, bounce, bounce_shadow = self._routes(
+                scene, routes)
+            step = functools.partial(_sample_step, self, scene, resources,
+                                     pixel_index, debug=debug,
+                                     hit_offset=hit_offset,
+                                     miss_index=miss_index)
+            n = pixel_index.shape[0]
+            dev = pixel_index.device
+            if tbound and tb is None:
+                tb = torch.full((-(-n // stream3.BLK),), FLT_MAX,
+                                dtype=torch.float32, device=dev)
+            colors = torch.zeros(n, 3, dtype=torch.float32, device=dev)
+            for s in range(int(batch)):
+                fid = int(first_frame_id) + s
+                state = _sample_init(self, resources, pixel_index, fid,
+                                     int(total_samples0))
+                for b in range(effective_depth):
+                    if b == 0 and tbound:
+                        state, t1 = step(fid, b, state, route=primary,
+                                         shadow_route=primary_shadow,
+                                         blk_bound=tb, want_t=True)
+                        tb = stream3.block_bound_from_t(t1)
+                    elif b == 0:
+                        state = step(fid, b, state, route=primary,
+                                     shadow_route=primary_shadow)
+                    elif tbound and not bool(state[2].any()):
+                        break           # the reference's early exit (:572-575)
+                    else:
+                        state = step(fid, b, state, route=bounce,
+                                     shadow_route=bounce_shadow)
+                colors = colors + state[0]
+            return (colors, tb) if tbound else colors
+
+        def frame(scene, resources, accum, total_samples, pixel_index,
+                  tb=None):
+            ts = int(total_samples)
+            if tbound:
+                colors, tb = sample_sum(scene, resources, pixel_index, ts,
+                                        ts, tb)
+            else:
+                colors = sample_sum(scene, resources, pixel_index, ts, ts)
+            accum, image = _finish_frame(self, int(batch), debug, accum,
+                                         colors, ts)
+            return (accum, image, tb) if tbound else (accum, image)
+
+        frame.sample_sum = sample_sum
+        return frame
+
     def render(self, scene: DeviceScene, resources: Dict, accum,
                total_samples: int, width: int, height: int,
                *, batch: int, depth: int, debug: int = 0,
                hit_group_offset: int = 0, miss_group_offset: int = 0):
         """Run one frame: returns (accum' [N,3] f32, image u8 [H, W, 4]).
 
-        Frame ids run from total_samples (shader.cl:197-281); callers own
-        the totalSamples counter (sample1.cpp:479-490).  All tensors live
-        on the scene's device.  With tbound, each sample's primary wave is
-        bounded by the previous sample's (the first by the bounds this
-        tracer stored for the scene at the end of its last frame, unless
-        total_samples is 0: bounds share the accumulation's invalidation,
-        so a camera change must reset total_samples), and a sample stops
-        bouncing once no path is alive.
+        frame_fn over every pixel (arange(N)).  Frame ids run from
+        total_samples (shader.cl:197-281); callers own the totalSamples
+        counter (sample1.cpp:479-490).  All tensors live on the scene's
+        device.  With tbound, each sample's primary wave is bounded by the
+        previous sample's (the first by the bounds this tracer stored for
+        the scene at the end of its last frame, unless total_samples is 0:
+        bounds share the accumulation's invalidation, so a camera change
+        must reset total_samples), and a sample stops bouncing once no
+        path is alive.
         """
         dev = scene.device
         n = width * height
         pixel_index = torch.arange(n, dtype=torch.int64, device=dev)
-        hit_offset = self.hit_offset + hit_group_offset
-        miss_index = self.miss_index + miss_group_offset
-        effective_depth = 1 if debug else depth
-        single = packet_trace.supports(scene)
-        primary_route = self.wave_route("primary", "stream3" if
-                                        stream3.supports(scene) else (
-                                            "gen1_live" if single
-                                            else "argsort"))
-        primary_shadow = self.wave_route("shadow", "gen1_live" if single
-                                         else "argsort")
-        bounce_route = self.wave_route("bounce", "argsort")
-        bounce_shadow = self.wave_route("shadow", "argsort")
-        step = functools.partial(_sample_step, self, scene, resources,
-                                 pixel_index, debug=debug,
-                                 hit_offset=hit_offset, miss_index=miss_index)
-
-        tb = key = None
-        if self.tbound:
-            nb = -(-n // stream3.BLK)
-            key = (id(scene), nb)
-            held = self._tb_store.get(key) if total_samples > 0 else None
-            if held is not None and held[0] is scene:
-                tb = held[1]
-            else:
-                tb = torch.full((nb,), FLT_MAX, dtype=torch.float32,
-                                device=dev)
-
-        colors = torch.zeros(n, 3, dtype=torch.float32, device=dev)
-        for s in range(int(batch)):
-            fid = int(total_samples) + s
-            state = _sample_init(self, resources, pixel_index, fid,
-                                 int(total_samples))
-            for b in range(effective_depth):
-                if b == 0 and self.tbound:
-                    state, t1 = step(fid, b, state, route=primary_route,
-                                     shadow_route=primary_shadow,
-                                     blk_bound=tb, want_t=True)
-                    tb = stream3.block_bound_from_t(t1)
-                elif b == 0:
-                    state = step(fid, b, state, route=primary_route,
-                                 shadow_route=primary_shadow)
-                elif self.tbound and not bool(state[2].any()):
-                    break               # frame_fn's early exit (:572-575)
-                else:
-                    state = step(fid, b, state, route=bounce_route,
-                                 shadow_route=bounce_shadow)
-            colors = colors + state[0]
-        accum, image = _finish_frame(self, int(batch), debug, accum, colors,
-                                     int(total_samples))
-        if self.tbound:
-            self._tb_store.pop(key, None)      # refresh insertion order
-            self._tb_store[key] = (scene, tb)
-            while len(self._tb_store) > self._TB_CAP:
-                self._tb_store.pop(next(iter(self._tb_store)))
+        frame = self.frame_fn(batch=batch, depth=depth, debug=debug,
+                              hit_group_offset=hit_group_offset,
+                              miss_group_offset=miss_group_offset,
+                              tbound=self.tbound)
+        if not self.tbound:
+            accum, image = frame(scene, resources, accum, total_samples,
+                                 pixel_index)
+            return accum, image.reshape(height, width, 4)
+        key = (id(scene), -(-n // stream3.BLK))
+        held = self._tb_store.get(key) if total_samples > 0 else None
+        tb = held[1] if held is not None and held[0] is scene else None
+        accum, image, tb = frame(scene, resources, accum, total_samples,
+                                 pixel_index, tb)
+        self._tb_store.pop(key, None)      # refresh insertion order
+        self._tb_store[key] = (scene, tb)
+        while len(self._tb_store) > self._TB_CAP:
+            self._tb_store.pop(next(iter(self._tb_store)))
         return accum, image.reshape(height, width, 4)

@@ -13,6 +13,7 @@ command and nvcc's ptxas report (registers, spills).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import glob
@@ -22,6 +23,8 @@ import subprocess
 import threading
 import time
 from typing import Dict, Sequence, Tuple
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -144,3 +147,27 @@ def check_launch(name: str, err: int) -> None:
     """Raise if a launch returned a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+@contextlib.contextmanager
+def on_device(dev):
+    """Make `dev` the calling thread's current CUDA device for a launch and
+    give the handle of its current stream.  A ctypes launch goes to the
+    thread's current device, whatever device its pointers live on."""
+    with torch.cuda.device(dev):
+        yield torch.cuda.current_stream(dev).cuda_stream
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(fn, attr: str = "launches", key=None) -> None:
+    """Add one to the launch count fn.<attr> (to fn.<attr>[key] where it is
+    a dict), under a lock: the sharded frames launch from one thread per
+    device."""
+    with _count_lock:
+        if key is None:
+            setattr(fn, attr, getattr(fn, attr) + 1)
+        else:
+            counts = getattr(fn, attr)
+            counts[key] = counts.get(key, 0) + 1

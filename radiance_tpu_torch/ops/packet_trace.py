@@ -140,16 +140,16 @@ def packet_trace_cuda(o, d, live, nodef, kleaf, tmin, tmax, *,
     if n == 0:
         return out_t, out_tri
     base = packet_bases(d, PACKET_RAYS, nodef.shape[0] // 8)
-    err = lib.rt_packet_trace(
-        o.data_ptr(), d.data_ptr(),
-        None if live_u8 is None else live_u8.data_ptr(), base.data_ptr(),
-        nodef.data_ptr(), kleaf.data_ptr(), n, kleaf.shape[2] // 4,
-        float(tmin), float(tmax), int(any_hit), int(stable),
-        out_t.data_ptr(), out_tri.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with cuda_build.on_device(dev) as stream:
+        err = lib.rt_packet_trace(
+            o.data_ptr(), d.data_ptr(),
+            None if live_u8 is None else live_u8.data_ptr(), base.data_ptr(),
+            nodef.data_ptr(), kleaf.data_ptr(), n, kleaf.shape[2] // 4,
+            float(tmin), float(tmax), int(any_hit), int(stable),
+            out_t.data_ptr(), out_tri.data_ptr(), stream)
     cuda_build.check_launch("packet_trace", err)
-    key = variant(any_hit, live is not None, stable)
-    packet_trace_cuda.launches[key] = packet_trace_cuda.launches.get(key, 0) + 1
+    cuda_build.count_launch(packet_trace_cuda,
+                            key=variant(any_hit, live is not None, stable))
     return out_t, out_tri
 
 

@@ -21,7 +21,8 @@ Each stage takes its kernel for CUDA tensors (no fallback: a failed
 launch raises) and its plain version for CPU tensors.  The plain
 versions are vectorised over slots or packets: emit is a loop over walk
 steps, refine and both pair intersections loops over word positions.
-Each kernel wrapper counts its launches in `<wrapper>.launches`.
+Each kernel wrapper launches with its tensors' device made current
+(cuda_build.on_device) and counts its launches in `<wrapper>.launches`.
 
 Word format (the compiled-TPU default, 9 tq bits): one i32 per emitted
 (leaf, slot) pair, (leaf + 1) << 17 | keepmask << 9 | tq.  keepmask has
@@ -111,10 +112,6 @@ def _lib(key: str):
     return cuda_build.load(LIBS[key])
 
 
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def _cuda_only(fn: str, x: torch.Tensor) -> torch.device:
     if x.device.type != "cuda":
         raise ValueError(f"{fn} needs CUDA tensors")
@@ -147,10 +144,12 @@ def aos_rows_cuda(o: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     chk("d", d, torch.float32, (n, 3))
     out = torch.empty(6, n, dtype=torch.float32, device=dev)
     if n:
-        cuda_build.check_launch("s3_aos_rows", _lib("transpose").rt_s3_aos_rows(
-            o.data_ptr(), d.data_ptr(), n, out.data_ptr(),
-            int(_aligned(o, d, out)), _stream(dev)))
-        aos_rows_cuda.launches += 1
+        with cuda_build.on_device(dev) as stream:
+            err = _lib("transpose").rt_s3_aos_rows(
+                o.data_ptr(), d.data_ptr(), n, out.data_ptr(),
+                int(_aligned(o, d, out)), stream)
+        cuda_build.check_launch("s3_aos_rows", err)
+        cuda_build.count_launch(aos_rows_cuda)
     return out
 
 
@@ -171,11 +170,12 @@ def transpose_cuda(src: torch.Tensor, out: torch.Tensor = None
         out = torch.empty(c, 16, dtype=torch.float32, device=dev)
     chk("out", out, torch.float32, (c, 16))
     if c:
-        cuda_build.check_launch("s3_rows16_major", _lib("transpose")
-                                .rt_s3_rows16_major(
-            src.data_ptr(), c, out.data_ptr(),
-            int(c % 4 == 0 and _aligned(src, out)), _stream(dev)))
-        transpose_cuda.launches += 1
+        with cuda_build.on_device(dev) as stream:
+            err = _lib("transpose").rt_s3_rows16_major(
+                src.data_ptr(), c, out.data_ptr(),
+                int(c % 4 == 0 and _aligned(src, out)), stream)
+        cuda_build.check_launch("s3_rows16_major", err)
+        cuda_build.count_launch(transpose_cuda)
     return out
 
 
@@ -312,12 +312,14 @@ def oscal_cuda(rows, live, npk):
     full = torch.empty(npk, 16, dtype=torch.float32, device=dev)
     bscal = torch.empty(npk * NLANES, 16, dtype=torch.float32, device=dev)
     if npk:
-        cuda_build.check_launch("s3_oscal", _lib("oscal").rt_s3_oscal(
-            *(r.data_ptr() for r in rows),
-            None if live is None else live.data_ptr(), int(npk),
-            cand.data_ptr(), present.data_ptr(), full.data_ptr(),
-            bscal.data_ptr(), _stream(dev)))
-        oscal_cuda.launches += 1
+        with cuda_build.on_device(dev) as stream:
+            err = _lib("oscal").rt_s3_oscal(
+                *(r.data_ptr() for r in rows),
+                None if live is None else live.data_ptr(), int(npk),
+                cand.data_ptr(), present.data_ptr(), full.data_ptr(),
+                bscal.data_ptr(), stream)
+        cuda_build.check_launch("s3_oscal", err)
+        cuda_build.count_launch(oscal_cuda)
     return cand, present, full, bscal
 
 
@@ -451,12 +453,14 @@ def emit_cuda(scal, smeta, bscal, nodef, tmax, step_cap, pcap):
     words = torch.empty(nslot, pcap, dtype=torch.int32, device=dev)
     emeta = torch.empty(nslot, 8, dtype=torch.int32, device=dev)
     if nslot:
-        cuda_build.check_launch("s3_emit", _lib("emit").rt_s3_emit(
-            scal.data_ptr(), smeta.data_ptr(), bscal.data_ptr(),
-            nodef.data_ptr(), nslot, nodef.shape[0], float(tmax),
-            int(step_cap), int(pcap), words.data_ptr(), emeta.data_ptr(),
-            _stream(dev)))
-        emit_cuda.launches += 1
+        with cuda_build.on_device(dev) as stream:
+            err = _lib("emit").rt_s3_emit(
+                scal.data_ptr(), smeta.data_ptr(), bscal.data_ptr(),
+                nodef.data_ptr(), nslot, nodef.shape[0], float(tmax),
+                int(step_cap), int(pcap), words.data_ptr(),
+                emeta.data_ptr(), stream)
+        cuda_build.check_launch("s3_emit", err)
+        cuda_build.count_launch(emit_cuda)
     return words, emeta
 
 
@@ -566,14 +570,17 @@ def refine_cuda(words, emeta, slot_pkt, feats_t, aabb8, tmax, pcap,
         scratch = torch.empty(wtmp + nslot + 1 + nslot * -(-pcap // 32),
                               dtype=torch.int32, device=dev)
         at = scratch.data_ptr()
-        cuda_build.check_launch("s3_refine", _lib("refine").rt_s3_refine(
-            words.data_ptr(), emeta.data_ptr(), slot_pkt.data_ptr(),
-            feats_t.data_ptr(), feats_t.shape[1], aabb8.data_ptr(), nslot,
-            int(pcap), float(tmax), int(grid), int(bool(sort)), at,
-            at + 4 * wtmp, at + 4 * (wtmp + nslot + 1), out.data_ptr(),
-            emeta_out.data_ptr(), _stream(dev)))
-        refine_cuda.launches += 1
-        refine_cuda.sort_launches += bool(sort)
+        with cuda_build.on_device(dev) as stream:
+            err = _lib("refine").rt_s3_refine(
+                words.data_ptr(), emeta.data_ptr(), slot_pkt.data_ptr(),
+                feats_t.data_ptr(), feats_t.shape[1], aabb8.data_ptr(),
+                nslot, int(pcap), float(tmax), int(grid), int(bool(sort)),
+                at, at + 4 * wtmp, at + 4 * (wtmp + nslot + 1),
+                out.data_ptr(), emeta_out.data_ptr(), stream)
+        cuda_build.check_launch("s3_refine", err)
+        cuda_build.count_launch(refine_cuda)
+        if sort:
+            cuda_build.count_launch(refine_cuda, "sort_launches")
     return out, emeta_out
 
 
@@ -584,7 +591,7 @@ refine_cuda.sort_launches = 0
 def refine_grid(dev) -> int:
     """Kernel C's default test grid on `dev`: its blocks an SM times the
     SMs."""
-    with torch.cuda.device(dev):
+    with cuda_build.on_device(dev):
         return _lib("refine").rt_s3_refine_grid()
 
 
@@ -785,15 +792,19 @@ def isect_cuda(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
               if cull and stats is not None else None)
     if nslot:
         keys = torch.empty(nslot * PKT, dtype=torch.int64, device=dev)
-        cuda_build.check_launch("s3_isect", _lib("isect").rt_s3_isect(
-            words.data_ptr(), emeta.data_ptr(), slot_pkt.data_ptr(),
-            feats.data_ptr(), kleaf.data_ptr(), nslot, int(pcap),
-            float(tmin), float(tmax), int(bool(stable)), int(bool(lean)),
-            int(bool(cull)), keys.data_ptr(), out.data_ptr(),
-            None if culled is None else culled.data_ptr(), _stream(dev)))
-        isect_cuda.launches += 1
-        isect_cuda.lean_launches += bool(lean)
-        isect_cuda.cull_launches += bool(cull)
+        with cuda_build.on_device(dev) as stream:
+            err = _lib("isect").rt_s3_isect(
+                words.data_ptr(), emeta.data_ptr(), slot_pkt.data_ptr(),
+                feats.data_ptr(), kleaf.data_ptr(), nslot, int(pcap),
+                float(tmin), float(tmax), int(bool(stable)), int(bool(lean)),
+                int(bool(cull)), keys.data_ptr(), out.data_ptr(),
+                None if culled is None else culled.data_ptr(), stream)
+        cuda_build.check_launch("s3_isect", err)
+        cuda_build.count_launch(isect_cuda)
+        if lean:
+            cuda_build.count_launch(isect_cuda, "lean_launches")
+        if cull:
+            cuda_build.count_launch(isect_cuda, "cull_launches")
     if culled is not None:
         stats["culled"] = int(culled)
     return out
@@ -880,13 +891,14 @@ def isect_occl_cuda(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
     nslot = words.shape[0]
     out = torch.empty(nslot, PKT, 4, dtype=torch.float32, device=dev)
     if nslot:
-        cuda_build.check_launch("s3_isect_occl", _lib("isect_occl")
-                                .rt_s3_isect_occl(
-            words.data_ptr(), emeta.data_ptr(), slot_pkt.data_ptr(),
-            feats.data_ptr(), kleaf.data_ptr(), nslot, int(pcap),
-            float(tmin), float(tmax), int(bool(stable)), out.data_ptr(),
-            _stream(dev)))
-        isect_occl_cuda.launches += 1
+        with cuda_build.on_device(dev) as stream:
+            err = _lib("isect_occl").rt_s3_isect_occl(
+                words.data_ptr(), emeta.data_ptr(), slot_pkt.data_ptr(),
+                feats.data_ptr(), kleaf.data_ptr(), nslot, int(pcap),
+                float(tmin), float(tmax), int(bool(stable)), out.data_ptr(),
+                stream)
+        cuda_build.check_launch("s3_isect_occl", err)
+        cuda_build.count_launch(isect_occl_cuda)
     return out
 
 

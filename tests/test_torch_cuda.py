@@ -1360,3 +1360,83 @@ def test_lbvh_on_card_bit_equal_to_cpu(cuda):
     for k in ("node_packed", "bundle_packed"):
         assert torch.equal(getattr(on_card, k).cpu().view(torch.int32),
                            getattr(on_cpu, k).view(torch.int32)), k
+
+
+def _city_on(dev, w, n_tris=100_000):
+    """bench._engine_setup's city bindings on a cut of the bench's city,
+    a w x w camera, and sample1's tracer."""
+    import bench
+    from radiance_tpu_torch.scene import bindings
+
+    verts, tris = bench.scene_geometry("city", n_tris=n_tris)
+    tris = tris.astype(np.uint32)
+    fn = np.cross(verts[tris[:, 1]] - verts[tris[:, 0]],
+                  verts[tris[:, 2]] - verts[tris[:, 0]])
+    fn /= np.maximum(np.linalg.norm(fn, axis=-1, keepdims=True), 1e-9)
+    res = bindings.make_scene_bindings(
+        [types.MeshInfo()], verts, tris, np.zeros_like(verts),
+        np.repeat(fn, 3, axis=0).astype(np.float32),
+        [types.Material(albedo=(0.7, 0.7, 0.7, 1.0), roughness=0.6)],
+        types.SceneProperties(lights=[types.DirLight(
+            direction=(0.26726124, 0.8017837, 0.5345225, 0.0),
+            color=(3.0, 3.0, 3.0, 1.0))]), device=dev)
+    res["camera"] = camera.camera_params(types.PhysicalCamera(
+        width_pixel=float(w), height_pixel=float(w), focal_length=0.035,
+        sensor_width=0.05, focal_distance=80.0, z=140.0), dev)
+    scene = _scene(types.Mesh(verts, tris)).device_scene(dev)
+    tracer = WavefrontPathTracer(
+        ray_generator=camera.physical_camera_raygen,
+        sbt=ShaderBindingTable.from_json(shaders.DEFAULT_SBT_RECORDS,
+                                         shaders.SHADER_REGISTRY))
+    return scene, res, tracer
+
+
+def test_sharded_city_frame_matches_render(cuda):
+    """render_sharded on 3 shards of one card (65,536 pixels padded to
+    65,538: shards that end inside a packet) against render: on >= 0.9999
+    of pixels the u8 image equal and accum within rtol 1e-5, atol 1e-6
+    (a tie between leaves at a packet boundary may pick another prim)."""
+    from radiance_tpu_torch.parallel import sharding
+
+    w = 256
+    scene, res, tracer = _city_on(cuda, w)
+    acc0 = torch.zeros(w * w, 3, device=cuda)
+    want = tracer.render(scene, res, acc0, 0, w, w, batch=2, depth=2)
+    mesh = sharding.make_mesh(3, devices=[cuda] * 3)
+    got = sharding.render_sharded(tracer, mesh, scene, res, acc0, 0, w, w,
+                                  batch=2, depth=2)
+    assert got[0].device == want[0].device and got[1].shape == (w, w, 4)
+    same_img = (got[1] == want[1]).all(-1).reshape(-1)
+    close = torch.isclose(got[0], want[0], rtol=1e-5, atol=1e-6).all(-1)
+    assert float((same_img & close).float().mean()) >= 0.9999
+    assert want[1][..., :3].float().std() > 1.0
+
+
+@pytest.fixture(scope="module")
+def two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("one card: the launch-device check needs two")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def test_launches_run_on_their_tensors_card(two_cards):
+    """The packet kernel and the stream3 chain through D (F, B, C, D) on
+    cuda:1 tensors, called from the main thread with cuda:0 current,
+    equal the same calls on cuda:0: each launch makes its tensors'
+    device current."""
+    tlas = _scene(_mesh(10, 3000, 8.0))
+    o, d = _rays(1, 5000, 10.0)
+    out = {}
+    with torch.cuda.device(two_cards[0]):
+        for dev in two_cards:
+            ds = tlas.device_scene(dev)
+            ot, dt = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+            rec = pk.trace_rays_packet(ds, ot, dt, 1e-3, 1e3)
+            args, _ = _card_lists(ds, ot, dt, sort=False)
+            dout = stg.isect_cuda(*args)
+            assert torch.cuda.current_device() == 0
+            torch.cuda.synchronize(dev)
+            out[dev.index] = (rec.t.cpu(), rec.prim.cpu(), dout.cpu())
+    assert float((out[0][0] < FLT_MAX).float().mean()) > 0.05
+    for a, b in zip(out[0], out[1]):
+        assert torch.equal(a, b)
