@@ -10,9 +10,10 @@ prints no result):
   1. device and toolchain: the card's name and power limit, CUDA, nvcc;
   2. build the seven kernel sources (csrc/packet_trace.cu and the stream3
      pipeline's s3_transpose.cu, s3_emit.cu, s3_refine.cu, s3_isect.cu,
-     s3_isect_occl.cu, s3_oscal.cu) with nvcc for sm_90a, one nvcc each,
-     all started together; print their registers/spills and the build
-     seconds;
+     s3_isect_occl.cu, s3_oscal.cu) with nvcc for sm_90a, one nvcc per
+     library, all started together -- the defaults and the leaf-cap and
+     tq-width variants phases [14]-[15] launch; print their
+     registers/spills and the build seconds;
   3. kernel vs its plain PyTorch version on the card, every variant, on
      64k-ray probes of the bench's three waves (primary, mirror bounce,
      shadow) and of a scattered wave over the 1M-triangle city, the
@@ -100,8 +101,8 @@ prints no result):
      the multi64 TLAS refitted under frame_tf(k) for 6 frames at
      512x512 through the engine's dispatch (the scan), each frame held
      to a fresh build (hits and instance ids); (e) its deforming mesh:
-     64,000 wobbling triangles rebuilt by the LBVH and walked for 6
-     frames at 512x512, the card's tables equal to the CPU build's bit
+     64,000 wobbling triangles rebuilt by the LBVH and walked for 3
+     frames at 512x512 (LBVH_FRAMES), the card's tables equal to the CPU build's bit
      for bit, the last frame held to a host SAH build; bench.py's
      animated metrics under its names;
  10. the TLAS-native many-instance route (stream3_multi.trace_rows_tlas)
@@ -191,7 +192,41 @@ prints no result):
      between leaves may then go the other way; the others are logged
      with their primary hits), the 2D mode accum to rtol 1e-4, atol 1e-5
      on as many, the sample-parallel mode on every pixel;
- 14. the kernels' JSON line (per kernel: the main path's launches, the
+ 14. LEAF64, the JAX package's 1M-triangle configuration
+     (chip_smoke.leaf64): the city's tables at leaf_cap 64 (leaves, MiB,
+     build seconds; past a 9-bit word's 16,382 leaves, so stream3 takes
+     it only at tq_bits 7), then, with the launch counts set to 0 just
+     before and read just after, its path: bench's three 1080p waves
+     through the packet kernel (T = 64 lanes), the tile-ordered primary
+     and its shadow wave through trace_rows_stream3(tq_bits=7), an engine
+     frame at 1920x1080 b1 d2 with tq_bits 7; each wave's packet kernel
+     (and the masked shadow) held to its plain version, timed in turns
+     with the cap-128 tables' kernel on the same rays; the cap-64 hits
+     held to the cap-128 scene's (the same geometry, other leaf frames:
+     t on |dt|/(|o|+t) with the float64 witness); B, C and D on the
+     primary and E on the shadow wave at tq 7 held to their plain
+     versions (words identical, hits to the bars) with bounds; D's ms a
+     launch at cap 64 against cap 128 on the same primary, in turns; the
+     LEAF64 engine frame's ms beside the cap-128 frame's (warm, in turns,
+     images within u8 RMSE 3.0);
+ 15. wide leaves (chip_smoke.wide_leaves): the city at leaf_cap 256 (tq
+     9), 64k-ray probes of the primary and shadow waves, driven (counts
+     reset and read) through the packet kernel and stream3, then the
+     packet kernel, D and E -- 256-lane tiles in dynamic shared memory --
+     held to their plain versions and timed beside cap 128;
+ 16. many BLASes (chip_smoke.many_blas64): bench.py --multi's scene at
+     leaf_cap 64, kleaf_cat's leaves, one native 1080p primary
+     (trace_rows_tlas, tq 7) driven and held to the scan at tq 7;
+ 17. the viewers (chip_smoke.viewers): sample1's render() callback on
+     the card at 512x512 in tools/web_viewer.render_loop_web through a
+     urllib client (GET /frame.png, its bytes encode_png of the returned
+     frame, and /state; POST a camera edit to /control, /save, /quit)
+     and in tools/viewer.render_loop with a --controls-file edit, each
+     driven; totalSamples restarts at the edit and the next frame equals
+     a fresh render_sample1 at the edited camera; then `python -m
+     radiance_tpu_torch.samples.sample1 --interactive` and `--web` (64x64,
+     2 frames) each in its own process on the card;
+ 18. the kernels' JSON line (per kernel: the main path's launches, the
      per-launch means of kernel ms, plain ms and bound and their sums,
      by scene where a kernel runs in several; A from phase 5, B and C
      also phase 5's 1080p wave, F phase 7's masked 1080p rows; each
@@ -200,7 +235,10 @@ prints no result):
      1080p waves,
      and D's bounded launch on phase 11's interior waves; rows of C's
      tq-sort form and D's lean and cull forms from phase 12), the card
-     line, and the contract's last line.
+     line, and the contract's last line; every row also carries its
+     launches in each driven path of phases [14]-[17] and its numbers at
+     cap 64 / tq 7 (`leaf64_1080p`) and on the 256-lane probe
+     (`wide256_probe`).
 
 Imports nothing of JAX or radiance_tpu (bench.py's numpy-only scene
 helpers are reused).  Needs one CUDA card; exits 2 without one.
@@ -451,63 +489,67 @@ def bound(flops, nbytes):
     return (f_ms, "operations") if f_ms > b_ms else (b_ms, "bytes")
 
 
-def pair_bound(stg, args, st, out):
+def pair_bound(stg, args, st, out, tq_bits=9):
     """Kernel D's or E's (bound, words, leaves) on one launch: the
     ray-triangle tests the function needs (the plain version's
     stats["tri_tests"]: D, the unparked rays of each kept (leaf, block)
     pair; E, each live ray not yet occluded under the reference's
     schedule; each against its leaf's triangle lanes) at 22 FMAs each,
     and the bytes of the features, the valid words, the leaves they name
-    (each once) and the output."""
+    (each once) and the output; words of tq_bits."""
     words, emeta, _, feats, kleaf = args[:5]
     cnt = torch.clamp(emeta[:, 0], max=stg.PCAP)
     valid = (torch.arange(words.shape[1], device=words.device)[None, :]
              < cnt[:, None])
     nwords = int(cnt.sum())
     nleaves = int(torch.unique(
-        (words[valid] >> stg.W_LEAF_SHIFT) - 1).numel())
+        stg.word_format(tq_bits).leaf(words[valid])).numel())
     return (bound(st["tri_tests"] * FLOPS_PER_PAIR,
                   feats.numel() * 4 + nwords * 4
                   + nleaves * kleaf[0].numel() * 4 + out.numel() * 4),
             nwords, nleaves)
 
 
-def occl_launch(stg, args, out_k=None):
+def occl_launch(stg, args, out_k=None, tq_bits=9):
     """Kernel E on one launch's arguments (stage_isect's, then pcap and
     stable) against its plain version: times (CUDA events; none if out_k,
     the kernel's output of a recorded launch, is given), the plain
     version's stats, the bound, and occluded-or-not of both with the live
     slot lanes.  trace_rows_multi parks a sub-wave's dead lanes at origin
     1e30, so the live lanes are those with a nearer object-space origin;
-    fails if a dead lane differs from the plain version."""
+    fails if a dead lane differs from the plain version.  Words of
+    tq_bits."""
     live_rows = stg.unparked(args[3])
     live = live_rows.view(-1, stg.PKT)[args[2].long()]
     ms = None
     if out_k is None:
-        ms, out_k = cuda_ms(lambda: stg.isect_occl_cuda(*args), 5)
+        ms, out_k = cuda_ms(lambda: stg.isect_occl_cuda(
+            *args, tq_bits=tq_bits), 5)
     st = {}
     plain_ms, out_p = cuda_ms(lambda: stg._isect_occl_plain(
-        *args, stats=st, live=live_rows), 1, warmup=False)
+        *args, stats=st, live=live_rows, tq_bits=tq_bits), 1, warmup=False)
     if not bool((out_k == out_p).all(dim=2)[~live].all()):
         raise AssertionError("isect_occl differs from plain on a dead lane")
-    b, nwords, nleaves = pair_bound(stg, args, st, out_k)
+    b, nwords, nleaves = pair_bound(stg, args, st, out_k, tq_bits)
     return dict(st, ms=ms, plain_ms=plain_ms, bound=b, words=nwords,
                 leaves=nleaves, live=live, occ_k=out_k[..., 0] == 0,
                 occ_p=out_p[..., 0] == 0)
 
 
-def isect_launch(stg, args, out_k=None):
+def isect_launch(stg, args, out_k=None, tq_bits=9):
     """Kernel D on one launch's arguments (stage_isect's, then pcap and
     stable) against its plain version: times (CUDA events; none if out_k,
     the kernel's output of a recorded launch, is given), the plain
-    version's stats and the bound; both outputs' t and prim ([lanes])."""
+    version's stats and the bound; both outputs' t and prim ([lanes]).
+    Words of tq_bits."""
     ms = None
     if out_k is None:
-        ms, out_k = cuda_ms(lambda: stg.isect_cuda(*args), 5)
+        ms, out_k = cuda_ms(lambda: stg.isect_cuda(*args, tq_bits=tq_bits),
+                            5)
     st = {}
-    plain_ms, out_p = cuda_ms(lambda: stg._isect_plain(*args, stats=st), 1,
-                              warmup=False)
-    b, nwords, nleaves = pair_bound(stg, args, st, out_k)
+    plain_ms, out_p = cuda_ms(lambda: stg._isect_plain(
+        *args, stats=st, tq_bits=tq_bits), 1, warmup=False)
+    b, nwords, nleaves = pair_bound(stg, args, st, out_k, tq_bits)
     return dict(st, ms=ms, plain_ms=plain_ms, bound=b, words=nwords,
                 leaves=nleaves, t_k=out_k[..., 0].reshape(-1),
                 prim_k=out_k[..., 1].reshape(-1),
@@ -629,16 +671,16 @@ def emit_bounds(stg, runs):
     return out
 
 
-def refine_bound(stg, words_in, emeta, emeta_out, pcap):
+def refine_bound(stg, words_in, emeta, emeta_out, pcap, tq_bits=9):
     """Kernel C's (bound, words, kept) on one launch: 12 FLOPs a (ray,
     word) in the 128-ray blocks the word's keep bits name (the others
     cannot change the result); a word and its 32-byte box read and a kept
     word written, 24 bytes a ray of the blocks some word of its slot
-    keeps, the slot rows."""
+    keeps, the slot rows; words of tq_bits."""
     cnt = torch.clamp(emeta[:, 0], max=pcap)
     valid = (torch.arange(words_in.shape[1], device=words_in.device)[None, :]
              < cnt[:, None])
-    keep = torch.where(valid, (words_in >> stg.W_KEEP_SHIFT) & 255, 0)
+    keep = torch.where(valid, stg.word_format(tq_bits).keep(words_in), 0)
     tests = blocks = 0
     for b in range(8):
         bit = (keep >> b) & 1
@@ -650,14 +692,15 @@ def refine_bound(stg, words_in, emeta, emeta_out, pcap):
             words, kept)
 
 
-def emit_hold(stg, args, out_k):
+def emit_hold(stg, args, out_k, tq_bits=9):
     """Kernel B's output (words, emeta) on stage_emit's arguments and
     then step_cap and pcap, against _emit_plain's: emeta identical and
     the valid words identical, else fail.  Returns (plain ms, the plain
-    walk's stats: steps and kernel B's window loads)."""
+    walk's stats: steps and kernel B's window loads).  Words of
+    tq_bits."""
     st = {}
-    p_ms, (wp, ep) = cuda_ms(lambda: stg._emit_plain(*args, stats=st), 1,
-                             warmup=False)
+    p_ms, (wp, ep) = cuda_ms(lambda: stg._emit_plain(
+        *args, stats=st, tq_bits=tq_bits), 1, warmup=False)
     wk, ek = out_k
     diff = first_word_diff(wk, wp, torch.clamp(ep[:, 0], max=args[6]))
     if not torch.equal(ek, ep) or diff is not None:
@@ -667,12 +710,12 @@ def emit_hold(stg, args, out_k):
     return p_ms, st
 
 
-def refine_hold(stg, args, out_k):
+def refine_hold(stg, args, out_k, tq_bits=9):
     """Kernel C's output (words', emeta') on stage_refine's arguments and
     then pcap, against _refine_plain's: emeta' and the kept words
-    identical, else fail.  Returns the plain ms."""
-    p_ms, (rp, rep) = cuda_ms(lambda: stg._refine_plain(*args), 1,
-                              warmup=False)
+    identical, else fail.  Returns the plain ms.  Words of tq_bits."""
+    p_ms, (rp, rep) = cuda_ms(lambda: stg._refine_plain(
+        *args, tq_bits=tq_bits), 1, warmup=False)
     rk, rek = out_k
     diff = first_word_diff(rk, rp, rep[:, 0])
     if not torch.equal(rek, rep) or diff is not None:
@@ -809,7 +852,9 @@ REFINE_ROWS = [0, 1, 2, 6, 7, 8]
 # versions (the plain walk takes about a second a launch): every
 # MULTI_HOLD_STRIDE-th, and in each wave the launch with the longest walk
 # and the launch with the longest list
-MULTI_HOLD_STRIDE = 8
+MULTI_HOLD_STRIDE = 16
+# B and C on the city frames: every CITY_HOLD_STRIDE-th launch held
+CITY_HOLD_STRIDE = 2
 # chain_summary()'s keys beyond summary()'s
 CHAIN_KEYS = ("plain_held", "words", "kept", "longest_list",
               "chunks_per_launch", "max_chunks", "longest_walk", "capped",
@@ -1597,6 +1642,8 @@ def rd_api(dev, card, verts, tris, pk, s3, s3m, stg):
 
 ANIM = 512                    # bench.py --animated: RADIANCE_ANIM_RES
 ANIM_FRAMES = 6
+LBVH_FRAMES = 3               # the deforming mesh's frames: the walk takes
+                              # ~4.7 s a 512x512 LBVH frame on the card
 WOBBLE_TRIS = 64_000          # RADIANCE_ANIM_TRIS
 MANY = 96                     # instances of sample2's torus in [9] (c)
 SOUP_RAYS = 4096
@@ -1963,10 +2010,10 @@ def walk_and_animated(dev, card, scene, verts, tris, waves, sl, mtlas, pk,
     lbvh_frame(0.0)
     torch.cuda.synchronize()
     tf0 = time.time()
-    for k in range(1, ANIM_FRAMES + 1):
+    for k in range(1, LBVH_FRAMES + 1):
         v_k, scn_k, rec = lbvh_frame(float(k))
         float(rec.t[::65536].sum())
-    dt_l = (time.time() - tf0) / ANIM_FRAMES
+    dt_l = (time.time() - tf0) / LBVH_FRAMES
     t_lb, p_lb = rec.t, rec.prim
     build_ms, _ = cuda_ms(lambda: lbvh.lbvh_scene(v_k, t_dev), 3)
     on_cpu = lbvh.lbvh_scene(v_k.cpu(), t_dev.cpu())
@@ -1975,7 +2022,7 @@ def walk_and_animated(dev, card, scene, verts, tris, waves, sl, mtlas, pk,
                            getattr(on_cpu, key).view(torch.int32)):
             raise AssertionError(f"LBVH {key} on the card differs from the "
                                  f"CPU build")
-    log(f"   LBVH tables of frame {ANIM_FRAMES} equal the CPU build's bit "
+    log(f"   LBVH tables of frame {LBVH_FRAMES} equal the CPU build's bit "
         f"for bit ({tuple(scn_k.node_packed.shape)} node rows, "
         f"{tuple(scn_k.bundle_packed.shape)} bundles)")
     vk = v_k.cpu().numpy()
@@ -1999,7 +2046,7 @@ def walk_and_animated(dev, card, scene, verts, tris, waves, sl, mtlas, pk,
         "lbvh_mrays": ANIM * ANIM / dt_l / 1e6,
         "sah_rebuild_ms_per_frame": dt_s * 1e3, "speedup": dt_s / dt_l,
         "hit_t_rmse": rmse, "hit_mismatch_frac": mismatch,
-        "lbvh_build_ms": build_ms}
+        "lbvh_build_ms": build_ms, "frames": LBVH_FRAMES}
     log(f"[9] (e) deforming mesh, {ANIM}x{ANIM} ({card}): "
         f"{json.dumps(out['deforming'])} ({time.time() - t0:.1f} s)")
     if mismatch > 1e-3:
@@ -3473,6 +3520,572 @@ def sharded_frames(dev, card, tracer, scene, res, pk, stg):
     return out
 
 
+# ---- phases 14-17: leaf cap and word width, wide leaves, viewers ----------
+
+LEAF_CAP, TQ7 = 64, 7         # the JAX package's LEAF64 configuration
+WIDE_CAP = 256                # the wide-leaf probe's cap
+VIEW_B, VIEW_D = 4, 2         # sample1's batch and depth in the viewers
+PATH_S3 = ("aos_rows", "transpose", "emit", "refine", "isect", "isect_occl",
+           "oscal")
+
+
+def drive_path(pk, stg, name, fn, need):
+    """Run fn() with the launch counts set to 0 just before and read just
+    after; fail unless every counter of `need` (launch_counts() keys)
+    moved.  Returns (fn's result, the counts)."""
+    reset_counts(pk, stg)
+    out = fn()
+    torch.cuda.synchronize()
+    counts = launch_counts(pk, stg)
+    missed = [k for k in need if counts.get(k, 0) <= 0]
+    log(f"    {name}: launches {json.dumps(counts)}")
+    if missed:
+        raise AssertionError(f"{name}: kernels of the path never launched: "
+                             f"{missed}")
+    return out, counts
+
+
+def s3_stage_inputs(s3, scene, rows, live=None):
+    """A wave's stage inputs on `scene`: prep (padded to whole groups),
+    then (feats_t, scal, smeta, bscal, slot_pkt, aabb8, padded live)."""
+    rows, live = s3._pad_wave(rows, live)
+    _, feats_t, scal, smeta, bscal, _ = s3._stage_prep(
+        rows, scene.knode_f, scene.inst_inv[0], live=live,
+        stable=scene.stable_frames)
+    return (feats_t, scal, smeta, bscal, smeta[:, 0].contiguous(),
+            s3.leaf_aabb8(scene.knode_f, scene.kleaf.shape[0]), live)
+
+
+def s3_stage_holds(name, stg, s3, scene, rows, tq_bits, card, live=None,
+                   occl=False):
+    """B, C and D (E with occl, on the refined lists) on one wave of
+    `scene` at tq_bits, each timed (CUDA events over 5 launches) and held
+    against its plain version on the same launch (B and C word for word,
+    D to the parity bars, E on occluded-or-not of live lanes), with its
+    bound.  Returns {stage key: JSON numbers}."""
+    feats_t, scal, smeta, bscal, slot_pkt, aabb8, live_p = s3_stage_inputs(
+        s3, scene, rows, live)
+    out = {}
+    ea = (scal, smeta, bscal, scene.knode_f, TMAX, stg.STEP_CAP, stg.PCAP)
+    b_ms, (wk, ek) = cuda_ms(lambda: stg.emit_cuda(*ea, tq_bits=tq_bits), 5)
+    b_plain, b_st = emit_hold(stg, ea, (wk, ek), tq_bits)
+    b_bound, steps, words = emit_bounds(stg, [(ea, ek)])[0]
+    out["emit"] = dict(ms=b_ms, plain_ms=b_plain, bound=b_bound,
+                       max_abs_err=0.0, longest_walk=b_st["max_steps"])
+    ra = (slot_pkt, feats_t, aabb8, TMAX, stg.PCAP)
+    c_ms, (rk, rek) = cuda_ms(lambda: stg.refine_cuda(
+        wk, ek, *ra, tq_bits=tq_bits), 5)
+    c_plain = refine_hold(stg, (wk, ek) + ra, (rk, rek), tq_bits)
+    c_bound, _, kept = refine_bound(stg, wk, ek, rek, stg.PCAP, tq_bits)
+    out["refine"] = dict(ms=c_ms, plain_ms=c_plain, bound=c_bound,
+                         max_abs_err=0.0)
+    feats = stg.transpose_cuda(feats_t)
+    pa = (rk, rek, slot_pkt, feats, scene.kleaf, TMIN, TMAX, stg.PCAP,
+          scene.stable_frames)
+    if occl:
+        r = occl_launch(stg, pa, tq_bits=tq_bits)
+        alive = smeta[:, 1] > 0
+        lane_live = live_p.view(-1, stg.PKT)[smeta[:, 0].long()] \
+            & alive[:, None] & r["live"]
+        res = hold_occluded(f"{name} E vs plain", r["occ_k"], r["occ_p"],
+                            lane_live)
+        out["isect_occl"] = dict(ms=r["ms"], plain_ms=r["plain_ms"],
+                                 bound=r["bound"],
+                                 max_abs_err=1.0 - res["live_agree"])
+    else:
+        r = isect_launch(stg, pa, tq_bits=tq_bits)
+        res = hold_launches(f"{name} D vs plain", [r])
+        out["isect"] = dict(ms=r["ms"], plain_ms=r["plain_ms"],
+                            bound=r["bound"], max_abs_err=res["max_abs_err"])
+    log(f"   {name} stages at tq {tq_bits} ({card}): {words} words, {steps} "
+        f"steps, {kept} kept; " + "; ".join(
+            f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.1f}, bound "
+            f"{v['bound'][0]:.4f} {v['bound'][1]})" for k, v in out.items()))
+    return out
+
+
+def frame_ms(tracer, scene, res, n, batch, depth):
+    """A warm 1080p engine frame: (host ms ending in a synchronize of the
+    second of two renders, its accum, image)."""
+    for _ in range(2):
+        t0 = time.time()
+        accum, image = tracer.render(scene, res,
+                                     torch.zeros(n, 3, device=scene.device),
+                                     0, W, H, batch=batch, depth=depth)
+        torch.cuda.synchronize()
+    return (time.time() - t0) * 1e3, accum, image
+
+
+def leaf64(dev, card, tracer, city_tlas, scene, res, verts, tris, waves,
+           hit1, pk, s3, stg):
+    """Phase 14: the JAX package's LEAF64 configuration on the city:
+    (a) the tables at leaf_cap 64 (leaves, MiB, build seconds); (b) the
+    driven path with the launch counts set to 0 just before and read just
+    after: bench's three 1080p waves through the packet kernel (T = 64),
+    the tile-ordered primary and its shadow wave through
+    trace_rows_stream3(tq_bits=7) and an engine frame at 1920x1080 b1 d2
+    with tq_bits 7; (c) each wave's packet kernel held to its plain
+    version and timed beside the cap-128 tables' kernel; the cap-64 hits
+    held to the cap-128 scene's on the same rays; (d) B, C, D on the
+    primary and E on the shadow wave at tq 7 held to their plain
+    versions, D's ms at cap 64 against cap 128 on the same primary in
+    turns; (e) the engine frame's ms beside the cap-128 frame's."""
+    n = W * H
+    out = {}
+    t0 = time.time()
+    s64 = city_tlas.device_scene(dev, leaf_cap=LEAF_CAP)
+    torch.cuda.synchronize()
+    out["build_s"] = time.time() - t0
+    nl = s64.kleaf.shape[0]
+    out.update(leaves=nl, leaves_128=int(scene.kleaf.shape[0]),
+               kleaf_mib=s64.kleaf.numel() * 4 / 2 ** 20,
+               knode_rows=int(s64.knode_f.shape[0]))
+    log(f"[14] city at leaf_cap {LEAF_CAP}: {nl} leaves (cap 128: "
+        f"{out['leaves_128']}), kleaf {tuple(s64.kleaf.shape)} "
+        f"({out['kleaf_mib']:.1f} MiB), knode_f {out['knode_rows']} rows, "
+        f"tables built in {out['build_s']:.1f} s")
+    if s3.supports(s64) or not s3.supports(s64, TQ7):
+        raise AssertionError(f"{nl} leaves: stream3 must refuse 9-bit words "
+                             f"and take 7-bit ones")
+    ref128 = {w: pk.trace_rays_packet(scene, o, d, TMIN, TMAX,
+                                      any_hit=w == "shadow")
+              for w, (o, d) in waves.items()}
+    tracer64 = dataclasses.replace(tracer, tq_bits=TQ7)
+    o1, d1 = waves["primary"]
+    so, sd = waves["shadow"]
+
+    def path():
+        recs = {w: pk.trace_rays_packet(s64, o, d, TMIN, TMAX,
+                                        any_hit=w == "shadow")
+                for w, (o, d) in waves.items()}
+        s3p = s3.trace_rows_stream3(s64, s3.rows_from_aos_fast(o1, d1), TMIN,
+                                    TMAX, with_diag=True, tq_bits=TQ7)
+        s3s = s3.trace_rows_stream3(s64, s3.rows_from_aos_fast(so, sd), TMIN,
+                                    TMAX, live=hit1, occl=True,
+                                    with_diag=True, tq_bits=TQ7)
+        frame = tracer64.render(s64, res, torch.zeros(n, 3, device=dev), 0,
+                                W, H, batch=1, depth=2)
+        return recs, s3p, s3s, frame
+
+    ((recs, (rec3, diag3), (rec_o, diag_o), (accum, image)),
+     counts) = drive_path(
+        pk, stg, "LEAF64 path", path,
+        [f"packet_trace[{v}]" for v in PATH_VARIANTS] + list(PATH_S3))
+    out["launches"] = counts
+    check_frame("LEAF64 frame", accum, image, n)
+
+    # (c) each wave's packet kernel at T = 64 against its plain version,
+    # timed beside the cap-128 tables' kernel on the same rays
+    out["waves"] = {}
+    for wave, live in (("primary", None), ("bounce", None),
+                       ("shadow", None), ("shadow", hit1)):
+        o, d = waves[wave]
+        if live is not None:        # dead lanes parked as the wrapper does
+            o = torch.where(live[:, None], o, 1e30)
+            d = torch.where(live[:, None], d, 1.0)
+        ah = wave == "shadow"
+        var = pk.variant(ah, live is not None, True)
+
+        def run(sc):
+            return lambda: pk.packet_trace_cuda(
+                o, d, live, sc.knode_f, sc.kleaf, TMIN, TMAX, any_hit=ah,
+                stable=True)
+        ms128, _ = cuda_ms(run(scene), 5)
+        ms64, (t_k, tri_k) = cuda_ms(run(s64), 5)
+        ms64b, _ = cuda_ms(run(s64), 5)
+        ms128b, _ = cuda_ms(run(scene), 5)
+        st = {}
+        p_ms, (t_p, tri_p) = cuda_ms(lambda: pk._packet_trace_reference(
+            o, d, live, s64.knode_f, s64.kleaf, TMIN, TMAX, any_hit=ah,
+            stable=True, stats=st), 1, warmup=False)
+        b = bound(st["ray_leaf_tris"] * FLOPS_PER_PAIR,
+                  n * 32 + st["node_rows"] * 64
+                  + st["leaves"] * s64.kleaf[0].numel() * 4)
+        r = judge(f"leaf64 {wave}_1080p/{var}", t_k, tri_k, t_p, tri_p, o,
+                  d, live, s64.kprim, any_hit=ah,
+                  t_scale="origin" if wave == "bounce" else "t",
+                  mesh=(verts, tris))
+        out["waves"][f"{wave}/{var}"] = dict(variant=var, ms=(ms64 + ms64b) / 2,
+                                  ms_128=(ms128 + ms128b) / 2, plain_ms=p_ms,
+                                  bound_ms=b[0], bound_by=b[1],
+                                  max_abs_err=r["max_abs_err"], walk=st)
+        log(f"   LEAF64 {wave}/{var} 1080p packet kernel ({card}): cap 64 "
+            f"{ms64:.3f}, {ms64b:.3f} ms; cap 128 {ms128:.3f}, {ms128b:.3f} "
+            f"ms (in turns); plain {p_ms:.1f} ms; bound {b[0]:.4f} ms "
+            f"({b[1]}); walk {json.dumps(st)}")
+
+    # the cap-64 hits against the cap-128 scene's on the same rays: the
+    # same geometry (prim ids are the mesh's), but other leaves, so other
+    # leaf frames (centroids): each table's t carries its own |o| * eps
+    # (PERF.md section 2), so t is held on |dt| / (|o| + t), with the
+    # float64 witness
+    prim_id = torch.arange(len(tris), device=dev, dtype=torch.int32)
+    for wave in ("primary", "bounce"):
+        o, d = waves[wave]
+        judge(f"cap 64 vs cap 128 {wave}", recs[wave].t, recs[wave].prim,
+              ref128[wave].t, ref128[wave].prim, o, d, None, prim_id,
+              any_hit=False, t_scale="origin", mesh=(verts, tris))
+    hold_occluded("cap 64 vs cap 128 shadow", recs["shadow"].hit,
+                  ref128["shadow"].hit,
+                  torch.ones(n, dtype=torch.bool, device=dev))
+    hold_prims("LEAF64 stream3 primary (tq 7) vs the packet kernel",
+               rec3.t, rec3.prim, recs["primary"].t, recs["primary"].prim)
+    a_s = pk.trace_rays_packet(s64, so, sd, TMIN, TMAX, any_hit=True,
+                               live=hit1)
+    hold_occluded("LEAF64 stream3 shadow (tq 7) vs packet any-hit",
+                  rec_o.hit, a_s.hit, hit1)
+    out["stream3_diag"] = {k: int(v) for k, v in diag3.items()
+                           if k in ("words", "kept_words", "steps", "capped",
+                                    "flagged", "residual_rays")}
+    out["stream3_shadow_diag"] = {
+        k: int(v) for k, v in diag_o.items()
+        if k in ("words", "kept_words", "steps", "capped", "flagged",
+                 "residual_rays")}
+    w64, _ = cuda_ms(lambda: s3.trace_rows_stream3(
+        s64, s3.rows_from_aos_fast(o1, d1), TMIN, TMAX, tq_bits=TQ7), 5)
+    w128, _ = cuda_ms(lambda: s3.trace_rows_stream3(
+        scene, s3.rows_from_aos_fast(o1, d1), TMIN, TMAX), 5)
+    out["stream3_wave_ms"], out["stream3_wave_ms_128"] = w64, w128
+    log(f"   LEAF64 stream3 primary 1080p ({card}): {w64:.3f} ms a wave "
+        f"(cap 128, tq 9: {w128:.3f}); diag {json.dumps(out['stream3_diag'])}"
+        f"; shadow diag {json.dumps(out['stream3_shadow_diag'])}")
+
+    # (d) B, C, D on the primary and E on the shadow wave at tq 7; D at cap
+    # 64 against cap 128 on the same primary, in turns
+    out["stages"] = s3_stage_holds("LEAF64 primary", stg, s3, s64,
+                                   s3.rows_from_aos_fast(o1, d1), TQ7, card)
+    out["shadow_stages"] = s3_stage_holds(
+        "LEAF64 shadow", stg, s3, s64,
+        s3.park_dead(s3.rows_from_aos_fast(so, sd), hit1), TQ7, card,
+        live=hit1, occl=True)
+    d_ms = {}
+    for sc, bits in ((scene, 9), (s64, TQ7)):
+        feats_t, scal, smeta, bscal, slot_pkt, aabb8, _ = s3_stage_inputs(
+            s3, sc, s3.rows_from_aos_fast(o1, d1))
+        wk, ek = stg.emit_cuda(scal, smeta, bscal, sc.knode_f, TMAX,
+                               stg.STEP_CAP, stg.PCAP, tq_bits=bits)
+        rk, rek = stg.refine_cuda(wk, ek, slot_pkt, feats_t, aabb8, TMAX,
+                                  stg.PCAP, tq_bits=bits)
+        d_ms[sc.leaf_cap] = (rk, rek, slot_pkt, stg.transpose_cuda(feats_t),
+                             sc.kleaf, TMIN, TMAX, stg.PCAP,
+                             sc.stable_frames), bits, int(rek[:, 0].sum())
+    turns = []
+    for cap in (128, 64, 64, 128):
+        args, bits, _ = d_ms[cap]
+        turns.append((cap, cuda_ms(lambda: stg.isect_cuda(
+            *args, tq_bits=bits), 5)[0]))
+    out["d_ms_64"] = sum(m for c, m in turns if c == 64) / 2
+    out["d_ms_128"] = sum(m for c, m in turns if c == 128) / 2
+    log(f"   D per launch on the 1080p primary ({card}), in turns "
+        f"{json.dumps(turns)}: cap 64 {out['d_ms_64']:.3f} ms over "
+        f"{d_ms[64][2]} kept words, cap 128 {out['d_ms_128']:.3f} ms over "
+        f"{d_ms[128][2]} (the JAX package's offline price of cap 64: -26% "
+        f"tile work, +20% emit iterations)")
+    del d_ms, turns
+
+    # (e) engine frames: cap 64 / tq 7 against cap 128 / tq 9, warm
+    ms128, _, img128 = frame_ms(tracer, scene, res, n, 1, 2)
+    ms64, _, img64 = frame_ms(tracer64, s64, res, n, 1, 2)
+    ms64b, _, _ = frame_ms(tracer64, s64, res, n, 1, 2)
+    ms128b, _, _ = frame_ms(tracer, scene, res, n, 1, 2)
+    rmse = float((img64[..., :3].float() - img128[..., :3].float())
+                 .pow(2).mean().sqrt())
+    out["frame_ms"] = (ms64 + ms64b) / 2
+    out["frame_ms_128"] = (ms128 + ms128b) / 2
+    out["frame_rmse_vs_128"] = rmse
+    log(f"[14] LEAF64 engine frame 1920x1080 b1 d2 ({card}): cap 64 / tq 7 "
+        f"{ms64:.1f}, {ms64b:.1f} ms; cap 128 / tq 9 {ms128:.1f}, "
+        f"{ms128b:.1f} ms (warm, in turns); u8 RMSE between the images "
+        f"{rmse:.4f}")
+    if rmse >= 3.0:
+        raise AssertionError(f"LEAF64 frame differs from cap 128: {rmse}")
+    return out
+
+
+def wide_leaves(dev, card, city_tlas, scene, waves, hit1, sl, pk, s3, stg):
+    """Phase 15: the city at leaf_cap 256 (tq 9), 64k-ray probes of the
+    primary and shadow waves: the driven probe (counts set to 0 just
+    before, read just after) through the packet kernel (closest, any-hit)
+    and stream3 (D, and E on the shadow probe), then the packet kernel,
+    D and E -- the 256-lane tile in dynamic shared memory -- held to
+    their plain versions and timed beside the cap-128 tables'."""
+    out = {}
+    t0 = time.time()
+    s256 = city_tlas.device_scene(dev, leaf_cap=WIDE_CAP)
+    torch.cuda.synchronize()
+    out.update(build_s=time.time() - t0, leaves=int(s256.kleaf.shape[0]),
+               kleaf_mib=s256.kleaf.numel() * 4 / 2 ** 20)
+    log(f"[15] city at leaf_cap {WIDE_CAP}: {out['leaves']} leaves, kleaf "
+        f"{tuple(s256.kleaf.shape)} ({out['kleaf_mib']:.1f} MiB), built in "
+        f"{out['build_s']:.1f} s")
+    po, pd = (x[sl].contiguous() for x in waves["primary"])
+    so, sd = (x[sl].contiguous() for x in waves["shadow"])
+    live = hit1[sl].contiguous()
+
+    def path():
+        pk.trace_rays_packet(s256, po, pd, TMIN, TMAX)
+        pk.trace_rays_packet(s256, so, sd, TMIN, TMAX, any_hit=True)
+        s3.trace_rows_stream3(s256, s3.rows_from_aos_fast(po, pd), TMIN,
+                              TMAX)
+        s3.trace_rows_stream3(s256, s3.rows_from_aos_fast(so, sd), TMIN,
+                              TMAX, live=live, occl=True)
+
+    _, out["launches"] = drive_path(
+        pk, stg, "wide-leaf probe", path,
+        ["packet_trace[closest]", "packet_trace[any_hit]"] + list(PATH_S3))
+    out["packet"] = {}
+    for wave, (o, d), ah in (("primary", (po, pd), False),
+                             ("shadow", (so, sd), True)):
+        r = compare(f"wide{WIDE_CAP} {wave}", pk, o, d, None, s256.knode_f,
+                    s256.kleaf, s256.kprim, any_hit=ah, stable=True)
+
+        def run(sc):
+            return lambda: pk.packet_trace_cuda(
+                o, d, None, sc.knode_f, sc.kleaf, TMIN, TMAX, any_hit=ah,
+                stable=True)
+        ms = cuda_ms(run(s256), 10)[0]
+        ms128 = cuda_ms(run(scene), 10)[0]
+        out["packet"][wave] = dict(ms=ms, ms_128=ms128,
+                                   max_abs_err=r["max_abs_err"])
+        log(f"   packet kernel on the {wave} probe ({card}): cap "
+            f"{WIDE_CAP} {ms:.4f} ms, cap 128 {ms128:.4f} ms")
+    out["stages"] = s3_stage_holds(f"wide{WIDE_CAP} primary probe", stg, s3,
+                                   s256, s3.rows_from_aos_fast(po, pd), 9,
+                                   card)
+    out["shadow_stages"] = s3_stage_holds(
+        f"wide{WIDE_CAP} shadow probe", stg, s3, s256,
+        s3.park_dead(s3.rows_from_aos_fast(so, sd), live), 9, card,
+        live=live, occl=True)
+    return out
+
+
+def many_blas64(dev, card, pk, s3m, stg):
+    """Phase 16: bench.py --multi's 64-instance scene built at leaf_cap
+    64: the concatenated tables' leaves (past the 9-bit reach), then one
+    native 1080p primary (trace_rows_tlas at tq 7), driven (counts set to
+    0 just before, read just after), held to the instance scan at tq 7
+    and timed beside it."""
+    out = {}
+    n = W * H
+    _, _, mtlas = multi64_scene(dev, W, H)
+    t0 = time.time()
+    m64 = mtlas.device_scene(dev, leaf_cap=LEAF_CAP)
+    mt = s3m.multi_tables(m64)
+    torch.cuda.synchronize()
+    out.update(build_s=time.time() - t0,
+               leaves=int(mt.kleaf_cat.shape[0]),
+               native_9=s3m.supports_native(mt),
+               native_7=s3m.supports_native(mt, TQ7))
+    log(f"[16] multi64 at leaf_cap {LEAF_CAP}: kleaf_cat "
+        f"{tuple(mt.kleaf_cat.shape)} ({out['leaves']} leaves), tables in "
+        f"{out['build_s']:.1f} s; native route at tq 9 "
+        f"{out['native_9']}, at tq 7 {out['native_7']}")
+    if not out["native_7"]:
+        raise AssertionError("the native route refuses multi64 at tq 7")
+    o1, d1 = camera_rays(dev, W, H)
+    rows = s3m.s3.rows_from_aos_fast(o1, d1)
+    (rec, diag), out["launches"] = drive_path(
+        pk, stg, "multi64 LEAF64 native primary",
+        lambda: s3m.trace_rows_tlas(m64, mt, rows, TMIN, TMAX, tq_bits=TQ7,
+                                    with_diag=True),
+        ["emit", "refine", "isect", "oscal", "transpose"])
+    scan = s3m.trace_rows_multi(m64, mt, rows, TMIN, TMAX, tq_bits=TQ7)
+    res = hold_prims("multi64 LEAF64 native vs scan", rec.t, rec.prim,
+                     scan.t, scan.prim)
+    both = rec.hit & scan.hit
+    out["slot_agree"] = float((rec.slot == scan.slot)[both].float().mean())
+    if out["slot_agree"] < BARS["prim"]:
+        raise AssertionError(f"multi64 LEAF64 slots: {out['slot_agree']}")
+    out["native_ms"] = cuda_ms(lambda: s3m.trace_rows_tlas(
+        m64, mt, rows, TMIN, TMAX, tq_bits=TQ7), 3)[0]
+    out["scan_ms"] = cuda_ms(lambda: s3m.trace_rows_multi(
+        m64, mt, rows, TMIN, TMAX, tq_bits=TQ7), 1)[0]
+    out["diag"] = diag
+    out["max_abs_err"] = res["max_abs_err"]
+    log(f"[16] multi64 LEAF64 native 1080p primary ({card}): "
+        f"{out['native_ms']:.3f} ms ({n / out['native_ms'] / 1e3:.2f} "
+        f"Mrays/s) vs the scan {out['scan_ms']:.3f} ms; slot agreement "
+        f"{out['slot_agree']:.7f}; diag {json.dumps(diag)}")
+    return out
+
+
+def _http(url, payload=None, method="GET"):
+    """One client call with its own timeout: (status, headers, body)."""
+    import urllib.request
+    data = None if method == "GET" else (
+        json.dumps(payload).encode() if payload is not None else b"")
+    req = urllib.request.Request(url, data=data, method=method)
+    with urllib.request.urlopen(req, timeout=30) as r:
+        return r.status, dict(r.headers), r.read()
+
+
+def viewers(dev, card, pk, stg):
+    """Phase 17: sample1's render() callback on the card in both viewer
+    loops at 512x512 (batch VIEW_B, depth VIEW_D), each driven (counts
+    set to 0 just before, read just after).  The web loop
+    (tools/web_viewer.render_loop_web) through a urllib client: GET
+    /frame.png (its bytes equal to utils/image.encode_png of the frame
+    the loop rendered: no PIL) and /state, POST a camera edit to /control,
+    /save, /quit.  The terminal loop (tools/viewer.render_loop) with a
+    --controls-file edit written after its second frame.  In both
+    totalSamples restarts at the edit, and the first frame after it
+    equals a fresh render_sample1 at the edited camera (no further from
+    it than two fresh renders are from each other)."""
+    import threading
+    import urllib.error
+    from radiance_tpu_torch.samples import sample1
+    from radiance_tpu_torch.tools import viewer
+    from radiance_tpu_torch.utils import image as image_io
+
+    out = {}
+    cam = sample1.sample1_camera(CW, CW)
+    cam.x = 0.3
+    tmp = tempfile.mkdtemp(prefix="viewers_")
+    fresh = [sample1.render_sample1(CW, CW, VIEW_B, VIEW_D, 1, camera=cam,
+                                    out=os.path.join(tmp, f"fresh{i}.png"))
+             for i in range(2)]
+    d_fresh = int(np.abs(fresh[0].astype(int) - fresh[1]).max())
+
+    def recorder(s1, frames, edits):
+        plain_render, plain_apply = s1.render_frame, s1.apply_controls
+
+        def render(data):
+            t0 = time.time()
+            img = plain_render(data)
+            frames.append((s1.total_samples(), img.copy(),
+                           (time.time() - t0) * 1e3))
+            return img
+
+        def apply(updates):
+            edits.append(len(frames))
+            plain_apply(updates)
+
+        s1.render_frame, s1.apply_controls = render, apply
+
+    def hold_edit(name, frames, edits):
+        k = edits[-1]
+        if not (k > 0 and frames[k][0] == VIEW_B
+                and frames[k - 1][0] == k * VIEW_B):
+            raise AssertionError(f"{name}: totalSamples did not restart at "
+                                 f"the edit: {[f[0] for f in frames]}")
+        d_edit = int(np.abs(frames[k][1].astype(int) - fresh[0]).max())
+        log(f"   {name}: edit before frame {k}, totalSamples "
+            f"{[f[0] for f in frames]}; frame after the edit vs a fresh "
+            f"render max |du8| {d_edit} (fresh vs fresh {d_fresh}); frame "
+            f"ms {', '.join(f'{f[2]:.1f}' for f in frames)}")
+        if d_edit > d_fresh:
+            raise AssertionError(f"{name}: the frame after the edit differs "
+                                 f"from a fresh render ({d_edit} > "
+                                 f"{d_fresh})")
+        return dict(frames=len(frames), edit_before=k, d_edit=d_edit,
+                    d_fresh=d_fresh,
+                    frame_ms=[f[2] for f in frames])
+
+    # the web loop
+    s1 = sample1.Sample1(CW, CW, VIEW_B, VIEW_D)
+    frames, edits, box = [], [], {}
+    recorder(s1, frames, edits)
+    ready = threading.Event()
+
+    def on_start(addr):
+        box["addr"] = addr
+        ready.set()
+
+    def web():
+        box["last"] = sample1.run_viewer(
+            s1, web=True, frames=0, out=os.path.join(tmp, "web.png"),
+            web_port=0, on_start=on_start)
+
+    def web_path():
+        t = threading.Thread(target=web, daemon=True)
+        t.start()
+        if not ready.wait(60):
+            raise AssertionError("the web viewer did not start")
+        base = "http://%s:%d" % box["addr"]
+        _, _, page = _http(base + "/")
+        for _ in range(1500):
+            try:
+                st, hdrs, png = _http(base + "/frame.png")
+                if st == 200 and png:
+                    break
+            except urllib.error.HTTPError:      # 503 before the first frame
+                pass
+            time.sleep(0.02)
+        fid = int(hdrs["X-Frame-Id"])
+        if png != image_io.encode_png(frames[fid - 1][1]):
+            raise AssertionError("/frame.png is not encode_png of the frame")
+        state = json.loads(_http(base + "/state")[2])
+        _http(base + "/control", {"camera.x": 0.3}, "POST")
+        for _ in range(3000):
+            if edits and len(frames) > edits[0]:
+                break
+            time.sleep(0.02)
+        n0 = len(os.listdir(tmp))
+        _http(base + "/save", None, "POST")
+        for _ in range(3000):
+            if len(os.listdir(tmp)) > n0:
+                break
+            time.sleep(0.02)
+        saved = len(os.listdir(tmp)) > n0
+        _http(base + "/quit", None, "POST")
+        t.join(120)
+        if t.is_alive() or not saved or b"inspector" not in page:
+            raise AssertionError(f"web viewer: alive {t.is_alive()}, saved "
+                                 f"{saved}")
+        return state
+
+    state, out["web_launches"] = drive_path(
+        pk, stg, "sample1 --web", web_path,
+        ["packet_trace[closest]", "packet_trace[any_hit]"])
+    out["web"] = hold_edit("web viewer", frames, edits)
+    out["web"]["state_controls"] = state["controls"]
+
+    # the terminal loop with a watched controls file
+    s1 = sample1.Sample1(CW, CW, VIEW_B, VIEW_D)
+    frames, edits = [], []
+    recorder(s1, frames, edits)
+    ctl = os.path.join(tmp, "controls.json")
+    rec_render = s1.render_frame
+
+    def render(data):
+        img = rec_render(data)
+        if len(frames) == 2:
+            with open(ctl, "w") as f:
+                json.dump({"camera.x": 0.3}, f)
+        return img
+
+    s1.render_frame = render
+    _, out["file_launches"] = drive_path(
+        pk, stg, "sample1 --interactive --controls-file",
+        lambda: sample1.run_viewer(s1, web=False, frames=4,
+                                   out=os.path.join(tmp, "file.png"),
+                                   controls_file=ctl, use_stdin=False),
+        ["packet_trace[closest]", "packet_trace[any_hit]"])
+    out["file"] = hold_edit("controls-file viewer", frames, edits)
+    log(f"[17] viewers ({card}): web {json.dumps(out['web'])}; file "
+        f"{json.dumps(out['file'])}")
+
+    # the command lines themselves, on the card, in their own processes
+    # (stdin closed; the web loop on a free port ends after its frames)
+    out["cli"] = {}
+    for flag in ("--interactive", "--web"):
+        png = os.path.join(tmp, f"cli{flag}.png")
+        t0 = time.time()
+        r = subprocess.run(
+            [sys.executable, "-m", "radiance_tpu_torch.samples.sample1",
+             flag, "--width", "64", "--height", "64", "--batch", "1",
+             "--depth", "1", "--frames", "2", "--web-port", "0", "--out",
+             png], cwd=tmp, stdin=subprocess.DEVNULL, capture_output=True,
+            text=True, timeout=600, env=dict(os.environ, PYTHONPATH=ROOT))
+        out["cli"][flag] = dict(rc=r.returncode, s=time.time() - t0)
+        log(f"   sample1 {flag} --frames 2 (its own process, {card}): rc "
+            f"{r.returncode} in {out['cli'][flag]['s']:.1f} s; "
+            f"{r.stdout.strip().splitlines()[-1:]}")
+        if r.returncode != 0 or not os.path.exists(png):
+            raise AssertionError(f"sample1 {flag} failed: {r.stderr[-2000:]}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3510,8 +4123,13 @@ def main() -> int:
 
     # ---- 2. build ----------------------------------------------------
     t0 = time.time()
-    cuda_build.load_all([pk.KERNEL, *stg.LIBS.values()])
-    log(f"[2] seven kernel sources built in parallel and loaded in "
+    libs = list(dict.fromkeys([
+        pk.KERNEL, pk.kernel_spec(WIDE_CAP), *stg.variant_libs(),
+        *stg.variant_libs(LEAF_CAP, TQ7), *stg.variant_libs(WIDE_CAP, 9)]))
+    cuda_build.load_all(libs)
+    log(f"[2] seven kernel sources built as {len(libs)} libraries (the "
+        f"defaults; B-E at leaf cap {LEAF_CAP} / tq {TQ7}, D, E and the "
+        f"packet kernel at {WIDE_CAP} lanes) in parallel and loaded in "
         f"{time.time() - t0:.1f} s: {' '.join(cuda_build.NVCC_FLAGS)}")
     for name, info in cuda_build.BUILD_INFO.items():
         log(f"    {name}: {info['seconds']:.1f} s, "
@@ -3528,6 +4146,7 @@ def main() -> int:
         [types.Instance(np.eye(4, dtype=np.float32), 0, 0, blas)])
     t_bvh = time.time() - t0
     scene = tlas.device_scene(dev)
+    city_tlas = tlas
     torch.cuda.synchronize()
     log(f"[3] city: {len(tris)} tris, BVH {t_bvh:.1f} s, tables "
         f"{time.time() - t0 - t_bvh:.1f} s; knode_f "
@@ -4019,7 +4638,8 @@ def main() -> int:
     # version on its recorded arguments
     t1 = time.time()
     bc_city = chain_launches(stg, main_calls, main_ms, "city",
-                             lambda rows: range(len(rows)))
+                             lambda rows: range(0, len(rows),
+                                                CITY_HOLD_STRIDE))
     if any(len(bc_city[k]) != city_s3[k] for k in bc_city):
         raise AssertionError("B, C: recorded and counted launches differ")
     log(f"    B's and C's plain runs on the city launches in "
@@ -4405,7 +5025,30 @@ def main() -> int:
     shard = sharded_frames(dev, card, tracer, scene, res, pk, stg)
     log(f"[13] done in {time.time() - t0:.1f} s")
 
-    # ---- 14. results -------------------------------------------------
+    # ---- 14. LEAF64: leaf cap 64, 7-bit words ------------------------
+    t0 = time.time()
+    l64 = leaf64(dev, card, tracer, city_tlas, scene, res, verts, tris,
+                 waves, hit1, pk, s3, stg)
+    log(f"[14] done in {time.time() - t0:.1f} s")
+
+    # ---- 15. wide leaves ---------------------------------------------
+    t0 = time.time()
+    wide = wide_leaves(dev, card, city_tlas, scene, waves, hit1, sl, pk, s3,
+                       stg)
+    del city_tlas
+    log(f"[15] done in {time.time() - t0:.1f} s")
+
+    # ---- 16. many BLASes at leaf cap 64 ------------------------------
+    t0 = time.time()
+    mb64 = many_blas64(dev, card, pk, s3m, stg)
+    log(f"[16] done in {time.time() - t0:.1f} s")
+
+    # ---- 17. the viewers ---------------------------------------------
+    t0 = time.time()
+    views = viewers(dev, card, pk, stg)
+    log(f"[17] done in {time.time() - t0:.1f} s")
+
+    # ---- 18. results -------------------------------------------------
     # per kernel: the main path's launches (the packet kernel: the city
     # frames and sample1; B, C, D and F: the city frames and the
     # 64-instance frame; E: the 64-instance frame), each timed on its own
@@ -4527,6 +5170,55 @@ def main() -> int:
             "forms_1080p": {w: {k: v for k, v in fs.items()
                                 if k.startswith(key.split("[")[0])}
                             for w, fs in order["forms"].items()}})
+    # phases [14]-[17]: each row's launches in each driven path, and its
+    # numbers at leaf cap 64 / tq 7 (the 1080p waves: [14] (c), (d)) and
+    # on the 256-lane probe ([15])
+    count_keys = {f"packet_trace[{v}]": (f"packet_trace[{v}]",)
+                  for v in PATH_VARIANTS}
+    count_keys.update({name: (key,) + (("aos_rows",) if key == "transpose"
+                                       else ())
+                       for key, (name, _, _) in S3_KERNELS.items()})
+    count_keys.update({name: (key,) for name, (key, _, _)
+                       in ORDER_FORMS.items()})
+    paths = {"leaf64_launches": l64["launches"],
+             "wide256_launches": wide["launches"],
+             "multi64_leaf64_launches": mb64["launches"],
+             "viewer_web_launches": views["web_launches"],
+             "viewer_file_launches": views["file_launches"]}
+    pk_waves = {"closest": ("primary/closest", "bounce/closest"),
+                "any_hit": ("shadow/any_hit",),
+                "masked_any_hit": ("shadow/masked_any_hit",)}
+    for row in kernels:
+        for k, counts in paths.items():
+            row[k] = sum(counts.get(c, 0) for c in count_keys[row["name"]])
+        key = next((k for k, (name, _, _) in S3_KERNELS.items()
+                    if name == row["name"]), None)
+        if row["name"].startswith("packet_trace["):
+            var = row["name"][len("packet_trace["):-1]
+            row["leaf64_1080p"] = {w: l64["waves"][w]
+                                   for w in pk_waves[var]}
+            probe = {"closest": "primary", "any_hit": "shadow"}.get(var)
+            if probe:
+                row["wide256_probe"] = wide["packet"][probe]
+        elif key in ("emit", "refine", "isect", "isect_occl"):
+            # B and C: the primary's launch; E: the shadow wave's
+            for name, ph in (("leaf64_1080p", l64), ("wide256_probe", wide)):
+                st = ph["shadow_stages" if key == "isect_occl"
+                        else "stages"][key]
+                row[name] = dict({k: v for k, v in st.items()
+                                  if k != "bound"}, bound_ms=st["bound"][0],
+                                 bound_by=st["bound"][1])
+            if key == "isect":
+                row["leaf64_1080p"].update(d_ms_in_turns=l64["d_ms_64"],
+                                           d_ms_cap128=l64["d_ms_128"])
+    log(f"[14] metrics: " + json.dumps(
+        {k: v for k, v in l64.items()
+         if k not in ("launches", "stages", "shadow_stages")}))
+    log(f"[15] metrics: " + json.dumps(
+        {k: v for k, v in wide.items()
+         if k not in ("launches", "stages", "shadow_stages")}))
+    log(f"[16] metrics: " + json.dumps(
+        {k: v for k, v in mb64.items() if k != "launches"}))
     log(f"[10] metrics: {json.dumps({k: v for k, v in tlas.items() if k not in ('launches', 'held')})}")
     log(f"[11] metrics: "
         f"{json.dumps({k: v for k, v in tbound.items() if k != 'launches'})}")

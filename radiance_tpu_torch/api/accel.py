@@ -71,11 +71,13 @@ class TopAccelStruct:
         return self._blob
 
     def device_scene(self, device=rdevice.DEFAULT, *,
-                     stable_frames: bool = True) -> bvh_device.DeviceScene:
+                     stable_frames: bool = True,
+                     leaf_cap: int = 128) -> bvh_device.DeviceScene:
         """The DeviceScene with its tensors on `device` (built once per
-        device and frame mode)."""
+        device, frame mode and leaf cap: triangles per kernel leaf, a
+        multiple of 32 in [32, 512], bvh_device.build_device_scene)."""
         device = rdevice.resolve(device)
-        key = (str(device), stable_frames)
+        key = (str(device), stable_frames, leaf_cap)
         if key not in self._scenes:
             blas_by_offset = self._parsed_blas or {
                 off: (b.nodes, b.faces, b.vertices)
@@ -83,7 +85,7 @@ class TopAccelStruct:
             self._scenes[key] = bvh_device.build_device_scene(
                 self.nodes, self.instances, blas_by_offset,
                 tlas_capacity=self.tlas_capacity,
-                stable_frames=stable_frames, device=device)
+                stable_frames=stable_frames, leaf_cap=leaf_cap, device=device)
             # where the build put each BLAS: its instances' root rows
             blas_at = dict(self.blas_offsets)
             self._blas_roots[key] = {

@@ -74,6 +74,9 @@ class DeviceScene:
     # frame mode of the BUILT kernel tables: True = leaf-local moments +
     # centroid rows.  Tracers take the kernel variant from here.
     stable_frames: bool = False
+    # triangles per kernel leaf of every BLAS's tables (the collapse cap;
+    # kleaf is [Nl, 16, 4 * leaf_cap])
+    leaf_cap: int = 128
     # the instance scan's tables (ops/stream3_multi.MultiTables), built at
     # the scene's first many-instance trace by stream3_multi.multi_tables
     multi: Optional[object] = dataclasses.field(default=None, repr=False)
@@ -254,15 +257,18 @@ def build_scene_arrays(tlas_nodes: np.ndarray,
                        blas_by_offset: dict,
                        leaf_width: int = config.LEAF_WIDTH,
                        tlas_capacity: int = 0,
-                       stable_frames: bool = True) -> Dict:
+                       stable_frames: bool = True,
+                       leaf_cap: int = 128) -> Dict:
     """The numpy half of build_device_scene: every table as an array.
 
     Returns a dict with the DeviceScene's array fields plus kblas (a
-    tuple of per-BLAS table dicts or None), inst_kblas and
-    stable_frames.
+    tuple of per-BLAS table dicts or None), inst_kblas, stable_frames
+    and leaf_cap (the collapse cap every BLAS's tables share, as the JAX
+    package's import-time RADIANCE_LEAF_CAP does).
     """
     from radiance_tpu_torch.bvh import kernel_pack
 
+    leaf_cap = kernel_pack.check_leaf_cap(leaf_cap)
     tlas = _tlas_tree(tlas_nodes, leaf_width, tlas_capacity)
 
     all_v0, all_e1, all_e2, all_prim = [], [], [], []
@@ -284,7 +290,7 @@ def build_scene_arrays(tlas_nodes: np.ndarray,
             # start indices
             kt = kernel_pack.build_kernel_tables(
                 t.kind, t.a, t.b, t.bot, t.top, faces, verts3,
-                stable=stable_frames)
+                stable=stable_frames, leaf_cap=leaf_cap)
             kblas_by_offset[off] = kt
             if kt is None:
                 want_ktables = False  # one oversized BLAS disables all
@@ -361,6 +367,7 @@ def build_scene_arrays(tlas_nodes: np.ndarray,
             bool(ktables["stable"]) if ktables is not None
             else (bool(next(iter(kblas_by_offset.values()))["stable"])
                   if want_ktables and kblas_by_offset else False)),
+        leaf_cap=leaf_cap,
     )
     for k in ("knode_f", "kleaf", "kprim", "ktri_geo"):
         out[k] = None if ktables is None else ktables[k]
@@ -390,9 +397,13 @@ def scene_from_numpy(arrays: Mapping, stable_frames: bool,
     DeviceScene's fields (np.asarray of each; extra fields such as
     node_min are ignored) or build_scene_arrays' output.  kblas may be
     a tuple of 4-tuples (the JAX layout) or of table dicts; inst_kblas a
-    tuple of ints or None.  This is how the two packages are made to hold
-    the same scene state.
+    tuple of ints or None.  The leaf cap is the tables' own (kleaf's
+    width over 4, the single-instance or the first BLAS's), 128 where
+    there are none.  This is how the two packages are made to hold the
+    same scene state.
     """
+    from radiance_tpu_torch.bvh import kernel_pack
+
     fields = {k: _tensor(arrays.get(k), device) for k in _ARRAY_FIELDS}
     kblas = arrays.get("kblas")
     if kblas is not None:
@@ -400,12 +411,20 @@ def scene_from_numpy(arrays: Mapping, stable_frames: bool,
             tuple(_tensor(e[k] if isinstance(e, Mapping) else e[i], device)
                   for i, k in enumerate(_KBLAS_FIELDS))
             for e in kblas)
+    widths = {int(kl.shape[2]) // 4 for kl in
+              ([fields["kleaf"]] if fields["kleaf"] is not None else [])
+              + [e[1] for e in kblas or ()]}
+    if len(widths) > 1:
+        raise ValueError(f"kernel tables of leaf widths {sorted(widths)}: "
+                         f"every BLAS of a scene shares one leaf cap")
     inst_kblas = arrays.get("inst_kblas")
     return DeviceScene(
         **fields, kblas=kblas,
         inst_kblas=None if inst_kblas is None else tuple(
             int(i) for i in inst_kblas),
-        stable_frames=bool(stable_frames))
+        stable_frames=bool(stable_frames),
+        leaf_cap=kernel_pack.check_leaf_cap(
+            widths.pop() if widths else kernel_pack.KERNEL_MAX_TRIS))
 
 
 def update_tlas(scene: DeviceScene, tlas_nodes: np.ndarray,
@@ -452,6 +471,7 @@ def build_device_scene(tlas_nodes: np.ndarray,
                        leaf_width: int = config.LEAF_WIDTH,
                        tlas_capacity: int = 0,
                        *, stable_frames: bool = True,
+                       leaf_cap: int = 128,
                        device=rdevice.DEFAULT) -> DeviceScene:
     """Assemble the DeviceScene from parsed/built host arrays.
 
@@ -460,17 +480,20 @@ def build_device_scene(tlas_nodes: np.ndarray,
     blas_by_offset: {byteOffset: (nodes, faces, verts[V,>=3])}
     tlas_capacity: pad the TLAS block to this many rows; 0 = exact size.
     stable_frames: kernel-table frame mode (the JAX default is stable).
+    leaf_cap: triangles per kernel leaf, a multiple of 32 in [32, 512]
+    (the JAX package's RADIANCE_LEAF_CAP; 64 with tq_bits 7 is its
+    LEAF64 configuration for 1M-triangle scenes).
     device: where the tensors are made (the card unless the caller
     asks for the CPU).
     """
     device = rdevice.resolve(device)
     arrays = build_scene_arrays(tlas_nodes, device_instances,
                                 blas_by_offset, leaf_width, tlas_capacity,
-                                stable_frames)
+                                stable_frames, leaf_cap)
     return scene_from_numpy(arrays, arrays["stable_frames"], device)
 
 
-def device_scene_from_instances(instances, *,
+def device_scene_from_instances(instances, *, leaf_cap: int = 128,
                                 device=rdevice.DEFAULT) -> DeviceScene:
     """Host-build path: RD-style instances -> DeviceScene on `device` (no
     blob round trip)."""
@@ -479,12 +502,12 @@ def device_scene_from_instances(instances, *,
     blas_by_offset = {off: (b.nodes, b.faces, b.vertices)
                       for off, b in blas_offsets}
     return build_device_scene(tlas_nodes, dev_inst, blas_by_offset,
-                              device=device)
+                              leaf_cap=leaf_cap, device=device)
 
 
-def device_scene_from_tlas_blob(blob: bytes, *,
+def device_scene_from_tlas_blob(blob: bytes, *, leaf_cap: int = 128,
                                 device=rdevice.DEFAULT) -> DeviceScene:
     """Cache-load path: serialized TLAS blob -> DeviceScene on `device`."""
     parsed = serialize.parse_tlas(blob)
     return build_device_scene(parsed.nodes, parsed.instances, parsed.blas,
-                              device=device)
+                              leaf_cap=leaf_cap, device=device)

@@ -78,6 +78,19 @@ import numpy as np
 KERNEL_MAX_TRIS = 128
 KERNEL_LEAF_LANES = 4 * KERNEL_MAX_TRIS
 
+
+def check_leaf_cap(cap) -> int:
+    """The collapse cap as an int, or ValueError where the JAX package's
+    RADIANCE_LEAF_CAP check (kernel_pack.py:82-87) refuses it: a
+    multiple of 32 in [32, 512].  A smaller cap trades pair-kernel tile
+    work for more leaves to emit (tests/test_leaf_cap.py's pricing)."""
+    if (isinstance(cap, bool) or not isinstance(cap, (int, np.integer))
+            or cap % 32 != 0 or not 32 <= cap <= 512):
+        raise ValueError(
+            f"RADIANCE_LEAF_CAP={cap} (leaf_cap): must be a multiple of 32 "
+            f"in [32, 512]")
+    return int(cap)
+
 # Node-table cap per octant, kept from the TPU tables (whose node table
 # had to fit in VMEM) so both packages agree on which scenes get kernel
 # tables.  1M tris at KERNEL_MAX_TRIS=128 needs ~25k.
@@ -134,9 +147,7 @@ def build_kernel_tables(kind, a, b, bot, top, faces, verts3, *,
     leaf_cap: triangles per kernel leaf (RADIANCE_LEAF_CAP there).
     Returns the table dict, or None when the scene exceeds kernel limits.
     """
-    if leaf_cap % 32 != 0 or not (32 <= leaf_cap <= 512):
-        raise ValueError(f"leaf_cap={leaf_cap}: must be a multiple of 32 "
-                         f"in [32, 512]")
+    leaf_cap = check_leaf_cap(leaf_cap)
     kind = np.asarray(kind, np.int32)
     a = np.asarray(a, np.int64)
     b = np.asarray(b, np.int64)

@@ -41,7 +41,13 @@
 namespace lt {
 
 constexpr float kFltMax = 3.402823466e38f;
-constexpr int kMaxT = 128;                  // lanes a staged leaf holds
+// Lanes a staged leaf holds: a build define (128 by default; a library
+// built for a wider leaf cap sets it, and kernel D sets it to its T).
+#ifndef RT_LEAF_MAXT
+#define RT_LEAF_MAXT 128
+#endif
+constexpr int kMaxT = RT_LEAF_MAXT;
+static_assert(kMaxT % 4 == 0 && kMaxT <= 512, "RT_LEAF_MAXT: 4..512 lanes");
 constexpr int kQ = kMaxT / 4;               // quads of a staged row
 constexpr int kRows = 22;                   // coefficient rows a test reads
 constexpr int kPrimF4 = kRows * kQ;         // row 10's prim quads
@@ -81,7 +87,7 @@ __device__ __forceinline__ void stage_leaf(float4* dst, const float* W, int T,
                                            int nq, int tid, int nthr) {
   constexpr int kStagedRows = kRows + (kPrim ? 1 : 0);
   for (int i = tid; i < kStagedRows * kQ; i += nthr) {
-    const int c = i / kQ, q = i % kQ;   // kQ is a power of two
+    const int c = i / kQ, q = i % kQ;
     if (q >= nq) continue;
     const int src = c < kRows ? coef_src(c, q, T) : 10 * 4 * T + 4 * q;
     cp_async16(dst + i, W + src);

@@ -48,6 +48,11 @@
 // warps converged through the tree; the tile feeds 8 FMAs per float4
 // loaded; the ring hides a leaf's copy behind the walk.
 //
+// Leaf width: T lanes at run time, up to the staged tile's kMaxT
+// (leaf_tile.cuh's RT_LEAF_MAXT, 128 by default).  A scene built with a
+// leaf cap past 128 takes a library built with RT_LEAF_MAXT = its cap;
+// its Shared state then passes 48 KB and lives in dynamic shared memory.
+//
 // Exactness rules kept from the TPU kernel:
 //  * node meta words 8-11 are f32 VALUES (a, esc, ntri, tri_start), read
 //    by value conversion, not by bit cast;
@@ -81,6 +86,7 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 // over the main path's launches on an H100.
 constexpr int kP = 64;
 constexpr int kWarps = kP / 32;
+constexpr bool kDynShared = lt::kMaxT > 128;
 
 // The packet's shared state.
 struct Shared {
@@ -165,7 +171,12 @@ packet_trace_kernel(const float* __restrict__ o, const float* __restrict__ d,
                     const float* __restrict__ kleaf, int64_t n, int lanes,
                     float tmin, float tmax, float* __restrict__ out_t,
                     int* __restrict__ out_tri) {
+#if RT_LEAF_MAXT > 128
+  extern __shared__ float4 s_dyn[];
+  Shared& sh = *reinterpret_cast<Shared*>(s_dyn);
+#else
   __shared__ Shared sh;
+#endif
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const unsigned below = (1u << lane) - 1u;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kP + tid;
@@ -276,7 +287,13 @@ void launch(const float* o, const float* d, const uint8_t* live,
             int64_t n, int lanes, float tmin, float tmax, float* out_t,
             int* out_tri, cudaStream_t stream) {
   const unsigned grid = static_cast<unsigned>((n + kP - 1) / kP);
-  packet_trace_kernel<kAnyHit, kMasked, kStable><<<grid, kP, 0, stream>>>(
+  constexpr int kDynBytes = kDynShared ? static_cast<int>(sizeof(Shared)) : 0;
+  if (kDynShared) {
+    cudaFuncSetAttribute(packet_trace_kernel<kAnyHit, kMasked, kStable>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kDynBytes);
+  }
+  packet_trace_kernel<kAnyHit, kMasked, kStable><<<grid, kP, kDynBytes, stream>>>(
       o, d, live, base, knode, kleaf, n, lanes, tmin, tmax, out_t, out_tri);
 }
 
@@ -288,7 +305,7 @@ extern "C" {
 // live: [n] u8 or NULL (NULL = every ray live, the unmasked variant);
 // base: [ceil(n / 64)] i32, each packet's node table row base (octant *
 // nk); knode: [8 * nk, 16] f32; kleaf: [Nl, 16, 4 * lanes] f32, 16-byte
-// aligned, lanes a multiple of 4 and <= 128; out_t: [n] f32; out_tri:
+// aligned, lanes a multiple of 4 and <= RT_LEAF_MAXT; out_t: [n] f32; out_tri:
 // [n] i32.  Enqueues on `stream` and returns cudaGetLastError() of the
 // launch (cudaErrorInvalidValue for a lane count it does not take).
 int rt_packet_trace(const float* o, const float* d, const uint8_t* live,

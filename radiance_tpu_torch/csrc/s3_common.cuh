@@ -13,8 +13,15 @@ constexpr int kPkt = 1024;      // rays per packet
 constexpr int kBlk = 128;       // rays per phase-2 block
 constexpr int kNLanes = 32;     // 32-ray sub-frusta per packet
 
-// Word: (leaf + 1) << kLeafShift | keepmask << kKeepShift | tq, 9 tq bits.
-constexpr int kTqBits = 9;
+// Word: (leaf + 1) << kLeafShift | keepmask << kKeepShift | tq.  The tq
+// width is a build define (ops/stream3_stages.WordFormat; 9 by default, the
+// JAX package's RADIANCE_TQ_BITS): a library is built for each width a
+// process uses.  Each bit given up doubles the leaf ids a word can address.
+#ifndef RT_TQ_BITS
+#define RT_TQ_BITS 9
+#endif
+constexpr int kTqBits = RT_TQ_BITS;
+static_assert(kTqBits >= 5 && kTqBits <= 9, "RT_TQ_BITS must be in [5, 9]");
 constexpr int kKeepShift = kTqBits;
 constexpr int kLeafShift = kTqBits + 8;
 constexpr int kTqMask = (1 << kTqBits) - 1;

@@ -81,6 +81,16 @@
 // keeps it.  Every product is an FP32 FMA on the CUDA cores, never TF32
 // or the tensor cores.
 
+// The leaf width T is a build define (RT_LEAF_T, the scene's leaf cap: a
+// multiple of 32 in [32, 512], 128 by default), as the tq width is
+// (s3_common.cuh): ops/stream3_stages.py builds one library for each
+// (T, tq bits) pair a process uses.  The staged leaf holds T lanes; past
+// T = 128 the two-slot ring no longer fits beside the block's other
+// arrays in 48 KB, so it moves to dynamic shared memory.
+#ifndef RT_LEAF_T
+#define RT_LEAF_T 128
+#endif
+#define RT_LEAF_MAXT RT_LEAF_T
 #include "leaf_tile.cuh"
 #include "s3_common.cuh"
 
@@ -90,7 +100,11 @@ using lt::kFltMax;
 
 constexpr int kThreads = s3::kBlk;    // one block per (chunk, slot, ray block)
 constexpr int kWarps = kThreads / 32;
-constexpr int kT = 128;               // triangles per leaf
+constexpr int kT = RT_LEAF_T;         // triangles per leaf
+static_assert(kT % 32 == 0 && kT >= 32 && kT <= 512,
+              "RT_LEAF_T must be a multiple of 32 in [32, 512]");
+constexpr bool kDynRing = kT > 128;   // the ring in dynamic shared memory
+constexpr int kRingBytes = kDynRing ? 2 * lt::kLeafF4 * 16 : 0;
 constexpr int kChunk = kThreads;      // list positions per block
 constexpr int kMaxR = kThreads / 32;  // rays a thread holds
 constexpr float kParked = 1e29f;
@@ -211,7 +225,12 @@ isect_kernel(const int* __restrict__ words, const int* __restrict__ emeta,
              const float* __restrict__ feats, const float* __restrict__ kleaf,
              int pcap, float tmin, float tmax, int nslot,
              unsigned long long* __restrict__ keys, int* __restrict__ culled) {
+#if RT_LEAF_T > 128
+  extern __shared__ float4 s_dyn[];
+  auto s_ring = reinterpret_cast<float4 (*)[lt::kLeafF4]>(s_dyn);
+#else
   __shared__ float4 s_ring[2][lt::kLeafF4];
+#endif
   __shared__ float4 s_ray[kThreads][3];   // the compacted rays' features
   __shared__ int s_idx[kThreads];         // their lanes in the block
   __shared__ int s_leaf[kChunk];          // the chunk's kept leaves
@@ -340,7 +359,12 @@ void launch(const int* words, const int* emeta, const int* slot_pkt,
             float tmin, float tmax, unsigned long long* k, float4* o,
             int* culled, unsigned grid, unsigned fill, int64_t lanes,
             cudaStream_t s) {
-  isect_kernel<kStable, kCull><<<grid, kThreads, 0, s>>>(
+  if (kDynRing) {
+    cudaFuncSetAttribute(isect_kernel<kStable, kCull>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kRingBytes);
+  }
+  isect_kernel<kStable, kCull><<<grid, kThreads, kRingBytes, s>>>(
       words, emeta, slot_pkt, feats, kleaf, pcap, tmin, tmax, nslot, k,
       culled);
   isect_finish<kStable, kLean><<<fill, 256, 0, s>>>(
@@ -353,7 +377,7 @@ extern "C" {
 
 // words [nslot, pcap] i32 (refined lists, pcap <= 65536), emeta [nslot,
 // 8] i32 (lane 0: count), slot_pkt [nslot] i32, feats [npad, 16] f32
-// (ray-major), kleaf [nl, 16, 512] f32 (both 16-byte aligned), keys
+// (ray-major), kleaf [nl, 16, 4 * RT_LEAF_T] f32 (both 16-byte aligned), keys
 // [nslot * 1024] u64 scratch -> out [nslot, 1024, 4] f32.  lean: lanes
 // 2-3 left zero; cull: the tq occlusion cull, which adds the pairs it
 // skipped to *culled unless culled is null.  Returns cudaGetLastError().

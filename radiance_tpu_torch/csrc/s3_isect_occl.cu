@@ -5,8 +5,8 @@
 // orient="major", the stable-frame correction on).  For every slot and
 // every 128-ray block k of the slot's packet it tests block k against the
 // leaf of each word of the slot's list whose keep bit k is set, in list
-// order: the Pluecker side products s0, s1, s2 of the leaf's T = 128
-// triangles from the [16, 4T] leaf matrix and the bitcast sign test, then,
+// order: the Pluecker side products s0, s1, s2 of the leaf's T triangles
+// (T = 128 by default) from the [16, 4T] leaf matrix and the bitcast sign test, then,
 // where the signs agree, the plane numerator, t = -num * (1 / (s0 + s1 +
 // s2)) and tmin < t < tmax.  Any accepted triangle occludes the ray.
 // out [nslot, 1024, 4] = (0, 0, 0, 0) on an occluded ray, (FLT_MAX, -1,
@@ -38,8 +38,11 @@
 //    bytes a clock to an SM's registers, a quarter of what its FP32
 //    units consume, so every float a lane loads must feed several FMAs.
 //    Each thread holds two triangles' 22 coefficients each in registers
-//    and walks half of the ray list (the rays' d, moment and o written to
-//    shared memory once per leaf): two float4 broadcasts feed 36 FMAs.
+//    and walks its share of the ray list (the rays' d, moment and o
+//    written to shared memory once per leaf): two float4 broadcasts feed
+//    36 FMAs.  At T = 128 the 64 triangle pairs take two ray groups (the
+//    even and odd rays); a narrower leaf takes 128 / (T / 2) groups, a
+//    wider one several passes of 128 pairs.
 //    Lanes past the leaf's triangles (zero rows) test nothing: each would
 //    pass the sign test with s = 0 and pay a division for a NaN t.
 //  * Per (ray, triangle): the 18 FMAs of the side products and the sign
@@ -51,11 +54,19 @@
 //
 // What bounds it: FLOPs.  The work the function needs is, for each kept
 // (leaf, block) pair, its rays that are live and not yet occluded, each
-// against 128 triangles at 22 FMAs (chip_smoke.py counts them with the
-// plain version's stats).  A leaf is read from L2 once per kept block.
+// against its leaf's triangles at 22 FMAs (chip_smoke.py counts them with
+// the plain version's stats).  A leaf is read from L2 once per kept block.
+//
+// The leaf width T is a build define (RT_LEAF_T, the scene's leaf cap, a
+// multiple of 32 in [32, 512], 128 by default), as the tq width is
+// (s3_common.cuh); past T = 128 the ring moves to dynamic shared memory.
 
 #include "leaf_tile.cuh"
 #include "s3_common.cuh"
+
+#ifndef RT_LEAF_T
+#define RT_LEAF_T 128
+#endif
 
 namespace {
 
@@ -63,7 +74,9 @@ using s3::kFltMax;
 
 constexpr int kThreads = s3::kBlk;    // one thread per ray of a block
 constexpr int kWarps = kThreads / 32;
-constexpr int kT = 128;               // triangles per leaf
+constexpr int kT = RT_LEAF_T;         // triangles per leaf
+static_assert(kT % 32 == 0 && kT >= 32 && kT <= 512,
+              "RT_LEAF_T must be a multiple of 32 in [32, 512]");
 constexpr int kL4 = 4 * kT / 4;       // float4 columns of a leaf row
 constexpr int kQ = kT / 4;            // float4 columns of a quarter
 constexpr int kStages = 2;            // depth of the leaf ring
@@ -73,10 +86,15 @@ constexpr int kEdgeF4 = 6 * 3 * kQ;
 constexpr int kPlaneF4 = 4 * kQ;
 constexpr int kCenF4 = kEdgeF4 + kPlaneF4;
 constexpr int kLeafF4 = kCenF4 + 3;
-// each thread holds two triangles, t % 64 and t % 64 + 64, and tests
-// them against every other ray of the list (t / 64 picks the parity)
-constexpr int kTriHalf = kT / 2;
-constexpr int kRayGroups = kThreads / kTriHalf;
+// each thread holds a pair of triangles, p and p + kPairs, and tests them
+// against every kRayGroups-th ray of the list from its group g: at T =
+// 128, p = t % 64 and g = t / 64 (the parity); past T = 256, one group
+// and kPasses passes of 128 pairs
+constexpr int kPairs = kT / 2;
+constexpr int kRayGroups = kPairs >= kThreads ? 1 : kThreads / kPairs;
+constexpr int kPasses = (kPairs + kThreads - 1) / kThreads;
+constexpr bool kDynRing = kT > 128;   // the ring in dynamic shared memory
+constexpr int kRingBytes = kDynRing ? kStages * kLeafF4 * 16 : 0;
 // a block's word list is cut into chunks of 128 words, one CTA each, so
 // that no long list keeps one CTA busy after the others are done
 constexpr int kChunk = kThreads;
@@ -184,15 +202,35 @@ __device__ __forceinline__ bool in_window(float num, float ssum, float tmin,
   return t > tmin && t < tmax;
 }
 
+// this thread's pair of pass `pass` into ta, tb; returns its ray group
+// (kRayGroups, and both triangles invalid, where it holds none)
+__device__ __forceinline__ int load_pair(Tri& ta, Tri& tb, const float* Ls,
+                                         int tid, int pass) {
+  const int p = kPairs >= kThreads ? tid + pass * kThreads : tid % kPairs;
+  const int g = kPairs >= kThreads ? 0 : tid / kPairs;
+  if (p < kPairs && g < kRayGroups) {
+    load_tri(ta, Ls, p);
+    load_tri(tb, Ls, p + kPairs);
+    return g;
+  }
+  ta.valid = tb.valid = false;
+  return kRayGroups;
+}
+
 template <bool kStable>
-__global__ void __launch_bounds__(kThreads, 5)
+__global__ void __launch_bounds__(kThreads, kDynRing ? 2 : 5)
 isect_occl_kernel(const int* __restrict__ words,
                   const int* __restrict__ emeta,
                   const int* __restrict__ slot_pkt,
                   const float* __restrict__ feats,
                   const float* __restrict__ kleaf, int pcap, float tmin,
                   float tmax, int nslot, float* __restrict__ out) {
+#if RT_LEAF_T > 128
+  extern __shared__ float4 s_dyn[];
+  auto s_ring = reinterpret_cast<float4 (*)[kLeafF4]>(s_dyn);
+#else
   __shared__ float4 s_ring[kStages][kLeafF4];
+#endif
   __shared__ float4 s_ray[kThreads][3];
   __shared__ float4 s_rd[kThreads][3];    // this leaf's ray records
   __shared__ int s_leaf[kChunk];          // the chunk's kept leaves
@@ -300,44 +338,47 @@ isect_occl_kernel(const int* __restrict__ words,
     // this thread's two triangles, in registers
     Tri ta, tb;
     const float* Ls = reinterpret_cast<const float*>(L);
-    load_tri(ta, Ls, tid % kTriHalf);
-    load_tri(tb, Ls, tid % kTriHalf + kTriHalf);
+    int g = load_pair(ta, tb, Ls, tid, 0);
     __syncthreads();                  // the ray records are written
-    if (ta.valid || tb.valid) {
-      // two rays an iteration (the second repeats the first past the
-      // list's end): four independent (ray, triangle) tests, branch-free
-      // up to the rare candidate
-      for (int j = tid / kTriHalf; j < nact; j += 2 * kRayGroups) {
-        const int j1 = j + kRayGroups < nact ? j + kRayGroups : j;
-        const float4 a0 = s_rd[j][0], b0 = s_rd[j][1];
-        const float4 a1 = s_rd[j1][0], b1 = s_rd[j1][1];
-        const float oz0 = s_rd[j][2].x, oz1 = s_rd[j1][2].x;
-        float s00[3], s01[3], s10[3], s11[3];
-        sides(ta, a0, b0, s00);
-        sides(tb, a0, b0, s01);
-        sides(ta, a1, b1, s10);
-        sides(tb, a1, b1, s11);
-        const float n00 = plane_num(ta, b0, oz0), n01 = plane_num(tb, b0, oz0);
-        const float n10 = plane_num(ta, b1, oz1), n11 = plane_num(tb, b1, oz1);
-        const float q00 = s00[0] + s00[1] + s00[2];
-        const float q01 = s01[0] + s01[1] + s01[2];
-        const float q10 = s10[0] + s10[1] + s10[2];
-        const float q11 = s11[0] + s11[1] + s11[2];
-        const bool c00 = candidate(ta, s00, n00, q00, ahead_only);
-        const bool c01 = candidate(tb, s01, n01, q01, ahead_only);
-        const bool c10 = candidate(ta, s10, n10, q10, ahead_only);
-        const bool c11 = candidate(tb, s11, n11, q11, ahead_only);
-        if (c00 | c01 | c10 | c11) {
-          if ((c00 && in_window(n00, q00, tmin, tmax)) ||
-              (c01 && in_window(n01, q01, tmin, tmax))) {
-            s_occ[__float_as_int(s_rd[j][2].y)] = 1;
-          }
-          if ((c10 && in_window(n10, q10, tmin, tmax)) ||
-              (c11 && in_window(n11, q11, tmin, tmax))) {
-            s_occ[__float_as_int(s_rd[j1][2].y)] = 1;
+    for (int pass = 0;;) {
+      if (ta.valid || tb.valid) {
+        // two rays an iteration (the second repeats the first past the
+        // list's end): four independent (ray, triangle) tests, branch-free
+        // up to the rare candidate
+        for (int j = g; j < nact; j += 2 * kRayGroups) {
+          const int j1 = j + kRayGroups < nact ? j + kRayGroups : j;
+          const float4 a0 = s_rd[j][0], b0 = s_rd[j][1];
+          const float4 a1 = s_rd[j1][0], b1 = s_rd[j1][1];
+          const float oz0 = s_rd[j][2].x, oz1 = s_rd[j1][2].x;
+          float s00[3], s01[3], s10[3], s11[3];
+          sides(ta, a0, b0, s00);
+          sides(tb, a0, b0, s01);
+          sides(ta, a1, b1, s10);
+          sides(tb, a1, b1, s11);
+          const float n00 = plane_num(ta, b0, oz0), n01 = plane_num(tb, b0, oz0);
+          const float n10 = plane_num(ta, b1, oz1), n11 = plane_num(tb, b1, oz1);
+          const float q00 = s00[0] + s00[1] + s00[2];
+          const float q01 = s01[0] + s01[1] + s01[2];
+          const float q10 = s10[0] + s10[1] + s10[2];
+          const float q11 = s11[0] + s11[1] + s11[2];
+          const bool c00 = candidate(ta, s00, n00, q00, ahead_only);
+          const bool c01 = candidate(tb, s01, n01, q01, ahead_only);
+          const bool c10 = candidate(ta, s10, n10, q10, ahead_only);
+          const bool c11 = candidate(tb, s11, n11, q11, ahead_only);
+          if (c00 | c01 | c10 | c11) {
+            if ((c00 && in_window(n00, q00, tmin, tmax)) ||
+                (c01 && in_window(n01, q01, tmin, tmax))) {
+              s_occ[__float_as_int(s_rd[j][2].y)] = 1;
+            }
+            if ((c10 && in_window(n10, q10, tmin, tmax)) ||
+                (c11 && in_window(n11, q11, tmin, tmax))) {
+              s_occ[__float_as_int(s_rd[j1][2].y)] = 1;
+            }
           }
         }
       }
+      if (++pass == kPasses) break;
+      g = load_pair(ta, tb, Ls, tid, pass);
     }
     __syncthreads();                  // this leaf's hits are marked
     // the rays still to test, for the next leaf
@@ -366,7 +407,7 @@ extern "C" {
 
 // words [nslot, pcap] i32 (refined or emitted lists), emeta [nslot, 8]
 // i32 (lane 0: count), slot_pkt [nslot] i32, feats [npad, 16] f32
-// (ray-major), kleaf [nl, 16, 512] f32 (both 16-byte aligned) -> out
+// (ray-major), kleaf [nl, 16, 4 * RT_LEAF_T] f32 (both 16-byte aligned) -> out
 // [nslot, 1024, 4] f32.  Returns cudaGetLastError().
 int rt_s3_isect_occl(const int* words, const int* emeta, const int* slot_pkt,
                      const float* feats, const float* kleaf, int nslot,
@@ -380,13 +421,13 @@ int rt_s3_isect_occl(const int* words, const int* emeta, const int* slot_pkt,
   const int nchunk = (max(pcap, 1) + kChunk - 1) / kChunk;
   const unsigned grid = static_cast<unsigned>(nchunk) * nslot *
                         (s3::kPkt / s3::kBlk);
-  if (stable) {
-    isect_occl_kernel<true><<<grid, kThreads, 0, s>>>(
-        words, emeta, slot_pkt, feats, kleaf, pcap, tmin, tmax, nslot, out);
-  } else {
-    isect_occl_kernel<false><<<grid, kThreads, 0, s>>>(
-        words, emeta, slot_pkt, feats, kleaf, pcap, tmin, tmax, nslot, out);
+  auto kernel = stable ? isect_occl_kernel<true> : isect_occl_kernel<false>;
+  if (kDynRing) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kRingBytes);
   }
+  kernel<<<grid, kThreads, kRingBytes, s>>>(
+      words, emeta, slot_pkt, feats, kleaf, pcap, tmin, tmax, nslot, out);
   return static_cast<int>(cudaGetLastError());
 }
 

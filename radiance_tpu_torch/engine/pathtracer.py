@@ -76,6 +76,14 @@ packet sweeps on many.  A bounded frame keeps the staged scheduler's
 wave routes and, as frame_fn does, stops a sample's bounce loop once no
 path is alive (a host read a bounce).
 
+The stream3 routes' word format is the tracer's tq_bits (5..9, default
+9; the reference's import-time RADIANCE_TQ_BITS): a scene built with a
+leaf cap of 64 (its LEAF64 configuration) has more leaves than a 9-bit
+word reaches on a 1M-triangle scene, and takes stream3 and the native
+route only at tq_bits <= 8 (stream3.supports, stream3_multi.
+supports_native); elsewhere its waves take the routes the reference
+sends them to.
+
 WavefrontPathTracer.frame_fn is the reference's frame_fn (:518-631)
 without its jit: a frame over any pixel_index, and its sample_sum hook,
 the sum of a range of frame ids' samples, on which parallel/sharding.py
@@ -118,13 +126,14 @@ ROUTES = ("stream3", "gen1_live", "gen1_sort", "argsort", "xla")
 
 def _trace_dispatch(scene, o, d, tmin, tmax, *, any_hit_terminate=False,
                     any_hit_program=None, live=None,
-                    multi_route: str = "scan") -> HitRecord:
+                    multi_route: str = "scan",
+                    tq_bits: int = stream3.W_TQ_BITS) -> HitRecord:
     """Without a custom any-hit program: single-instance scenes with
     kernel tables go through the packet kernel (live masks honoured);
     scenes with MULTI_SCAN_MIN_INSTANCES or more instances through
     trace_rows_multi, on the instance scan or, with multi_route "native",
-    the TLAS-native slots; others with several instances through one
-    packet sweep per instance.  A program, or a scene without kernel
+    the TLAS-native slots, in words of tq_bits; others with several
+    instances through one packet sweep per instance.  A program, or a scene without kernel
     tables, takes the two-level walk.  Only the packet kernel reads
     `live`: callers mask dead lanes."""
     if multi_route not in MULTI_ROUTES:
@@ -139,7 +148,7 @@ def _trace_dispatch(scene, o, d, tmin, tmax, *, any_hit_terminate=False,
                     scene, stream3_multi.multi_tables(scene),
                     stream3.rows_from_aos(o, d), tmin, tmax,
                     occl=any_hit_terminate,
-                    native=multi_route == "native")
+                    native=multi_route == "native", tq_bits=tq_bits)
             return packet_trace.trace_rays_packet_multi(
                 scene, o, d, tmin, tmax, any_hit=any_hit_terminate)
     return traversal.trace_rays(scene, o, d, tmin, tmax,
@@ -179,13 +188,16 @@ def _traced_wavefront(scene, o, d, tmin, tmax, alive, *, route: str,
                       any_hit_terminate: bool = False,
                       any_hit_program=None,
                       multi_route: str = "scan",
-                      blk_bound=None) -> HitRecord:
+                      blk_bound=None,
+                      tq_bits: int = stream3.W_TQ_BITS) -> HitRecord:
     """Trace only the live rays of a wave on `route` (module docstring);
     dead lanes report a miss.  "stream3" takes single-instance scenes
     where stream3.supports holds, "gen1_live" and "gen1_sort" those where
     packet_trace.supports does; elsewhere, and under a custom any-hit
     program (reference :196-199), they fall back to "argsort".
-    multi_route goes to _trace_dispatch.
+    multi_route goes to _trace_dispatch; tq_bits, the word format of the
+    stream3 routes, to both (a scene past its leaf reach takes
+    "argsort").
 
     blk_bound ([ceil(N / 128)] f32 per-block upper bounds on t, pixel
     order): the temporal cull and residual of the stream3 route, and of a
@@ -199,7 +211,7 @@ def _traced_wavefront(scene, o, d, tmin, tmax, alive, *, route: str,
         raise ValueError(f"route must be one of {ROUTES}")
     if any_hit_program is not None:
         route = "argsort"
-    elif route == "stream3" and not stream3.supports(scene):
+    elif route == "stream3" and not stream3.supports(scene, tq_bits):
         route = "argsort"
     elif route in ("gen1_live", "gen1_sort") and not packet_trace.supports(
             scene):
@@ -208,7 +220,7 @@ def _traced_wavefront(scene, o, d, tmin, tmax, alive, *, route: str,
         rows = stream3.rows_from_aos_fast(o, d)
         rec = stream3.trace_rows_stream3(scene, rows, tmin, tmax,
                                          live=alive, occl=any_hit_terminate,
-                                         blk_bound=blk_bound)
+                                         blk_bound=blk_bound, tq_bits=tq_bits)
         if blk_bound is not None:
             _retrace_distrusted(scene, rec, o, d, tmin, tmax, alive,
                                 occl=any_hit_terminate, many=False)
@@ -220,7 +232,7 @@ def _traced_wavefront(scene, o, d, tmin, tmax, alive, *, route: str,
             scene, stream3_multi.multi_tables(scene),
             stream3.rows_from_aos(o, d), tmin, tmax, live=alive,
             occl=any_hit_terminate, native=multi_route == "native",
-            blk_bound=blk_bound)
+            blk_bound=blk_bound, tq_bits=tq_bits)
         _retrace_distrusted(scene, rec, o, d, tmin, tmax, alive,
                             occl=any_hit_terminate, many=True)
         return rec.masked_miss(~alive)
@@ -233,14 +245,14 @@ def _traced_wavefront(scene, o, d, tmin, tmax, alive, *, route: str,
     if route == "gen1_live":
         rec = _trace_dispatch(scene, o, d, tmin, tmax, live=alive,
                               any_hit_terminate=any_hit_terminate,
-                              multi_route=multi_route)
+                              multi_route=multi_route, tq_bits=tq_bits)
         return rec.masked_miss(~alive)
     if route == "gen1_sort":
         perm, inv = reorder.coherence_perm(d, alive)
         rec = _trace_dispatch(scene, o[perm], d[perm], tmin, tmax,
                               live=alive[perm],
                               any_hit_terminate=any_hit_terminate,
-                              multi_route=multi_route)
+                              multi_route=multi_route, tq_bits=tq_bits)
         return rec.take(inv).masked_miss(~alive)
     key = torch.where(alive, packet_trace.coherence_key(o, d), _INT32_MAX)
     perm = torch.argsort(key, stable=True)
@@ -250,7 +262,7 @@ def _traced_wavefront(scene, o, d, tmin, tmax, alive, *, route: str,
     rec = _trace_dispatch(scene, o_c, d_c, tmin, tmax,
                           any_hit_terminate=any_hit_terminate,
                           any_hit_program=any_hit_program,
-                          multi_route=multi_route)
+                          multi_route=multi_route, tq_bits=tq_bits)
     rec = rec.take(compaction.invert_perm(perm))
     return rec.masked_miss(~alive)
 
@@ -306,7 +318,7 @@ def _sample_step(tracer, scene, resources, pixel_index, frame_id, b, state,
         # is the tracers' any-hit mode
         prog = sbt.make_any_hit_program(tracer.shadow_hit_offset, resources)
         kw = dict(any_hit_terminate=prog is None, any_hit_program=prog,
-                  multi_route=tracer.multi_route)
+                  multi_route=tracer.multi_route, tq_bits=tracer.tq_bits)
         if active is None:
             rec = _trace_dispatch(scene, origin, direction, tmin, tmax, **kw)
         else:
@@ -317,11 +329,13 @@ def _sample_step(tracer, scene, resources, pixel_index, frame_id, b, state,
     hits = _traced_wavefront(
         scene, o, d, tracer.tmin, tracer.tmax, alive, route=route,
         any_hit_program=sbt.make_any_hit_program(hit_offset, resources),
-        multi_route=tracer.multi_route, blk_bound=blk_bound)
+        multi_route=tracer.multi_route, blk_bound=blk_bound,
+        tq_bits=tracer.tq_bits)
     ctx = _make_context(scene, hits, o, d, pixel_index, frame_id, b,
                         resources, debug, trace_occlusion,
                         functools.partial(_trace_dispatch, scene,
-                                          multi_route=tracer.multi_route))
+                                          multi_route=tracer.multi_route,
+                                          tq_bits=tracer.tq_bits))
     payload = Payload(
         color=torch.zeros(n, 3, dtype=torch.float32, device=dev),
         hit=torch.zeros(n, dtype=torch.bool, device=dev),
@@ -389,6 +403,9 @@ class WavefrontPathTracer:
       TLAS-native slots; the reference's RADIANCE_MULTI=native)
     tbound: carry temporal t-bounds through the primary waves (the
       reference's RADIANCE_ENGINE_TBOUND=1; module docstring)
+    tq_bits: the stream3 routes' tq word width, 5..9 (the reference's
+      RADIANCE_TQ_BITS; 7 with a scene built at leaf_cap=64 is its LEAF64
+      configuration)
     primary_route, bounce_route, shadow_route: a route of ROUTES for
       the primary waves, the bounce waves and every shadow wave (the
       reference's RADIANCE_ENGINE_{PRIMARY,BOUNCE,SHADOW}); None keeps
@@ -405,6 +422,7 @@ class WavefrontPathTracer:
     tmax: float = 1000.0
     multi_route: str = "scan"
     tbound: bool = False
+    tq_bits: int = stream3.W_TQ_BITS
     primary_route: Optional[str] = None
     bounce_route: Optional[str] = None
     shadow_route: Optional[str] = None
@@ -415,6 +433,9 @@ class WavefrontPathTracer:
     _tb_store: dict = dataclasses.field(default_factory=dict, init=False,
                                         repr=False)
     _TB_CAP = 8
+
+    def __post_init__(self):
+        stream3.word_format(self.tq_bits)    # 5..9, or ValueError
 
     def wave_route(self, wave: str, default: str) -> str:
         """The route of `wave` ("primary", "bounce" or "shadow"): its
@@ -447,7 +468,8 @@ class WavefrontPathTracer:
                 raise ValueError(f"{wave} route must be one of {ROUTES}")
             return route
 
-        return (pick(primary, "primary", "stream3" if stream3.supports(scene)
+        return (pick(primary, "primary",
+                     "stream3" if stream3.supports(scene, self.tq_bits)
                      else ("gen1_live" if single else "argsort")),
                 pick(shadow, "shadow", "gen1_live" if single else "argsort"),
                 pick(bounce, "bounce", "argsort"),

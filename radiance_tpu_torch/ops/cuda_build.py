@@ -44,15 +44,30 @@ class KernelLib:
 
     functions: (C function name, argtypes) pairs; every function
     returns an int (the cudaError_t of its launch).
-    extra_flags: nvcc flags beyond NVCC_FLAGS (e.g. -fmad=false).
+    extra_flags: nvcc flags beyond NVCC_FLAGS (e.g. -fmad=false, or the
+    -D defines of a variant).
+    source_name: the csrc/ source's stem where it is not `name` (a
+    variant: one source built with other defines, under its own name).
     """
     name: str
     functions: Tuple[Tuple[str, Tuple], ...]
     extra_flags: Tuple[str, ...] = ()
+    source_name: str = ""
 
     @property
     def source(self) -> str:
-        return os.path.join(CSRC_DIR, f"{self.name}.cu")
+        return os.path.join(CSRC_DIR, f"{self.source_name or self.name}.cu")
+
+    def variant(self, suffix: str, defines: Dict[str, int]) -> "KernelLib":
+        """This library's source built with `defines` (-DKEY=VALUE) into
+        lib<name><suffix>.so; itself where there are none."""
+        if not defines:
+            return self
+        return dataclasses.replace(
+            self, name=self.name + suffix,
+            source_name=self.source_name or self.name,
+            extra_flags=self.extra_flags + tuple(
+                f"-D{k}={v}" for k, v in sorted(defines.items())))
 
     @property
     def path(self) -> str:

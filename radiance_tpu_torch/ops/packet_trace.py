@@ -37,6 +37,7 @@ from typing import Tuple
 
 import torch
 
+from radiance_tpu_torch.bvh.kernel_pack import check_leaf_cap
 from radiance_tpu_torch.core import math as rmath
 from radiance_tpu_torch.ops import compaction, cuda_build
 from radiance_tpu_torch.ops.intersect import FLT_MAX, intersect_triangle
@@ -70,14 +71,26 @@ KERNEL = cuda_build.KernelLib("packet_trace", (("rt_packet_trace", (
     cuda_build.P, cuda_build.I64, cuda_build.I32, cuda_build.F32,
     cuda_build.F32, cuda_build.I32, cuda_build.I32, cuda_build.P,
     cuda_build.P, cuda_build.P)),))
-MAX_LANES = 128               # leaf lanes a staged leaf holds
+TILE_LANES = 128              # leaf lanes the default library's staged
+                              # leaf holds (leaf_tile.cuh's kMaxT)
 
 
-def load_kernel():
+def kernel_spec(lanes: int = TILE_LANES) -> cuda_build.KernelLib:
+    """The library whose staged leaf holds `lanes` lanes: the default one
+    up to TILE_LANES, past that one built with RT_LEAF_MAXT = lanes
+    (lib packet_trace_t<lanes>.so, its leaf ring in dynamic shared
+    memory)."""
+    if lanes <= TILE_LANES:
+        return KERNEL
+    return KERNEL.variant(f"_t{lanes}", {"RT_LEAF_MAXT": lanes})
+
+
+def load_kernel(lanes: int = TILE_LANES):
     """Build (once per process, if the .so is missing or stale) and load
-    the kernel library; cuda_build.BUILD_INFO["packet_trace"] then holds
-    the build seconds and nvcc's ptxas report."""
-    return cuda_build.load(KERNEL)
+    the kernel library for leaves of `lanes` lanes;
+    cuda_build.BUILD_INFO[its name] then holds the build seconds and
+    nvcc's ptxas report."""
+    return cuda_build.load(kernel_spec(lanes))
 
 
 def variant(any_hit: bool, masked: bool, stable: bool) -> str:
@@ -110,7 +123,8 @@ def packet_trace_cuda(o, d, live, nodef, kleaf, tmin, tmax, *,
 
     o, d: [n, 3] f32 object-space rays; live: [n] bool or None;
     nodef: [8*Nk, 16] f32; kleaf: [Nl, 16, 4T] f32, 16-byte aligned, T
-    a multiple of 4 and at most MAX_LANES.  Packets of PACKET_RAYS rays.
+    a leaf cap (a multiple of 32 in [32, 512]; past TILE_LANES the
+    library built for T).  Packets of PACKET_RAYS rays.
     """
     dev = o.device
     if dev.type != "cuda":
@@ -126,15 +140,15 @@ def packet_trace_cuda(o, d, live, nodef, kleaf, tmin, tmax, *,
     if nodef.shape[0] % 8 or kleaf.shape[2] % 4:
         raise ValueError(f"bad table shapes {tuple(nodef.shape)}, "
                          f"{tuple(kleaf.shape)}")
-    if kleaf.shape[2] // 4 > MAX_LANES or kleaf.data_ptr() % 16:
-        raise ValueError(f"{fn}: kleaf must be 16-byte aligned with at most "
-                         f"{MAX_LANES} lanes a leaf")
+    lanes = check_leaf_cap(kleaf.shape[2] // 4)
+    if kleaf.data_ptr() % 16:
+        raise ValueError(f"{fn}: kleaf must be 16-byte aligned")
     live_u8 = None
     if live is not None:
         if live.shape != (n,) or live.device != dev:
             raise ValueError("live must be [n] on the rays' device")
         live_u8 = live.to(torch.uint8).contiguous()
-    lib = load_kernel()
+    lib = load_kernel(lanes)
     out_t = torch.empty(n, dtype=torch.float32, device=dev)
     out_tri = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
@@ -144,7 +158,7 @@ def packet_trace_cuda(o, d, live, nodef, kleaf, tmin, tmax, *,
         err = lib.rt_packet_trace(
             o.data_ptr(), d.data_ptr(),
             None if live_u8 is None else live_u8.data_ptr(), base.data_ptr(),
-            nodef.data_ptr(), kleaf.data_ptr(), n, kleaf.shape[2] // 4,
+            nodef.data_ptr(), kleaf.data_ptr(), n, lanes,
             float(tmin), float(tmax), int(any_hit), int(stable),
             out_t.data_ptr(), out_tri.data_ptr(), stream)
     cuda_build.check_launch("packet_trace", err)

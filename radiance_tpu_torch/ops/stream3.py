@@ -47,13 +47,19 @@ Differences from the JAX module, none visible in a hit record:
     RADIANCE_TQSORT, lean for RADIANCE_ISECT_LEAN, cull for kernel D's tq
     occlusion cull), each off by default; the other constants are the
     compiled-TPU defaults: exact refine on closest-hit waves, f32 only,
-    the 9-bit tq word format, the lockstep walk's slot order (one GPU
+    the lockstep walk's slot order (one GPU
     warp per slot replaces the TPU's lockstep, treelet and work-stealing
     walks, which all emit the same words);
   * kernel D's tq occlusion cull is off by default (the reference's is
     on): at an exact t tie it can drop a lower lane, so the prim can
     differ there, never t; off, the default route keeps its hits bit for
     bit;
+  * the tq word width (the reference's import-time RADIANCE_TQ_BITS) is
+    the tq_bits keyword of supports, _run, trace_rows_stream3,
+    trace_rows_cascade and build_tracer (5..9, default 9;
+    stream3_stages.WordFormat), and the leaf width is the scene's tables'
+    (DeviceScene.leaf_cap, the reference's RADIANCE_LEAF_CAP): its LEAF64
+    configuration is a scene built with leaf_cap=64 traced at tq_bits=7;
   * emeta lane 2 counts each slot's own walk steps (the TPU kernel stamps
     its 8-slot group's count), and diag["steps"] sums them.
 
@@ -95,20 +101,28 @@ from radiance_tpu_torch.ops import compaction, packet_trace
 from radiance_tpu_torch.ops.intersect import FLT_MAX
 from radiance_tpu_torch.ops.traversal import HitRecord
 from radiance_tpu_torch.ops.stream3_stages import (
-    BIG, BLK, EXTRA, FMAX, G, PCAP, PKT, STEP_CAP, W_KEEP_SHIFT, W_LEAF_MAX,
+    BIG, BLK, EXTRA, FMAX, G, PCAP, PKT, STEP_CAP, W_LEAF_MAX, W_TQ_BITS,
     feats_rows_to_major, lb_bits, octant_scalars, rows_from_aos_fast,
-    stage_emit, stage_isect, stage_refine)
+    stage_emit, stage_isect, stage_refine, word_format)
 
 # the temporal residual's floor: a wave re-traces at most
 # max(TB_RES_RAYS, n // 128) rays past their block bounds (stream3.py:65)
 TB_RES_RAYS = 16384
 
 
-def supports(scene) -> bool:
-    """True when the single-instance stream3 path applies."""
+def leaf_reach(tq_bits: int = W_TQ_BITS) -> int:
+    """The bound leaf + 1 must stay below in a word of tq_bits: W_LEAF_MAX
+    (the 9-bit format's, 2^14), doubled by each tq bit given up
+    (word_format(tq_bits).leaf_max)."""
+    return W_LEAF_MAX << (W_TQ_BITS - word_format(tq_bits).tq_bits)
+
+
+def supports(scene, tq_bits: int = W_TQ_BITS) -> bool:
+    """True when the single-instance stream3 path applies: kernel tables,
+    one instance, and every leaf id within a tq_bits word's reach."""
     return (getattr(scene, "knode_f", None) is not None
             and scene.inst_inv.shape[0] == 1
-            and scene.kleaf.shape[0] + 1 < W_LEAF_MAX)
+            and scene.kleaf.shape[0] + 1 < leaf_reach(tq_bits))
 
 
 def rows_from_aos(origin, direction):
@@ -388,11 +402,11 @@ def pad_blk_bound(bbv, nblk):
     return bbv
 
 
-def _apply_block_bound(words, slot_pkt, bounds_blk):
+def _apply_block_bound(words, slot_pkt, bounds_blk, tq_bits=W_TQ_BITS):
     """The temporal cull (stream3.py:1749-1777): clear the keep bit of
     every (word, block) pair whose leaf's quantised entry-distance lower
-    bound, (tq + TQ_BIAS3) << TQ_SHIFT as f32 bits (0 where tq == 0),
-    exceeds the block's bound.  words [nslot, PCAP] i32, slot_pkt [nslot]
+    bound, lb_bits (0 where tq == 0) in the format of tq_bits, exceeds
+    the block's bound.  words [nslot, PCAP] i32, slot_pkt [nslot]
     (the packet whose 8 blocks a slot's keep bits name), bounds_blk
     [npk * 8] f32.  Bounds compare as the int32 bits of min(|b|, FLT_MAX),
     which order as the positive floats do.  A NaN bound stays NaN, as
@@ -401,32 +415,33 @@ def _apply_block_bound(words, slot_pkt, bounds_blk):
     positive NaN's bits cull nothing.  Zero words stay zero; a word whose
     keep mask empties keeps its place in the list."""
     i32 = torch.int32
-    lb = lb_bits(words)
+    fmt = word_format(tq_bits)
+    lb = lb_bits(words, tq_bits)
     fmax = torch.tensor(FLT_MAX, dtype=torch.float32, device=words.device)
     b = bounds_blk.to(torch.float32).abs()
     bb = torch.where(torch.isnan(b), b, torch.minimum(b, fmax)).view(i32)
     sb = bb.reshape(-1, 8)[slot_pkt.to(torch.int64)]           # [nslot, 8]
-    kmask = (words >> W_KEEP_SHIFT) & 255
+    kmask = fmt.keep(words)
     keep = torch.zeros_like(kmask)
     for k in range(8):
         ok = lb <= sb[:, k:k + 1]
         keep = keep | torch.where(ok, kmask & (1 << k), 0)
     return torch.where(words != 0,
-                       (words & ~(255 << W_KEEP_SHIFT))
-                       | (keep << W_KEEP_SHIFT),
+                       (words & ~(255 << fmt.keep_shift))
+                       | (keep << fmt.keep_shift),
                        words)
 
 
 _POP8 = [bin(v).count("1") for v in range(256)]
 
 
-def _kept_pairs(words, cnt, alive):
+def _kept_pairs(words, cnt, alive, tq_bits=W_TQ_BITS):
     """(word, 128-ray block) pairs a list names: the keep bits of the
     first min(cnt, PCAP) words of every alive slot, summed ([] i64)."""
     pop = torch.tensor(_POP8, dtype=torch.int64, device=words.device)
     pos = torch.arange(words.shape[1], device=words.device)
     used = (pos[None, :] < cnt[:, None]) & alive[:, None]
-    kmask = ((words >> W_KEEP_SHIFT) & 255).to(torch.int64)
+    kmask = word_format(tq_bits).keep(words).to(torch.int64)
     return torch.where(used, pop[kmask], 0).sum()
 
 
@@ -514,7 +529,7 @@ def _run(rows_w, tmin, tmax, nodef, kleaf, inv0, *, live=None,
          stable: bool, occl: bool = False, with_diag: bool = False,
          blk_bound=None, count_pairs: bool = False, presort: bool = False,
          tqsort: bool = False, lean: bool = False, cull: bool = False,
-         kprim=None, ktri_geo=None):
+         kprim=None, ktri_geo=None, tq_bits: int = W_TQ_BITS):
     """The pipeline on world-space component rows (stream3.py::_run,
     non-work-stealing branch).  Returns a HitRecord, and with with_diag
     (rec, diag): diag["pkt_flag"] [npk] i32 marks packets whose walk was
@@ -539,7 +554,8 @@ def _run(rows_w, tmin, tmax, nodef, kleaf, inv0, *, live=None,
     recomputes the winners' barycentrics from ktri_geo through kprim
     (_winner_barys; RADIANCE_ISECT_LEAN); cull runs D's tq occlusion cull
     (the reference's default, stream3.py:1935-1946).  lean and cull apply
-    to closest-hit waves only."""
+    to closest-hit waves only.  tq_bits: the word format's tq width (5..9;
+    kleaf's leaves must be within its reach, supports())."""
     n = rows_w[0].shape[0]
     rows_w, live = _pad_wave(rows_w, live)
     rows_keep = rows_w          # caller order, for the lean barycentrics
@@ -555,11 +571,12 @@ def _run(rows_w, tmin, tmax, nodef, kleaf, inv0, *, live=None,
     npad = rows[0].shape[0]
     npk = npad // PKT
     words, emeta = stage_emit(scal, smeta, bscal, nodef, tmax,
-                              step_cap=STEP_CAP, pcap=PCAP)
+                              step_cap=STEP_CAP, pcap=PCAP, tq_bits=tq_bits)
     slot_pkt = smeta[:, 0].contiguous()
     words_i, emeta_i = stage_refine(
         words, emeta, slot_pkt, feats_t,
-        leaf_aabb8(nodef, kleaf.shape[0]), tmax, pcap=PCAP, sort=tqsort)
+        leaf_aabb8(nodef, kleaf.shape[0]), tmax, pcap=PCAP, sort=tqsort,
+        tq_bits=tq_bits)
     words_b = words_i
     if blk_bound is not None:
         bbv = pad_blk_bound(blk_bound, nb)
@@ -568,11 +585,11 @@ def _run(rows_w, tmin, tmax, nodef, kleaf, inv0, *, live=None,
             bbv_s = torch.empty_like(bbv)
             bbv_s[inv_blk.to(bbv.device)] = bbv
             bbv = bbv_s
-        words_b = _apply_block_bound(words_i, slot_pkt, bbv)
+        words_b = _apply_block_bound(words_i, slot_pkt, bbv, tq_bits)
     feats = feats_rows_to_major(feats_t)
     out_s = stage_isect(words_b, emeta_i, slot_pkt, feats, kleaf, tmin,
                         tmax, stable=stable, pcap=PCAP, occl=occl,
-                        lean=lean, cull=cull and not occl)
+                        lean=lean, cull=cull and not occl, tq_bits=tq_bits)
     # back to storage order (slot p == packet p for base slots)
     inv_order = torch.empty_like(order)
     inv_order[order] = torch.arange(order.shape[0], device=order.device)
@@ -608,8 +625,9 @@ def _run(rows_w, tmin, tmax, nodef, kleaf, inv0, *, live=None,
             "capped": ((emeta[:, 1] > 0) & alive).sum()}
     if blk_bound is not None and count_pairs:
         cnt = torch.clamp(emeta_i[:, 0], max=PCAP)
-        diag["block_pairs"] = _kept_pairs(words_i, cnt, alive)
-        diag["block_pairs_bounded"] = _kept_pairs(words_b, cnt, alive)
+        diag["block_pairs"] = _kept_pairs(words_i, cnt, alive, tq_bits)
+        diag["block_pairs_bounded"] = _kept_pairs(words_b, cnt, alive,
+                                                  tq_bits)
     return rec, diag
 
 
@@ -666,10 +684,11 @@ def trace_rows_stream3(scene, rows_w, tmin, tmax, live=None,
                        occl: bool = False, with_diag: bool = False,
                        blk_bound=None, presort: bool = False,
                        tqsort: bool = False, lean: bool = False,
-                       cull: bool = False):
+                       cull: bool = False, tq_bits: int = W_TQ_BITS):
     """Closest-hit trace of a wave given as six world-space [N] rows
     (ox, oy, oz, dx, dy, dz) against a single-instance scene (check
-    supports(scene)); with occl, an occlusion trace: t = 0 on occluded
+    supports(scene, tq_bits); tq_bits is the word format's tq width,
+    5..9, and the scene's leaf cap its leaf width); with occl, an occlusion trace: t = 0 on occluded
     rays, FLT_MAX otherwise.
 
     Every packet flagged by the pipeline (walk cut at STEP_CAP, word list
@@ -709,7 +728,7 @@ def trace_rows_stream3(scene, rows_w, tmin, tmax, live=None,
                      with_diag=True, blk_bound=blk_bound,
                      count_pairs=with_diag, presort=presort, tqsort=tqsort,
                      lean=lean, cull=cull, kprim=scene.kprim,
-                     ktri_geo=scene.ktri_geo)
+                     ktri_geo=scene.ktri_geo, tq_bits=tq_bits)
 
     def exact(o, d):
         return packet_trace.trace_rays_packet(scene, o, d, tmin, tmax,
@@ -727,11 +746,12 @@ def trace_rows_stream3(scene, rows_w, tmin, tmax, live=None,
 
 
 def trace_rays_stream3(scene, origin, direction, tmin, tmax,
-                       any_hit: bool = False) -> HitRecord:
+                       any_hit: bool = False,
+                       tq_bits: int = W_TQ_BITS) -> HitRecord:
     """trace_rows_stream3 on [N, 3] world-space rays (one transpose);
     any_hit runs the occlusion wave."""
     return trace_rows_stream3(scene, rows_from_aos_fast(origin, direction),
-                              tmin, tmax, occl=any_hit)
+                              tmin, tmax, occl=any_hit, tq_bits=tq_bits)
 
 
 def trace_rows_cascade(scene, rows_w, tmin, tmax, near, live=None,
@@ -742,7 +762,7 @@ def trace_rows_cascade(scene, rows_w, tmin, tmax, near, live=None,
     leaves emitted), stage B re-traces only A's misses over the full
     window through the live mask.  Exact: a hit inside (tmin, near) is
     the closest one, and a miss re-runs the whole window.  modes go to
-    both trace_rows_stream3 calls (presort, tqsort, lean, cull).  With
+    both trace_rows_stream3 calls (presort, tqsort, lean, cull, tq_bits).  With
     with_diag, returns (rec, {"a": diag of A, "b": diag of B})."""
     rec_a, diag_a = trace_rows_stream3(scene, rows_w, tmin, near, live=live,
                                        occl=occl, with_diag=True, **modes)
@@ -760,7 +780,8 @@ def trace_rows_cascade(scene, rows_w, tmin, tmax, near, live=None,
 # ------------------------------------------------------- build_tracer
 
 def build_tracer(scene, presort: bool = False, tqsort: bool = False,
-                 lean: bool = False, cull: bool = False):
+                 lean: bool = False, cull: bool = False,
+                 tq_bits: int = W_TQ_BITS):
     """A host-loop closest-hit tracer for one single-instance scene
     (check supports(scene); stream3.py::build_tracer, :2940-2995):
     tracer(o, d, tmin, tmax) -> HitRecord, o and d [N, 3], or o the six
@@ -768,18 +789,20 @@ def build_tracer(scene, presort: bool = False, tqsort: bool = False,
     fixed: every flagged packet is re-traced exactly through the packet
     kernel (the reference's _residual_retrace, :2911-2937, which walks
     them in fixed RES_CAP chunks, a jit shape), so the record is
-    complete.  presort, tqsort, lean and cull are _run's modes.  The
+    complete.  presort, tqsort, lean, cull and tq_bits are _run's.  The
     reference's probe self-checks (_spot_check, _probe_check: defences
     against the TPU compiler miscompiling a kernel) are left out; the
     parity tests take their place."""
-    if not supports(scene):
+    if not supports(scene, tq_bits):
         raise ValueError("stream3 requires a single-instance scene with "
-                         "kernel tables (see kernel_pack.py)")
+                         "kernel tables (see kernel_pack.py) whose leaves a "
+                         f"{tq_bits}-bit tq word can address")
 
     def tracer(o, d, tmin, tmax):
         rows_w = tuple(o) if isinstance(o, (tuple, list)) \
             else rows_from_aos_fast(o, d)
         return trace_rows_stream3(scene, rows_w, tmin, tmax, presort=presort,
-                                  tqsort=tqsort, lean=lean, cull=cull)
+                                  tqsort=tqsort, lean=lean, cull=cull,
+                                  tq_bits=tq_bits)
 
     return tracer

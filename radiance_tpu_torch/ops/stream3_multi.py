@@ -73,6 +73,12 @@ then runs the temporal residual over the whole wave (stream3._tb_residual:
 live mask) through the per-instance packet sweeps, where the reference
 re-walks it with its two-level walk; rays past the residual's cap come
 back marked slot == -2.
+
+Word format and leaf width: both routes take tq_bits (stream3's; 5..9,
+default 9), and every BLAS of a scene shares the scene's leaf cap
+(MultiTables.leaf_cap).  A narrower tq reaches more GLOBAL leaf ids:
+supports_native(mt, tq_bits) is the reference's check under
+RADIANCE_TQ_BITS.
 """
 
 from __future__ import annotations
@@ -86,8 +92,9 @@ from radiance_tpu_torch.ops.intersect import FLT_MAX
 from radiance_tpu_torch.ops.stream3 import retrace_flagged
 from radiance_tpu_torch.ops.traversal import HitRecord
 from radiance_tpu_torch.ops.stream3_stages import (
-    BIG, FMAX, G, PCAP, W_LEAF_MAX, feats_rows_to_major, group_scalars,
-    octant_scalars, stage_emit, stage_isect, stage_refine)
+    BIG, FMAX, G, PCAP, W_LEAF_MAX, W_TQ_BITS, feats_rows_to_major,
+    group_scalars, octant_scalars, stage_emit, stage_isect, stage_refine,
+    word_format)
 
 BLK = s3.BLK
 PKT = s3.PKT
@@ -120,11 +127,13 @@ class MultiTables:
     [ceil8(sum nl), 8] f32, the leaf boxes of kernel C; and per slot
     inst_node_off [ninst] i32, the first row of its BLAS in nodef_cat,
     and inst_nk [ninst] i32, its BLAS's rows per octant (an octant's
-    table starts at inst_node_off + oct * inst_nk)."""
+    table starts at inst_node_off + oct * inst_nk); leaf_cap, the scene's
+    (kleaf_cat [sum nl, 16, 4 * leaf_cap])."""
 
     def __init__(self, scene):
         self.uniq = tuple(sorted(set(scene.inst_kblas)))
         self.ninst = len(scene.inst_kblas)
+        self.leaf_cap = scene.leaf_cap
         nodefs = [scene.kblas[b][0] for b in self.uniq]
         kleafs = [scene.kblas[b][1] for b in self.uniq]
         cat, boxes = [], []
@@ -227,14 +236,16 @@ def _block_overlap(rows_w, aabb_w, tmin, tmax, live=None):
 
 def trace_rows_multi(scene, mt, rows_w, tmin, tmax, *, bcap_blocks=None,
                      live=None, occl: bool = False, with_diag: bool = False,
-                     native: bool = False, blk_bound=None):
+                     native: bool = False, blk_bound=None,
+                     tq_bits: int = W_TQ_BITS):
     """Many-instance trace of six world-space [N] rows: closest hit, or
     with occl an occlusion wave (t = 0 on occluded rays).
 
     native: take the TLAS-native route (trace_rows_tlas) where
-    supports_native(mt) holds, as the reference does under
+    supports_native(mt, tq_bits) holds, as the reference does under
     RADIANCE_MULTI=native (stream3_multi.py:269-274); its diag is
-    trace_rows_tlas's.  Otherwise the instance scan:
+    trace_rows_tlas's.  tq_bits: the word format's tq width on either
+    route.  Otherwise the instance scan:
 
     bcap_blocks: per-instance block capacity (default: a quarter of the
     wave's blocks, at least G packets' worth), rounded up to whole groups
@@ -254,10 +265,10 @@ def trace_rows_multi(scene, mt, rows_w, tmin, tmax, *, bcap_blocks=None,
     "block_pairs_bounded" (the (word, block) pairs of all sub-waves before
     and after the cull), "tb_residual", "tb_cap" and "tb_marked"
     (stream3.trace_rows_stream3's)."""
-    if native and supports_native(mt):
+    if native and supports_native(mt, tq_bits):
         return trace_rows_tlas(scene, mt, rows_w, tmin, tmax, live=live,
                                occl=occl, with_diag=with_diag,
-                               blk_bound=blk_bound)
+                               blk_bound=blk_bound, tq_bits=tq_bits)
     n = rows_w[0].shape[0]
     dev = rows_w[0].device
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
@@ -323,7 +334,7 @@ def trace_rows_multi(scene, mt, rows_w, tmin, tmax, *, bcap_blocks=None,
         rec, diag = s3._run(sub, tmin, tmax, nodef, kleaf, scene.inst_inv[i],
                             live=live_i, stable=stable, occl=occl,
                             with_diag=True, blk_bound=bb_sub,
-                            count_pairs=with_diag)
+                            count_pairs=with_diag, tq_bits=tq_bits)
         # a step-capped or word-overflowed sub-packet lost hits for this
         # instance: its rays are poisoned, not returned as silent misses
         pkt_bad = diag["pkt_flag"] > 0
@@ -371,11 +382,13 @@ def _sweeps(scene, tmin, tmax, occl):
 
 # ------------------------------------------------------ TLAS-native slots
 
-def supports_native(mt) -> bool:
+def supports_native(mt, tq_bits: int = W_TQ_BITS) -> bool:
     """The native route applies when every GLOBAL leaf id of the
-    concatenated tables fits the packed word's leaf field
-    (stream3_multi.py:404-412; the same bound as stream3.supports)."""
-    return mt.kleaf_cat.shape[0] + 1 < W_LEAF_MAX
+    concatenated tables fits a tq_bits word's leaf field
+    (stream3_multi.py:404-412; the same bound as stream3.supports:
+    W_LEAF_MAX, doubled by each tq bit given up)."""
+    return (mt.kleaf_cat.shape[0] + 1
+            < W_LEAF_MAX << (W_TQ_BITS - word_format(tq_bits).tq_bits))
 
 
 def _prep_tlas(mt, inst_inv, rows_p, tmin, tmax, live_p, scap, *,
@@ -514,10 +527,11 @@ def _glue_tlas(out_u, pkt_of, inst_of, alive, npk, n) -> HitRecord:
 
 def trace_rows_tlas(scene, mt, rows_w, tmin, tmax, *, live=None,
                     occl: bool = False, scap=None, blk_bound=None,
-                    with_diag: bool = False):
+                    with_diag: bool = False, tq_bits: int = W_TQ_BITS):
     """TLAS-native many-instance trace of six world-space [N] rows
     (stream3_multi.py:574-761): closest hit, or with occl an occlusion
-    wave (t = 0 on occluded rays).  Check supports_native(mt).
+    wave (t = 0 on occluded rays).  Check supports_native(mt, tq_bits);
+    tq_bits is the word format's tq width.
 
     One launch each of kernel F (the slot frusta), B (emit over
     nodef_cat), C (refine over aabb8_cat), A (the features, ray-major)
@@ -561,10 +575,12 @@ def trace_rows_tlas(scene, mt, rows_w, tmin, tmax, *, live=None,
      pool_of) = _prep_tlas(mt, scene.inst_inv[:mt.ninst], rows_p, tmin,
                            tmax, live_p, scap, stable=stable)
     words, emeta = stage_emit(scal, smeta, bscal, mt.nodef_cat, tmax,
-                              step_cap=s3.STEP_CAP, pcap=PCAP)
+                              step_cap=s3.STEP_CAP, pcap=PCAP,
+                              tq_bits=tq_bits)
     slot_pkt = smeta[:, 0].contiguous()
     words_i, emeta_i = stage_refine(words, emeta, slot_pkt, feats_t,
-                                    mt.aabb8_cat, tmax, pcap=PCAP)
+                                    mt.aabb8_cat, tmax, pcap=PCAP,
+                                    tq_bits=tq_bits)
     words_b = words_i
     if blk_bound is not None:
         # slot_pkt maps word rows to storage slots, as for the refine
@@ -574,10 +590,11 @@ def trace_rows_tlas(scene, mt, rows_w, tmin, tmax, *, live=None,
                               bb8[torch.clamp(pkt_of, max=npk - 1).long()],
                               FLT_MAX)
         words_b = s3._apply_block_bound(words_i, slot_pkt,
-                                        bb_slot.reshape(-1))
+                                        bb_slot.reshape(-1), tq_bits)
     feats = feats_rows_to_major(feats_t)
     out_s = stage_isect(words_b, emeta_i, slot_pkt, feats, mt.kleaf_cat,
-                        tmin, tmax, stable=stable, pcap=PCAP, occl=occl)
+                        tmin, tmax, stable=stable, pcap=PCAP, occl=occl,
+                        tq_bits=tq_bits)
     inv_order = torch.empty_like(order)
     inv_order[order] = torch.arange(order.shape[0], device=order.device)
     rec = _glue_tlas(out_s[inv_order], pkt_of, inst_of, alive, npk, n)
@@ -602,9 +619,10 @@ def trace_rows_tlas(scene, mt, rows_w, tmin, tmax, *, live=None,
     a64 = alive_s.to(torch.int64)
     if blk_bound is not None:
         cnt = torch.clamp(emeta_i[:, 0], max=PCAP)
-        tb["block_pairs"] = int(s3._kept_pairs(words_i, cnt, alive_s))
+        tb["block_pairs"] = int(s3._kept_pairs(words_i, cnt, alive_s,
+                                               tq_bits))
         tb["block_pairs_bounded"] = int(s3._kept_pairs(words_b, cnt,
-                                                       alive_s))
+                                                       alive_s, tq_bits))
     return rec, {
         "slots_alive": int(alive.sum()), "scap": scap,
         "pool_overflow": int((pool_of > 0).sum()),

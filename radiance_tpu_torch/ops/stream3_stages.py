@@ -24,12 +24,20 @@ steps, refine and both pair intersections loops over word positions.
 Each kernel wrapper launches with its tensors' device made current
 (cuda_build.on_device) and counts its launches in `<wrapper>.launches`.
 
-Word format (the compiled-TPU default, 9 tq bits): one i32 per emitted
-(leaf, slot) pair, (leaf + 1) << 17 | keepmask << 9 | tq.  keepmask has
-one bit per 128-ray block of the slot's packet; tq is a quantised lower
-bound on the leaf's entry distance: C's sort form orders a list by it,
-D's cull and the temporal cull (stream3._apply_block_bound) compare it
-with a bound.
+Word format: one i32 per emitted (leaf, slot) pair, (leaf + 1) <<
+leaf_shift | keepmask << keep_shift | tq (WordFormat; by default the
+compiled-TPU format, 9 tq bits: (leaf + 1) << 17 | keepmask << 9 | tq).
+keepmask has one bit per 128-ray block of the slot's packet; tq is a
+quantised lower bound on the leaf's entry distance: C's sort form orders
+a list by it, D's cull and the temporal cull (stream3._apply_block_bound)
+compare it with a bound.  A narrower tq (tq_bits 5..9, the JAX package's
+RADIANCE_TQ_BITS) addresses more leaves: 7 bits reach 65,534, enough for
+a 1M-triangle scene built with a leaf cap of 64 (22,605 leaves on the
+city).  Every stage takes tq_bits (default 9); B, C, D and E are built
+once for each width a process uses, D and E also for each leaf width T
+of the scene's tables (kleaf [Nl, 16, 4T], T its leaf cap), as
+separate libraries (_spec): the default (T 128, 9 bits) compiles the
+sources as they read.
 
 Forms of C and D beside the default ones, as in the JAX module (each off
 by default): C's tq sort (sort=True, _refine3_kernel(sort=True)); D's
@@ -41,14 +49,15 @@ isect_cuda.cull_launches.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
 
-from radiance_tpu_torch.bvh.kernel_pack import KERNEL_MAX_TRIS
+from radiance_tpu_torch.bvh.kernel_pack import KERNEL_MAX_TRIS, check_leaf_cap
 from radiance_tpu_torch.ops import cuda_build
 
-T = KERNEL_MAX_TRIS         # triangles per kernel leaf
+T = KERNEL_MAX_TRIS         # triangles per kernel leaf at the default cap
 G = 8                       # slot pad granularity (the TPU walk's group)
 PKT = 1024                  # rays per packet (= walk slot granularity)
 BLK = 128                   # rays per phase-2 block (8 per packet)
@@ -59,14 +68,66 @@ EMIT_WINDOW = 32            # node rows kernel B loads per dependent load
 REFINE_SUB = 32             # rays per emit-refine sub-frustum
 NLANES = 8 * (BLK // REFINE_SUB)    # sub-frusta per packet (32)
 
-W_TQ_BITS = 9
-W_KEEP_SHIFT = W_TQ_BITS
-W_LEAF_SHIFT = W_TQ_BITS + 8
-W_TQ_MASK = (1 << W_TQ_BITS) - 1
-TQ_SHIFT = 27 - W_TQ_BITS
-TQ_BIAS3 = 125 << (W_TQ_BITS - 4)
-TQ_BUCKET_SHIFT = W_TQ_BITS - 5         # 32 tq counting-sort buckets
-W_LEAF_MAX = 1 << (31 - W_LEAF_SHIFT)   # leaf + 1 must stay below this
+
+def check_tq_bits(bits) -> int:
+    """The tq width as an int, or ValueError where the JAX package's
+    _apply_tq_bits (stream3.py:122-152) refuses it: 5..9."""
+    if (isinstance(bits, bool) or not isinstance(bits, int)
+            or not 5 <= bits <= 9):
+        raise ValueError(f"RADIANCE_TQ_BITS must be in [5, 9], got {bits} "
+                         f"(tq_bits)")
+    return bits
+
+
+@dataclasses.dataclass(frozen=True)
+class WordFormat:
+    """The word format of a tq width (stream3.py::_apply_tq_bits):
+    tq = clamp((f32 bits of max(tn, 0) >> tq_shift) - tq_bias3, 0,
+    tq_mask), 4 exponent bits and tq_bits - 4 mantissa bits covering tn in
+    [0.25, 16384), a lower bound on tn; the keep mask above it, the leaf
+    id + 1 above that, below leaf_max; C's sort buckets are tq >>
+    bucket_shift (32 of them).  Build through word_format()."""
+    tq_bits: int
+    keep_shift: int = dataclasses.field(init=False)
+    leaf_shift: int = dataclasses.field(init=False)
+    tq_mask: int = dataclasses.field(init=False)
+    tq_shift: int = dataclasses.field(init=False)
+    tq_bias3: int = dataclasses.field(init=False)
+    bucket_shift: int = dataclasses.field(init=False)
+    leaf_max: int = dataclasses.field(init=False)
+
+    def __post_init__(self):
+        b = check_tq_bits(self.tq_bits)
+        for k, v in dict(keep_shift=b, leaf_shift=b + 8,
+                         tq_mask=(1 << b) - 1, tq_shift=27 - b,
+                         tq_bias3=125 << (b - 4), bucket_shift=b - 5,
+                         leaf_max=1 << (31 - (b + 8))).items():
+            object.__setattr__(self, k, v)
+
+    def leaf(self, words):
+        """The leaf id of each word (0 for an empty word)."""
+        return torch.clamp((words >> self.leaf_shift) - 1, min=0)
+
+    def keep(self, words):
+        """The keep mask of each word (one bit per 128-ray block)."""
+        return (words >> self.keep_shift) & 255
+
+
+@functools.lru_cache(maxsize=None, typed=True)
+def word_format(tq_bits: int = 9) -> WordFormat:
+    return WordFormat(check_tq_bits(tq_bits))
+
+
+# the default (9-bit) format's values, under the JAX module's names
+_W9 = word_format(9)
+W_TQ_BITS = _W9.tq_bits
+W_KEEP_SHIFT = _W9.keep_shift
+W_LEAF_SHIFT = _W9.leaf_shift
+W_TQ_MASK = _W9.tq_mask
+TQ_SHIFT = _W9.tq_shift
+TQ_BIAS3 = _W9.tq_bias3
+TQ_BUCKET_SHIFT = _W9.bucket_shift   # 32 tq counting-sort buckets
+W_LEAF_MAX = _W9.leaf_max            # leaf + 1 must stay below this
 
 FMAX = 3.4028234663852886e38    # float32 max, exactly representable
 BIG = 1e30
@@ -103,13 +164,54 @@ LIBS = {
 }
 
 
-def load_kernels():
-    """Build (in parallel, where stale) and load the six libraries."""
-    return cuda_build.load_all(list(LIBS.values()))
+# the kernels whose source reads the tq width / the leaf width T
+_TQ_KEYS = ("emit", "refine", "isect", "isect_occl")
+_T_KEYS = ("isect", "isect_occl")
 
 
-def _lib(key: str):
-    return cuda_build.load(LIBS[key])
+@functools.lru_cache(maxsize=None)
+def _spec(key: str, leaf_cap: int = KERNEL_MAX_TRIS,
+          tq_bits: int = W_TQ_BITS) -> cuda_build.KernelLib:
+    """LIBS[key] built for leaf width leaf_cap and tq width tq_bits: the
+    library itself at the defaults (or where the kernel reads neither),
+    else a variant lib<name>_t<cap>_q<bits>.so with the source's
+    RT_LEAF_T / RT_TQ_BITS defines."""
+    check_leaf_cap(leaf_cap)
+    check_tq_bits(tq_bits)
+    defines, suffix = {}, ""
+    if key in _T_KEYS and leaf_cap != KERNEL_MAX_TRIS:
+        defines["RT_LEAF_T"] = leaf_cap
+        suffix += f"_t{leaf_cap}"
+    if key in _TQ_KEYS and tq_bits != W_TQ_BITS:
+        defines["RT_TQ_BITS"] = tq_bits
+        suffix += f"_q{tq_bits}"
+    return LIBS[key].variant(suffix, defines)
+
+
+def variant_libs(leaf_cap: int = KERNEL_MAX_TRIS,
+                 tq_bits: int = W_TQ_BITS):
+    """The libraries the pipeline launches on tables of leaf cap
+    `leaf_cap` at tq width `tq_bits` (for load_all)."""
+    return list(dict.fromkeys(_spec(k, leaf_cap, tq_bits) for k in LIBS))
+
+
+def load_kernels(leaf_cap: int = KERNEL_MAX_TRIS, tq_bits: int = W_TQ_BITS):
+    """Build (in parallel, where stale) and load the six libraries, for a
+    leaf cap and tq width (the defaults: the sources as they read)."""
+    return cuda_build.load_all(variant_libs(leaf_cap, tq_bits))
+
+
+def _lib(key: str, leaf_cap: int = KERNEL_MAX_TRIS,
+         tq_bits: int = W_TQ_BITS):
+    return cuda_build.load(_spec(key, leaf_cap, tq_bits))
+
+
+def leaf_width(kleaf: torch.Tensor) -> int:
+    """T of [Nl, 16, 4T] leaf tables, checked as a leaf cap."""
+    if kleaf.dim() != 3 or kleaf.shape[1] != 16 or kleaf.shape[2] % 4:
+        raise ValueError(f"kleaf must be [Nl, 16, 4T], got "
+                         f"{tuple(kleaf.shape)}")
+    return check_leaf_cap(kleaf.shape[2] // 4)
 
 
 def _cuda_only(fn: str, x: torch.Tensor) -> torch.device:
@@ -368,15 +470,17 @@ def _interval_test(bmn, bmx, s, tf0):
 
 
 def _emit_plain(scal, smeta, bscal, nodef, tmax, step_cap, pcap,
-                stats=None):
+                stats=None, tq_bits=W_TQ_BITS):
     """Plain version of kernel B: the lockstep walk of _emit3_kernel,
-    every live slot advanced one node per loop step.  stats, if a dict,
+    every live slot advanced one node per loop step, words in the format
+    of tq_bits (word_format).  stats, if a dict,
     receives "steps" and "max_steps" (nodes visited, in all and by the
     longest slot) and "window_loads" and "max_window_loads": the
     dependent loads of kernel B's walk, which loads EMIT_WINDOW rows from
     the cursor and follows the walk inside them."""
     dev = scal.device
     i32, i64 = torch.int32, torch.int64
+    fmt = word_format(tq_bits)
     nslot = scal.shape[0]
     tmax_t = torch.tensor(tmax, dtype=torch.float32, device=dev)
     words = torch.zeros(nslot, pcap, dtype=i32, device=dev)
@@ -403,9 +507,11 @@ def _emit_plain(scal, smeta, bscal, nodef, tmax, step_cap, pcap,
         keep = ((tf_b >= tn_b) & (tn_b < tmax_t)).view(-1, NLANES // 8, 8)
         kmask = (keep.any(dim=1).to(i32) * pow2).sum(dim=1, dtype=i32)
         tq = torch.clamp((torch.maximum(tn, torch.zeros_like(tn))
-                          .view(i32) >> TQ_SHIFT) - TQ_BIAS3, 0, W_TQ_MASK)
+                          .view(i32) >> fmt.tq_shift) - fmt.tq_bias3, 0,
+                         fmt.tq_mask)
         a = row[:, 8].to(i32)
-        word = ((a + 1) << W_LEAF_SHIFT) | (kmask << W_KEEP_SHIFT) | tq
+        word = (((a + 1) << fmt.leaf_shift) | (kmask << fmt.keep_shift)
+                | tq)
         is_leaf = row[:, 10] > 0.0
         emit = is_leaf & box_hit & (kmask > 0)
         c = cnt[act]
@@ -434,8 +540,10 @@ def _emit_plain(scal, smeta, bscal, nodef, tmax, step_cap, pcap,
     return words, emeta
 
 
-def emit_cuda(scal, smeta, bscal, nodef, tmax, step_cap, pcap):
-    """Kernel B: (words [nslot, pcap] i32, emeta [nslot, 8] i32).  Only
+def emit_cuda(scal, smeta, bscal, nodef, tmax, step_cap, pcap,
+              tq_bits=W_TQ_BITS):
+    """Kernel B: (words [nslot, pcap] i32, emeta [nslot, 8] i32), words
+    in the format of tq_bits (its library built for that width).  Only
     the first min(emeta[:, 0], pcap) words of a row are defined."""
     dev = _cuda_only("emit_cuda", scal)
     chk = functools.partial(cuda_build.check_tensor, "emit_cuda",
@@ -454,7 +562,7 @@ def emit_cuda(scal, smeta, bscal, nodef, tmax, step_cap, pcap):
     emeta = torch.empty(nslot, 8, dtype=torch.int32, device=dev)
     if nslot:
         with cuda_build.on_device(dev) as stream:
-            err = _lib("emit").rt_s3_emit(
+            err = _lib("emit", tq_bits=tq_bits).rt_s3_emit(
                 scal.data_ptr(), smeta.data_ptr(), bscal.data_ptr(),
                 nodef.data_ptr(), nslot, nodef.shape[0], float(tmax),
                 int(step_cap), int(pcap), words.data_ptr(),
@@ -468,11 +576,13 @@ emit_cuda.launches = 0
 
 
 def stage_emit(scal, smeta, bscal, nodef, tmax, *, step_cap=STEP_CAP,
-               pcap=PCAP):
+               pcap=PCAP, tq_bits=W_TQ_BITS):
     """Walk every slot: (words, emeta) with emeta lanes 0 count (past
-    pcap on overflow), 1 capped (walk cut at step_cap), 2 steps."""
+    pcap on overflow), 1 capped (walk cut at step_cap), 2 steps; words
+    in the format of tq_bits."""
     fn = emit_cuda if _route(scal) == "cuda" else _emit_plain
-    return fn(scal, smeta, bscal, nodef, tmax, step_cap, pcap)
+    return fn(scal, smeta, bscal, nodef, tmax, step_cap, pcap,
+              tq_bits=tq_bits)
 
 
 # ---------------------------------------------------------------------------
@@ -485,19 +595,21 @@ def _slot_rays(feats_t, slot_pkt, rows):
     return x[:, slot_pkt.to(torch.int64)]
 
 
-def tq_bucket(words):
+def tq_bucket(words, tq_bits=W_TQ_BITS):
     """The tq counting-sort bucket (0-31) of each word."""
-    return (words & W_TQ_MASK) >> TQ_BUCKET_SHIFT
+    fmt = word_format(tq_bits)
+    return (words & fmt.tq_mask) >> fmt.bucket_shift
 
 
 def _refine_plain(words, emeta, slot_pkt, feats_t, aabb8, tmax, pcap,
-                  sort=False):
+                  sort=False, tq_bits=W_TQ_BITS):
     """Plain version of kernel C: _refine3_kernel over every slot, one
     word position per loop step; with sort, each kept list then in stable
     tq-bucket order (a stable argsort by bucket, the rest of the row
     zero)."""
     dev = words.device
     i32, i64 = torch.int32, torch.int64
+    fmt = word_format(tq_bits)
     nslot = words.shape[0]
     tmax_t = torch.tensor(tmax, dtype=torch.float32, device=dev)
     cnt = torch.clamp(emeta[:, 0], max=pcap).to(i64)
@@ -512,7 +624,7 @@ def _refine_plain(words, emeta, slot_pkt, feats_t, aabb8, tmax, pcap,
             q = torch.nonzero(cnt[live] > j).squeeze(1)     # into live
             s = live[q]
             w = words[s, j]
-            box = aabb8[torch.clamp((w >> W_LEAF_SHIFT) - 1, min=0).to(i64)]
+            box = aabb8[fmt.leaf(w).to(i64)]
             tn = torch.zeros(q.numel(), PKT, dtype=torch.float32, device=dev)
             tf = torch.full_like(tn, FMAX)
             for k in range(3):
@@ -524,14 +636,15 @@ def _refine_plain(words, emeta, slot_pkt, feats_t, aabb8, tmax, pcap,
                 & (tn < tmax_t)
             kex = (ok.view(-1, 8, BLK).any(dim=2).to(i32) * pow2).sum(
                 dim=1, dtype=i32)
-            km = ((w >> W_KEEP_SHIFT) & 255) & kex
+            km = fmt.keep(w) & kex
             keep = km > 0
-            w2 = (w & ~(255 << W_KEEP_SHIFT)) | (km << W_KEEP_SHIFT)
+            w2 = (w & ~(255 << fmt.keep_shift)) | (km << fmt.keep_shift)
             out[s[keep], kept[s[keep]]] = w2[keep]
             kept[s] += keep.to(i64)
     if sort:
         pos = torch.arange(words.shape[1], device=dev)
-        key = torch.where(pos[None, :] < kept[:, None], tq_bucket(out), 32)
+        key = torch.where(pos[None, :] < kept[:, None],
+                          tq_bucket(out, tq_bits), 32)
         out = torch.gather(out, 1, torch.argsort(key, dim=1, stable=True))
     emeta_out = emeta.clone()
     emeta_out[:, 0] = kept.to(i32)
@@ -540,9 +653,10 @@ def _refine_plain(words, emeta, slot_pkt, feats_t, aabb8, tmax, pcap,
 
 
 def refine_cuda(words, emeta, slot_pkt, feats_t, aabb8, tmax, pcap,
-                sort=False, grid=0):
+                sort=False, grid=0, tq_bits=W_TQ_BITS):
     """Kernel C: (words', emeta'); only the first emeta'[:, 0] words of
-    a row are defined, in tq-bucket order with sort.  grid: the test
+    a row are defined, in tq-bucket order with sort, words of the format
+    of tq_bits (its library built for that width).  grid: the test
     kernel's blocks, each taking an equal share of the lists' 32-word
     chunks; 0 is the kernel's own choice, a full complement of blocks on
     every SM (refine_grid())."""
@@ -571,7 +685,7 @@ def refine_cuda(words, emeta, slot_pkt, feats_t, aabb8, tmax, pcap,
                               dtype=torch.int32, device=dev)
         at = scratch.data_ptr()
         with cuda_build.on_device(dev) as stream:
-            err = _lib("refine").rt_s3_refine(
+            err = _lib("refine", tq_bits=tq_bits).rt_s3_refine(
                 words.data_ptr(), emeta.data_ptr(), slot_pkt.data_ptr(),
                 feats_t.data_ptr(), feats_t.shape[1], aabb8.data_ptr(),
                 nslot, int(pcap), float(tmax), int(grid), int(bool(sort)),
@@ -602,13 +716,15 @@ def emit_window() -> int:
 
 
 def stage_refine(words, emeta, slot_pkt, feats_t, aabb8, tmax, *,
-                 pcap=PCAP, sort: bool = False):
+                 pcap=PCAP, sort: bool = False, tq_bits=W_TQ_BITS):
     """Exact per-ray slab refine of every word list: keep bits ANDed with
     the exact (leaf, 128-ray block) overlap, empty words dropped, order
     kept or, with sort, stable tq-bucket order (near leaves first); emeta'
-    lane 0 kept count, lane 4 the pre-refine count."""
+    lane 0 kept count, lane 4 the pre-refine count.  Words in the format
+    of tq_bits."""
     fn = refine_cuda if _route(words) == "cuda" else _refine_plain
-    return fn(words, emeta, slot_pkt, feats_t, aabb8, tmax, pcap, sort)
+    return fn(words, emeta, slot_pkt, feats_t, aabb8, tmax, pcap, sort,
+              tq_bits=tq_bits)
 
 
 # ---------------------------------------------------------------------------
@@ -662,7 +778,8 @@ def unparked(feats):
 
 
 def _isect_plain(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
-                 stable, lean=False, cull=False, stats=None):
+                 stable, lean=False, cull=False, stats=None,
+                 tq_bits=W_TQ_BITS):
     """Plain version of kernel D: for each word position, the Pluecker
     tests of every kept (slot, block) pair (_pair_tests), then a running
     per-ray best with the reference's tie rule (lower t, then lower leaf
@@ -674,9 +791,11 @@ def _isect_plain(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
     kept (leaf, block) pairs tested, "ray_tests": their rays that are not
     parked (unparked()), "tri_tests": each such ray times its leaf's
     triangle lanes -- the ray-triangle tests the function needs -- and,
-    with the cull, "culled": the pairs it skipped."""
+    with the cull, "culled": the pairs it skipped.  Words in the format
+    of tq_bits; the leaf width is kleaf's."""
     dev = words.device
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    fmt = word_format(tq_bits)
     nslot = words.shape[0]
     nt = kleaf.shape[2] // 4
     tmin_t = torch.tensor(tmin, dtype=f32, device=dev)
@@ -701,18 +820,18 @@ def _isect_plain(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
     for j in range(int(cnt.max()) if nslot else 0):
         sel = torch.nonzero(cnt > j).squeeze(1)
         w = words[sel, j]
-        kmask = (w >> W_KEEP_SHIFT) & 255
+        kmask = fmt.keep(w)
         ps, pb = torch.nonzero((kmask[:, None] >> bits) & 1, as_tuple=True)
         if cull:
             wbits = best_t.view(i32).view(nslot, 8, BLK).amax(dim=2)
-            run = lb_bits(w[ps]) < wbits[sel[ps], pb]
+            run = lb_bits(w[ps], tq_bits) < wbits[sel[ps], pb]
             culled += int((~run).sum())
             ps, pb = ps[run], pb[run]
         pairs += ps.numel()
         for c in range(0, ps.numel(), _ISECT_CHUNK):
             q, b = ps[c:c + _ISECT_CHUNK], pb[c:c + _ISECT_CHUNK]
             slot = sel[q]
-            leaf = torch.clamp((w[q] >> W_LEAF_SHIFT) - 1, min=0).to(i64)
+            leaf = fmt.leaf(w[q]).to(i64)
             if stats is not None:
                 need = act[slot_pkt[slot].to(i64), b]
                 ray_tests += need.sum()
@@ -748,15 +867,17 @@ def _isect_plain(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
     return torch.stack([best_t, best_prim, best_b1, best_b2], dim=2)
 
 
-def lb_bits(words):
+def lb_bits(words, tq_bits=W_TQ_BITS):
     """The quantised lower bound of each word's leaf entry distance as
-    f32 bits, (tq + TQ_BIAS3) << TQ_SHIFT, or 0 where tq is 0
-    (stream3.py:1915)."""
-    tq = words & W_TQ_MASK
-    return torch.where(tq == 0, 0, (tq + TQ_BIAS3) << TQ_SHIFT)
+    f32 bits, (tq + tq_bias3) << tq_shift, or 0 where tq is 0
+    (stream3.py:1915), in the format of tq_bits."""
+    fmt = word_format(tq_bits)
+    tq = words & fmt.tq_mask
+    return torch.where(tq == 0, 0, (tq + fmt.tq_bias3) << fmt.tq_shift)
 
 
 def _check_isect_args(fn, words, emeta, slot_pkt, feats, kleaf, pcap):
+    """The device and the leaf width T of a D or E launch's arguments."""
     dev = _cuda_only(fn, words)
     chk = functools.partial(cuda_build.check_tensor, fn, dev=dev)
     nslot = words.shape[0]
@@ -764,23 +885,25 @@ def _check_isect_args(fn, words, emeta, slot_pkt, feats, kleaf, pcap):
     chk("emeta", emeta, torch.int32, (nslot, 8))
     chk("slot_pkt", slot_pkt, torch.int32, (nslot,))
     chk("feats", feats, torch.float32, (None, 16))
-    chk("kleaf", kleaf, torch.float32, (None, 16, 4 * T))
+    chk("kleaf", kleaf, torch.float32, (None, 16, None))
     if feats.shape[0] % PKT:
         raise ValueError(f"{fn}: feats must hold whole packets")
-    return dev
+    return dev, leaf_width(kleaf)
 
 
 def isect_cuda(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
-               stable, lean=False, cull=False, stats=None):
+               stable, lean=False, cull=False, stats=None,
+               tq_bits=W_TQ_BITS):
     """Kernel D: out [nslot, PKT, 4] f32 (t, prim, b1, b2); rays with no
     hit hold (FLT_MAX, -1, 0, 0).  lean leaves b1, b2 zero; cull skips
     the (word, block) pairs whose entry bound is at or past every ray's
     best.  Its three launches share a [nslot * PKT] i64 scratch of
     per-ray keys.  stats, if a dict, receives with the cull "culled": the
     pairs the kernel skipped, counted on the card (a subset of
-    _isect_plain's, which reads the bests of the whole list)."""
-    dev = _check_isect_args("isect_cuda", words, emeta, slot_pkt, feats,
-                            kleaf, pcap)
+    _isect_plain's, which reads the bests of the whole list).  Launches
+    the library built for kleaf's leaf width and tq_bits."""
+    dev, lt = _check_isect_args("isect_cuda", words, emeta, slot_pkt, feats,
+                                kleaf, pcap)
     if not _aligned(feats, kleaf):
         raise ValueError("isect_cuda: feats and kleaf must be 16-byte "
                          "aligned")
@@ -793,7 +916,7 @@ def isect_cuda(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
     if nslot:
         keys = torch.empty(nslot * PKT, dtype=torch.int64, device=dev)
         with cuda_build.on_device(dev) as stream:
-            err = _lib("isect").rt_s3_isect(
+            err = _lib("isect", lt, tq_bits).rt_s3_isect(
                 words.data_ptr(), emeta.data_ptr(), slot_pkt.data_ptr(),
                 feats.data_ptr(), kleaf.data_ptr(), nslot, int(pcap),
                 float(tmin), float(tmax), int(bool(stable)), int(bool(lean)),
@@ -820,7 +943,8 @@ isect_cuda.cull_launches = 0
 # ---------------------------------------------------------------------------
 
 def _isect_occl_plain(words, emeta, slot_pkt, feats, kleaf, tmin, tmax,
-                      pcap, stable, stats=None, live=None):
+                      pcap, stable, stats=None, live=None,
+                      tq_bits=W_TQ_BITS):
     """Plain version of kernel E under the reference's schedule: words in
     list order, each kept (slot, block) pair tested (_pair_tests) unless
     every ray of its block is already occluded, a slot's list left once
@@ -830,9 +954,10 @@ def _isect_occl_plain(words, emeta, slot_pkt, feats, kleaf, tmin, tmax,
     that the function needs tested, those not yet occluded and, with
     `live` ([Npad] bool, ray-major like feats), live, and "tri_tests":
     each such ray times its leaf's triangle lanes (a padded lane, zero
-    edge rows 3-5, can never occlude)."""
+    edge rows 3-5, can never occlude).  Words in the format of tq_bits."""
     dev = words.device
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    fmt = word_format(tq_bits)
     nslot = words.shape[0]
     tmin_t = torch.tensor(tmin, dtype=f32, device=dev)
     tmax_t = torch.tensor(tmax, dtype=f32, device=dev)
@@ -851,13 +976,13 @@ def _isect_occl_plain(words, emeta, slot_pkt, feats, kleaf, tmin, tmax,
         sat = occ.view(nslot, 8, BLK).all(dim=2)            # [nslot, 8]
         sel = torch.nonzero((cnt > j) & ~sat.all(dim=1)).squeeze(1)
         w = words[sel, j]
-        kept = (((w >> W_KEEP_SHIFT)[:, None] >> bits) & 1).bool()
+        kept = ((fmt.keep(w)[:, None] >> bits) & 1).bool()
         ps, pb = torch.nonzero(kept & ~sat[sel], as_tuple=True)
         pairs += ps.numel()
         for c in range(0, ps.numel(), _ISECT_CHUNK):
             q, b = ps[c:c + _ISECT_CHUNK], pb[c:c + _ISECT_CHUNK]
             slot = sel[q]
-            leaf = torch.clamp((w[q] >> W_LEAF_SHIFT) - 1, min=0).to(i64)
+            leaf = fmt.leaf(w[q]).to(i64)
             pk = slot_pkt[slot].to(i64)
             x = xs[pk, b]                                      # [c, BLK, 16]
             ok = _pair_tests(x, kleaf[leaf], stable, tmin_t, tmax_t)[4]
@@ -880,11 +1005,12 @@ def _isect_occl_plain(words, emeta, slot_pkt, feats, kleaf, tmin, tmax,
 
 
 def isect_occl_cuda(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
-                    stable):
+                    stable, tq_bits=W_TQ_BITS):
     """Kernel E: out [nslot, PKT, 4] f32, (0, 0, 0, 0) on an occluded ray,
-    (FLT_MAX, -1, 0, 0) otherwise, on refined or emitted word lists."""
-    dev = _check_isect_args("isect_occl_cuda", words, emeta, slot_pkt,
-                            feats, kleaf, pcap)
+    (FLT_MAX, -1, 0, 0) otherwise, on refined or emitted word lists.
+    Launches the library built for kleaf's leaf width and tq_bits."""
+    dev, lt = _check_isect_args("isect_occl_cuda", words, emeta, slot_pkt,
+                                feats, kleaf, pcap)
     if not _aligned(feats, kleaf):
         raise ValueError("isect_occl_cuda: feats and kleaf must be 16-byte "
                          "aligned")
@@ -892,7 +1018,7 @@ def isect_occl_cuda(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
     out = torch.empty(nslot, PKT, 4, dtype=torch.float32, device=dev)
     if nslot:
         with cuda_build.on_device(dev) as stream:
-            err = _lib("isect_occl").rt_s3_isect_occl(
+            err = _lib("isect_occl", lt, tq_bits).rt_s3_isect_occl(
                 words.data_ptr(), emeta.data_ptr(), slot_pkt.data_ptr(),
                 feats.data_ptr(), kleaf.data_ptr(), nslot, int(pcap),
                 float(tmin), float(tmax), int(bool(stable)), out.data_ptr(),
@@ -907,19 +1033,20 @@ isect_occl_cuda.launches = 0
 
 def stage_isect(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, *,
                 stable: bool, pcap=PCAP, occl: bool = False,
-                lean: bool = False, cull: bool = False):
+                lean: bool = False, cull: bool = False, tq_bits=W_TQ_BITS):
     """Pair intersection of every slot's word list against its packet's
     rays (ray-major feats [Npad, 16]): closest hit (kernel D, on refined
     lists; lean and cull select its forms) or, with occl, occlusion
-    (kernel E, on refined or emitted lists)."""
+    (kernel E, on refined or emitted lists).  Words in the format of
+    tq_bits, leaves of kleaf's width."""
     cuda = _route(words) == "cuda"
     if occl:
         fn = isect_occl_cuda if cuda else _isect_occl_plain
         return fn(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
-                  stable)
+                  stable, tq_bits=tq_bits)
     fn = isect_cuda if cuda else _isect_plain
     return fn(words, emeta, slot_pkt, feats, kleaf, tmin, tmax, pcap,
-              stable, lean=lean, cull=cull)
+              stable, lean=lean, cull=cull, tq_bits=tq_bits)
 
 
 KERNELS = {"aos_rows": aos_rows_cuda, "transpose": transpose_cuda,

@@ -6,7 +6,9 @@ TLAS-native route on the card against their CPU routes, and sample1's RD-API rou
 render of the same inputs; a temporally bounded stream3 wave against
 its unbounded trace, and the temporal cull on the card against the CPU;
 kernel C's tq-sort form and kernel D's lean and cull forms against their
-plain versions on hand-made lists, long lists and exact ties.
+plain versions on hand-made lists, long lists and exact ties; and B-E and
+the packet kernel built for leaf caps 64, 256 and 512 and tq widths 7, 9
+and 5 against their plain versions.
 
 Every case is marked `gpu` and skips (with the reason) where no CUDA
 card is present; the `cuda` fixture decides at run time, never at
@@ -249,9 +251,9 @@ def test_s3_transpose_bit_exact(cuda):
     assert stg.transpose_cuda.launches == 4
 
 
-def _s3_stages(dev, tlas, n=8192, seed=7):
+def _s3_stages(dev, tlas, n=8192, seed=7, leaf_cap=128):
     """A mixed-octant wave through prep on `dev`: the stage inputs."""
-    ds = tlas.device_scene(dev)
+    ds = tlas.device_scene(dev, leaf_cap=leaf_cap)
     o, d = _rays(seed, n, 10.0)
     rows = s3.rows_from_aos(torch.from_numpy(o).to(dev),
                             torch.from_numpy(d).to(dev))
@@ -430,6 +432,71 @@ def test_s3_wave_matches_packet_kernel(cuda, masked):
     assert hit.mean() > 0.05
     if masked:
         assert not hit[~live.cpu().numpy()].any()
+
+
+@pytest.mark.parametrize("cap,bits", [(64, 7), (256, 9), (512, 5)])
+def test_leaf_cap_and_tq_width_match_plain(cuda, cap, bits):
+    """The kernels at a leaf cap and tq width other than (128, 9), each
+    built for it (B and C for the width, D and E for both, the packet
+    kernel's wide tile past 128 lanes in dynamic shared memory), against
+    its plain version: B's and C's word lists (unsorted and tq-sorted)
+    identical, D to the traversal bars, E on >= 0.999 of rays, the packet
+    kernel's closest and any-hit traces; then the whole stream3 wave at
+    the width against the packet kernel."""
+    tlas = _scene(_mesh(10, 3000, 8.0))
+    ds = tlas.device_scene(cuda, leaf_cap=cap)
+    assert ds.leaf_cap == cap and ds.kleaf.shape[2] == 4 * cap
+    o, d = _rays(1, 5000, 10.0)
+    for any_hit in (False, True):
+        out = {}
+        for dev in ("cpu", cuda):
+            out[str(dev)] = pk.trace_rays_packet(
+                tlas.device_scene(dev, leaf_cap=cap),
+                torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev),
+                1e-3, 1e3, any_hit=any_hit)
+        assert _agree(out["cpu"], out["cuda"], any_hit).mean() > 0.05
+
+    ds, feats_t, scal, smeta, bscal = _s3_stages(cuda, tlas, leaf_cap=cap)
+    args = (scal, smeta, bscal, ds.knode_f, 1e3, stg.STEP_CAP, stg.PCAP)
+    wk, ek = stg.emit_cuda(*args, tq_bits=bits)
+    wp, ep = stg._emit_plain(*args, tq_bits=bits)
+    assert torch.equal(ek, ep)
+    valid = (torch.arange(stg.PCAP, device=cuda)[None, :]
+             < torch.clamp(ek[:, :1], max=stg.PCAP))
+    assert torch.equal(wk[valid], wp[valid]) and int(valid.sum()) > 100
+    slot_pkt = smeta[:, 0].contiguous()
+    aabb8 = s3.leaf_aabb8(ds.knode_f, ds.kleaf.shape[0])
+    for sort in (False, True):
+        rk, rek = stg.refine_cuda(wk, ek, slot_pkt, feats_t, aabb8, 1e3,
+                                  stg.PCAP, sort=sort, tq_bits=bits)
+        rp, rep = stg._refine_plain(wp, ep, slot_pkt, feats_t, aabb8, 1e3,
+                                    stg.PCAP, sort=sort, tq_bits=bits)
+        assert torch.equal(rek, rep)
+        kept = torch.arange(stg.PCAP, device=cuda)[None, :] < rek[:, :1]
+        assert torch.equal(rk[kept], rp[kept])
+    feats = feats_t.t().contiguous()
+    iargs = (rk, rek, slot_pkt, feats, ds.kleaf, 1e-3, 1e3, stg.PCAP,
+             ds.stable_frames)
+    ok = stg.isect_cuda(*iargs, tq_bits=bits)
+    op = stg._isect_plain(*iargs, tq_bits=bits)
+    ref = pk.HitRecord(t=op[..., 0].reshape(-1), prim=op[..., 1].reshape(-1),
+                       slot=None, b1=None, b2=None)
+    got = pk.HitRecord(t=ok[..., 0].reshape(-1), prim=ok[..., 1].reshape(-1),
+                       slot=None, b1=None, b2=None)
+    assert _agree(ref, got, False).mean() > 0.02
+    eargs = (wk, ek) + iargs[2:]
+    occ_k = stg.isect_occl_cuda(*eargs, tq_bits=bits)
+    occ_p = stg._isect_occl_plain(*eargs, tq_bits=bits)
+    assert float((occ_k == occ_p).all(dim=2).float().mean()) >= 0.999
+    assert 0.02 < float((occ_k[..., 0] == 0).float().mean()) < 0.98
+
+    o, d = _rays(3, 20000, 10.0)
+    o_t, d_t = torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda)
+    wave = s3.trace_rows_stream3(ds, s3.rows_from_aos_fast(o_t, d_t), 1e-3,
+                                 1e3, tq_bits=bits)
+    torch.cuda.synchronize()
+    assert _agree(pk.trace_rays_packet(ds, o_t, d_t, 1e-3, 1e3), wave,
+                  False).mean() > 0.05
 
 
 def _values_equal(a, b):
