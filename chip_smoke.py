@@ -226,7 +226,19 @@ prints no result):
      a fresh render_sample1 at the edited camera; then `python -m
      radiance_tpu_torch.samples.sample1 --interactive` and `--web` (64x64,
      2 frames) each in its own process on the card;
- 18. the kernels' JSON line (per kernel: the main path's launches, the
+ 18. the SAH-driven leaf collapse (chip_smoke.collapse_and_windows): the
+     city built greedy and with collapse="sah" at rho 0.15, caps 128 and
+     64 (leaves, MiB, build seconds); on the SAH builds, driven, the
+     three 1080p waves, stream3's primary and shadow, multi64 at SAH on
+     the native route and a 1080p b1 d2 frame; the SAH hits held to the
+     greedy builds' on the same rays (the frame within u8 RMSE 2.0),
+     every build's waves timed (B-E a launch from torch.profiler), the
+     SAH builds' kernels held to their plain versions.  Phases [5], [7],
+     [12] (d) and [14] also run their waves with kernel B's step cap in
+     windows of 8 rows (the default) and of 1 in turns (step_rows_wave:
+     flagged packets, residual, B's ms and longest walk; every launch of
+     B held to its plain version at both);
+ 19. the kernels' JSON line (per kernel: the main path's launches, the
      per-launch means of kernel ms, plain ms and bound and their sums,
      by scene where a kernel runs in several; A from phase 5, B and C
      also phase 5's 1080p wave, F phase 7's masked 1080p rows; each
@@ -238,7 +250,9 @@ prints no result):
      line, and the contract's last line; every row also carries its
      launches in each driven path of phases [14]-[17] and its numbers at
      cap 64 / tq 7 (`leaf64_1080p`) and on the 256-lane probe
-     (`wide256_probe`).
+     (`wide256_probe`), and phase [18]'s launches (`collapse_launches`)
+     and per-build ms (`collapse_1080p`); B's row the step windows'
+     waves (`step_windows`).
 
 Imports nothing of JAX or radiance_tpu (bench.py's numpy-only scene
 helpers are reused).  Needs one CUDA card; exits 2 without one.
@@ -594,80 +608,82 @@ def oscal_launches(stg, calls, ms, where):
 
 
 def emit_counts(stg, launches):
-    """Kernel B's needed work on launches that share nodef, tmax and
-    step_cap ((scal, smeta, nodef, tmax, step_cap) each), from one walk of
-    all their slots that makes only the slot-frustum test (the cursor
-    never depends on the sub-frustum tests): per launch, each slot's
-    nodes visited (emeta lane 2), the visited leaves the slot frustum
-    hits (each needs the 32 sub-frustum tests) and the distinct node rows
-    visited.  The slots step together under a mask, with one host sync
-    each 64 steps."""
-    _, _, nodef, tmax, step_cap = launches[0]
+    """Kernel B's needed work on launches that share nodef, tmax, step_cap
+    and step_rows ((scal, smeta, nodef, tmax, step_cap, step_rows) each),
+    from the walk of all their slots (stream3_stages._walk_paths: only the
+    slot-frustum test, on which the cursor depends), the cap counted as
+    the kernel counts it: per launch, each slot's step windows (emeta lane
+    2) and nodes visited, the visited leaves the slot frustum hits (each
+    needs the 32 sub-frustum tests) and the distinct node rows
+    visited."""
+    _, _, nodef, tmax, step_cap, step_rows = launches[0]
     scal = torch.cat([x[0] for x in launches])
     smeta = torch.cat([x[1] for x in launches])
     sizes = [x[0].shape[0] for x in launches]
     dev, i64 = scal.device, torch.int64
     lid = torch.repeat_interleave(torch.arange(len(sizes), device=dev),
                                   torch.tensor(sizes, device=dev))
-    idx = torch.where(smeta[:, 1] > 0, 0, -1).to(i64)
-    base = smeta[:, 2].to(i64)
-    steps, hits = torch.zeros_like(idx), torch.zeros_like(idx)
+    steps, nodes, hits = (torch.zeros(scal.shape[0], dtype=i64, device=dev)
+                          for _ in range(3))
     nrows = nodef.shape[0]
+    # row nrows: no row (the rows a walk does not visit)
     seen = torch.zeros(len(sizes), nrows + 1, dtype=torch.bool, device=dev)
-    tmax_t = torch.tensor(tmax, dtype=torch.float32, device=dev)
-    for k in range(int(step_cap)):
-        if k % 64 == 0 and not bool((idx >= 0).any()):
-            break
-        on = idx >= 0
-        at = torch.where(on, base + idx, nrows)     # row nrows: no row
-        row = nodef[torch.clamp(at, max=nrows - 1)]
-        tn, tf = stg._interval_test(row[:, 0:3], row[:, 3:6], scal,
-                                    float(tmax))
-        hit = (tf >= tn) & (tn < tmax_t)
-        leaf = row[:, 10] > 0.0
-        hits += on & leaf & hit
-        seen[lid, at] = True
-        steps += on.to(i64)
-        idx = torch.where(on, torch.where(leaf | ~hit, row[:, 9], row[:, 8])
-                          .to(i64), idx)
+    for sl, base, row, _, hit, walked, st, _ in stg._walk_paths(
+            nodef, scal, smeta, tmax, step_cap, step_rows):
+        steps[sl] = st
+        nodes[sl] = walked.sum(dim=1)
+        hits[sl] = (walked & (row[..., 10] > 0.0) & hit).sum(dim=1)
+        at = base[:, None] + torch.arange(walked.shape[1], device=dev)
+        seen[lid[sl][:, None], torch.where(walked, at, nrows)] = True
     rows = seen[:, :nrows].sum(dim=1).tolist()
-    return [(st, int(h.sum()), r) for st, h, r in
-            zip(steps.split(sizes), hits.split(sizes), rows)]
+    return [(st, nd, int(h.sum()), r) for st, nd, h, r in
+            zip(steps.split(sizes), nodes.split(sizes), hits.split(sizes),
+                rows)]
 
 
-def emit_bound(bscal, emeta, pcap, hit_leaves, rows):
-    """Kernel B's (bound, steps, words) on one launch from its emeta and
+def emit_bound(bscal, emeta, pcap, nodes, hit_leaves, rows):
+    """Kernel B's (bound, nodes, words) on one launch from its emeta and
     emit_counts(): an interval test of ~30 FLOPs a visited node and 32
     more at each visited leaf the slot frustum hits; the 48 bytes B
     reads of each distinct node row visited, the words written, the slot
     rows and bscal read."""
-    steps = int(emeta[:, 2].sum())
     words = int(torch.clamp(emeta[:, 0], max=pcap).sum())
-    return (bound((steps + 32 * hit_leaves) * 30,
+    return (bound((nodes + 32 * hit_leaves) * 30,
                   rows * 48 + words * 4
                   + emeta.shape[0] * (16 + 8 + 8) * 4 + bscal.numel() * 4),
-            steps, words)
+            nodes, words)
+
+
+def emit_args(stg, a, k):
+    """The arguments of a recorded stage_emit call (args a, kwargs k) as
+    emit_hold() and emit_bounds() take them: stage_emit's, then step_cap,
+    pcap and step_rows."""
+    return a + (k.get("step_cap", stg.STEP_CAP), k.get("pcap", stg.PCAP),
+                k.get("step_rows", stg.STEP_ROWS))
 
 
 def emit_bounds(stg, runs):
     """emit_bound() of each of runs ((stage_emit's arguments, then
-    step_cap and pcap), the kernel's emeta), from emit_counts() over the
-    launches that share nodef, tmax and step_cap; fails unless the
-    counted steps are the kernel's."""
+    step_cap, pcap and step_rows: emit_args()), the kernel's emeta) and
+    its longest walk in nodes, from emit_counts() over the launches that
+    share nodef, tmax, step_cap and step_rows: (bound, nodes, words,
+    longest walk's nodes) a run; fails unless the counted step windows
+    are the kernel's."""
     groups = {}
     for j, (a, _) in enumerate(runs):
         groups.setdefault((a[3].data_ptr(), a[3].shape[0], float(a[4]),
-                           int(a[5])), []).append(j)
+                           int(a[5]), int(a[7])), []).append(j)
     out = [None] * len(runs)
     for js in groups.values():
         counts = emit_counts(stg, [runs[j][0][:2] + runs[j][0][3:6]
-                                   for j in js])
-        for j, (steps, hit_leaves, rows) in zip(js, counts):
+                                   + runs[j][0][7:8] for j in js])
+        for j, (steps, nodes, hit_leaves, rows) in zip(js, counts):
             a, emeta = runs[j]
             if not torch.equal(steps, emeta[:, 2].to(torch.int64)):
                 raise AssertionError("emit: the kernel's steps differ from "
                                      "a walk of each slot")
-            out[j] = emit_bound(a[2], emeta, a[6], hit_leaves, rows)
+            out[j] = emit_bound(a[2], emeta, a[6], int(nodes.sum()),
+                                hit_leaves, rows) + (int(nodes.max()),)
     return out
 
 
@@ -693,14 +709,15 @@ def refine_bound(stg, words_in, emeta, emeta_out, pcap, tq_bits=9):
 
 
 def emit_hold(stg, args, out_k, tq_bits=9):
-    """Kernel B's output (words, emeta) on stage_emit's arguments and
-    then step_cap and pcap, against _emit_plain's: emeta identical and
-    the valid words identical, else fail.  Returns (plain ms, the plain
-    walk's stats: steps and kernel B's window loads).  Words of
-    tq_bits."""
+    """Kernel B's output (words, emeta) on emit_args()'s arguments
+    (stage_emit's, then step_cap, pcap and step_rows) against
+    _emit_plain's: emeta identical and the valid words identical, else
+    fail.  Returns (plain ms, the plain walk's stats: step windows, nodes
+    and kernel B's window loads).  Words of tq_bits."""
     st = {}
     p_ms, (wp, ep) = cuda_ms(lambda: stg._emit_plain(
-        *args, stats=st, tq_bits=tq_bits), 1, warmup=False)
+        *args[:7], stats=st, tq_bits=tq_bits, step_rows=args[7]), 1,
+        warmup=False)
     wk, ek = out_k
     diff = first_word_diff(wk, wp, torch.clamp(ep[:, 0], max=args[6]))
     if not torch.equal(ek, ep) or diff is not None:
@@ -727,8 +744,8 @@ def chain_launches(stg, calls, ms, scene, held):
     """Kernels B and C on every recorded launch of one scene's frames
     (calls and ms: Calls.calls and launch_ms() of them, tags "scene" or
     "scene/wave"): each launch's kernel ms and bound, its chain length
-    (B: the longest slot's steps and the capped slots; C: the longest
-    list), and for the launches held(emit rows) picks (indices into the
+    (B: the longest slot's step windows and nodes and the capped slots;
+    C: the longest list), and for the launches held(emit rows) picks (indices into the
     scene's launches), the plain version's ms and B's window stats, each
     held against its plain version.  Returns {"emit": rows, "refine":
     rows}, a dict a launch."""
@@ -739,14 +756,15 @@ def chain_launches(stg, calls, ms, scene, held):
         raise AssertionError(f"{scene}: emit and refine launches unpaired")
     out = {"emit": [], "refine": []}
     bounds = emit_bounds(stg, [
-        (a + (k.get("step_cap", stg.STEP_CAP), k.get("pcap", stg.PCAP)),
-         res[1]) for _, a, k, res in (calls["emit"][i] for i in pick)])
-    for i, (b, steps, words) in zip(pick, bounds):
+        (emit_args(stg, a, k), res[1])
+        for _, a, k, res in (calls["emit"][i] for i in pick)])
+    for i, (b, nodes, words, max_nodes) in zip(pick, bounds):
         tag, a, k, (wk, ek) = calls["emit"][i]
         pcap = k.get("pcap", stg.PCAP)
         out["emit"].append(dict(
-            tag=tag, ms=ms["emit"][i], bound=b, steps=steps, words=words,
-            longest_walk=int(ek[:, 2].max()), capped=int(ek[:, 1].sum()),
+            tag=tag, ms=ms["emit"][i], bound=b, nodes=nodes, words=words,
+            steps=int(ek[:, 2].sum()), longest_walk=int(ek[:, 2].max()),
+            longest_walk_nodes=max_nodes, capped=int(ek[:, 1].sum()),
             longest_list=int(torch.clamp(ek[:, 0], max=pcap).max())))
         tag, ra, rk, (rw, re) = calls["refine"][i]
         b, words, kept = refine_bound(stg, ra[0], ra[1], re,
@@ -758,8 +776,7 @@ def chain_launches(stg, calls, ms, scene, held):
     for j in held(out["emit"]):
         i = pick[j]
         _, a, k, res = calls["emit"][i]
-        p_ms, st = emit_hold(stg, a + (k.get("step_cap", stg.STEP_CAP),
-                                       k.get("pcap", stg.PCAP)), res)
+        p_ms, st = emit_hold(stg, emit_args(stg, a, k), res)
         out["emit"][j].update(plain_ms=p_ms, **st)
         _, ra, rk, res = calls["refine"][i]
         feats_t = torch.zeros(16, ra[3].shape[1], device=ra[3].device)
@@ -772,10 +789,12 @@ def chain_launches(stg, calls, ms, scene, held):
 
 def log_chains(scene, bc, card):
     """Log chain_launches() results: each launch's kernel ms and chain
-    length (B: [ms, longest walk, capped slots]; C: [ms, longest list]),
-    then per wave (tag) and in all, B's and C's summaries."""
+    length (B: [ms, longest walk in step windows and in nodes, capped
+    slots]; C: [ms, longest list]), then per wave (tag) and in all, B's
+    and C's summaries."""
     for kind, name, keys in (
-            ("emit", "B (stream3_emit)", ("longest_walk", "capped")),
+            ("emit", "B (stream3_emit)", ("longest_walk",
+                                          "longest_walk_nodes", "capped")),
             ("refine", "C (stream3_refine)", ("longest_list",))):
         rows = bc[kind]
         log(f"    {name} per launch on {scene}, [ms, {', '.join(keys)}]: "
@@ -803,8 +822,9 @@ def multi_held(rows):
 
 def chain_summary(rows, kind):
     """summary() of chain_launches() rows of one kernel ("emit" or
-    "refine") and the chain lengths: B's longest walk, capped slots and
-    nodes visited a window load (from the held launches' plain walks);
+    "refine") and the chain lengths: B's longest walk (step windows and
+    nodes), capped slots, step windows and nodes, and nodes visited a
+    window load (from the held launches' plain walks);
     C's longest list and kept words.  The plain version's keys are only
     the held launches': plain_ms their mean, plain_ms_sum their sum,
     plain_held their number."""
@@ -823,12 +843,15 @@ def chain_summary(rows, kind):
     held = [r for r in rows if "plain_ms" in r]
     loads = sum(r["window_loads"] for r in held)
     res.update(longest_walk=max(r["longest_walk"] for r in rows),
+               longest_walk_nodes=max(r["longest_walk_nodes"]
+                                      for r in rows),
                capped=sum(r["capped"] for r in rows),
                steps=sum(r["steps"] for r in rows),
+               nodes=sum(r["nodes"] for r in rows),
                held_window_loads=loads,
                held_max_window_loads=max(r["max_window_loads"]
                                          for r in held),
-               nodes_per_load=sum(r["steps"] for r in held) / max(loads, 1))
+               nodes_per_load=sum(r["nodes"] for r in held) / max(loads, 1))
     return res
 
 
@@ -849,16 +872,16 @@ PROFILE_TRIES = 3
 # keeps only these
 REFINE_ROWS = [0, 1, 2, 6, 7, 8]
 # the multi64 frame's launches of B and C held against their plain
-# versions (the plain walk takes about a second a launch): every
-# MULTI_HOLD_STRIDE-th, and in each wave the launch with the longest walk
-# and the launch with the longest list
+# versions: every MULTI_HOLD_STRIDE-th, and in each wave the launch with
+# the longest walk and the launch with the longest list
 MULTI_HOLD_STRIDE = 16
 # B and C on the city frames: every CITY_HOLD_STRIDE-th launch held
 CITY_HOLD_STRIDE = 2
 # chain_summary()'s keys beyond summary()'s
 CHAIN_KEYS = ("plain_held", "words", "kept", "longest_list",
-              "chunks_per_launch", "max_chunks", "longest_walk", "capped",
-              "steps", "held_window_loads", "held_max_window_loads",
+              "chunks_per_launch", "max_chunks", "longest_walk",
+              "longest_walk_nodes", "capped", "steps", "nodes",
+              "held_window_loads", "held_max_window_loads",
               "nodes_per_load")
 
 
@@ -878,7 +901,13 @@ class Calls:
                                 (s3, "octant_scalars"))
             if names is None or n in names)
         self.keep_args = keep_args
-        self.calls = {k: [] for k in FAMILIES}
+        # the wrapper keys the recorded dispatchers can give (launch_ms
+        # holds each key's kernel records to its calls)
+        keys = {"packet_trace": ("packet_trace",), "stage_emit": ("emit",),
+                "stage_refine": ("refine",),
+                "stage_isect": ("isect", "isect_occl"),
+                "octant_scalars": ("oscal",)}
+        self.calls = {k: [] for _, n in self.sites for k in keys[n]}
         self.tag = None
 
     @staticmethod
@@ -968,15 +997,16 @@ def launch_ms(prof, calls):
     return out
 
 
-def profiled(pk, s3, fn, keep_args=True):
-    """fn(calls) with every kernel dispatcher's call recorded (Calls) under
-    cuda_profile(): (fn's result, Calls.calls, launch_ms()).  A profile
+def profiled(pk, s3, fn, keep_args=True, names=None):
+    """fn(calls) with every kernel dispatcher's call (of `names`, where
+    given) recorded (Calls) under cuda_profile(): (fn's result,
+    Calls.calls, launch_ms()).  A profile
     that lost a call's kernel records is taken again, fn and all, with a
     fresh Calls, up to PROFILE_TRIES in all; the last one's
     MissingRecords is raised.  Every try's launches are real launches: a
     caller that counts them counts them all."""
     for i in range(PROFILE_TRIES):
-        with Calls(pk, s3, keep_args=keep_args) as calls, \
+        with Calls(pk, s3, names=names, keep_args=keep_args) as calls, \
                 cuda_profile() as prof:
             out = fn(calls)
             torch.cuda.synchronize()
@@ -2135,14 +2165,15 @@ def hold_tlas_wave(stg, calls, ms, occl, card):
         raise AssertionError("oscal differs from plain on the native route")
     out["oscal"] = (ms["oscal"][0], p_ms, oscal_bound(a[0], a[1], res))
     (_, a, k, res), = calls["emit"]
-    args = a + (k.get("step_cap", stg.STEP_CAP), k.get("pcap", stg.PCAP))
+    args = emit_args(stg, a, k)
     p_ms, st = emit_hold(stg, args, res)
-    (b, steps, words), = emit_bounds(stg, [(args, res[1])])
+    (b, nodes, words, max_nodes), = emit_bounds(stg, [(args, res[1])])
     out["emit"] = (ms["emit"][0], p_ms, b)
-    log(f"    B on the native route: {res[0].shape[0]} slots, {steps} "
-        f"nodes, {words} words, longest walk {int(res[1][:, 2].max())}, "
-        f"capped {int(res[1][:, 1].sum())}; window loads "
-        f"{st['window_loads']}; equal to plain")
+    log(f"    B on the native route: {res[0].shape[0]} slots, {nodes} "
+        f"nodes, {words} words, longest walk {int(res[1][:, 2].max())} "
+        f"step windows ({max_nodes} nodes), capped "
+        f"{int(res[1][:, 1].sum())}; window loads {st['window_loads']}; "
+        f"equal to plain")
     (_, ra, rk, res), = calls["refine"]
     feats_t = torch.zeros(16, ra[3].shape[1], device=ra[3].device)
     feats_t[REFINE_ROWS] = ra[3]
@@ -2504,17 +2535,18 @@ TB_STAGES = ("_stage_prep", "stage_emit", "stage_refine",
              "trace_rows_stream3")
 
 
-def interior_rays(dev, w, h, jitter, pcg3d):
+def interior_rays(dev, w, h, jitter, pcg3d, tiles=True):
     """bench.camera_rays for the interior scene (bench.py:192-228): tile-
     ordered 32x32-pixel packets from (0, 6, 46) with the engine's per-
     pixel PCG sub-pixel jitter of sample `jitter` (pcg3d: bench's numpy
-    _pcg3d_np)."""
+    _pcg3d_np); with tiles False the same rays in pixel order."""
     n = w * h
     ts = 32
     px = np.arange(n, dtype=np.int64) % w
     py = np.arange(n, dtype=np.int64) // w
     tile = (py // ts) * (w // ts) + (px // ts)
-    order = np.argsort(tile * 1024 + (py % ts) * ts + (px % ts))
+    order = (np.argsort(tile * 1024 + (py % ts) * ts + (px % ts)) if tiles
+             else np.arange(n))
     rnd = pcg3d(np.stack(
         [np.full(n, jitter, np.uint32), np.zeros(n, np.uint32),
          order.astype(np.uint32)], -1))
@@ -3211,6 +3243,19 @@ def ordering_modes(dev, card, tracer, scene, res, verts, tris, waves, hit1,
         log(f"[12] (d) {name} primary ({card}): "
             f"{json.dumps({k: v for k, v in row.items() if 'presort' in k})}")
     del recs, rows
+    # kernel B's step windows on the pixel-order primaries of the city
+    # and the interior
+    po, pd = interior_rays(dev, W, H, 0, bench._pcg3d_np, tiles=False)
+    out["step_windows"] = {
+        f"[12] (d) {name}": step_rows_wave(
+            f"[12] (d) {name}", stg, s3,
+            lambda sc=sc, rows=s3.rows_from_aos_fast(o, d), tmax=tmax:
+            s3.trace_rows_stream3(sc, rows, TMIN, tmax, with_diag=True),
+            card)
+        for name, sc, (o, d), tmax in (
+            ("city engine pixel-order primary", scene, (eo, ed), TMAX),
+            ("interior pixel-order primary", interior, (po, pd), TB_TMAX))}
+    del po, pd
 
     # (e) the cascade on the shadow wave and the mirror bounce
     out["cascade"] = {}
@@ -3545,6 +3590,77 @@ def drive_path(pk, stg, name, fn, need):
     return out, counts
 
 
+# ---- kernel B's step windows: 8 rows (the default) against 1 -------------
+
+STEP_ROWS_TURNS = (8, 1, 1, 8)
+STEP_DIAG = ("flagged", "residual_rays", "capped", "poisoned", "steps")
+
+
+@contextlib.contextmanager
+def emit_step_rows(stg, s3, rows, record=None):
+    """Every stage_emit call of the stream3 module (its _run: the stream3
+    waves and the instance scan's sub-waves) at step_rows=rows; with
+    `record` a list, each launch's (emit_args(), (words, emeta), tq
+    width) appended."""
+    orig = s3.stage_emit
+
+    def emit(*a, **k):
+        k["step_rows"] = rows
+        out = stg.stage_emit(*a, **k)
+        if record is not None and a[0].shape[0]:
+            record.append((emit_args(stg, a, k), out,
+                           k.get("tq_bits", stg.W_TQ_BITS)))
+        return out
+
+    s3.stage_emit = emit
+    try:
+        yield
+    finally:
+        s3.stage_emit = orig
+
+
+def step_rows_wave(name, stg, s3, run, card):
+    """One wave with kernel B's step cap counted in windows of 8 rows (the
+    reference's compiled walks, the default) and of 1 (its node walk), on
+    the same rays: run() traces it with_diag, returning (rec, diag).  The
+    wave's ms (CUDA events, a warm call each, in turns 8, 1, 1, 8), then
+    one run each with CUDA events around B's stage (stage_emit) and the
+    residual (retrace_flagged): the flagged packets, residual rays,
+    capped slots and poisoned rays of the diag, the residual's ms, B's ms
+    and bound in all, and B's longest walk in step windows and in nodes
+    (emit_bounds() over the recorded launches, which checks each
+    launch's windows against a walk of its slots); each recorded launch
+    of B held against its plain version at the same step_rows
+    (emit_hold).  Returns {"8": ..., "1": ...}."""
+    ms = {8: [], 1: []}
+    for rows in STEP_ROWS_TURNS:
+        with emit_step_rows(stg, s3, rows):
+            ms[rows].append(cuda_ms(run, 1)[0])
+    out = {}
+    for rows in (8, 1):
+        calls = []
+        with emit_step_rows(stg, s3, rows, calls):
+            (_, diag), sp, _ = call_spans(
+                s3, ("stage_emit", "retrace_flagged"), run)
+        walks = emit_bounds(stg, [(a, o[1]) for a, o, _ in calls])
+        for a, o, bits in calls:
+            emit_hold(stg, a, o, bits)
+        out[str(rows)] = dict(
+            wave_ms=sum(ms[rows]) / len(ms[rows]),
+            **{k: int(diag[k]) for k in STEP_DIAG if k in diag},
+            residual_ms=sum(sp["retrace_flagged"]),
+            emit_ms=sum(sp["stage_emit"]), emit_launches=len(calls),
+            emit_bound_ms=sum(w[0][0] for w in walks),
+            emit_nodes=sum(w[1] for w in walks),
+            longest_walk=max((int(o[1][:, 2].max()) for _, o, _ in calls),
+                             default=0),
+            longest_walk_nodes=max((w[3] for w in walks), default=0))
+    log(f"   step windows, {name} ({card}): 8 rows "
+        f"{json.dumps(out['8'])}; 1 row {json.dumps(out['1'])}; B equal to "
+        f"plain on every launch at both")
+    return out
+
+
 def s3_stage_inputs(s3, scene, rows, live=None):
     """A wave's stage inputs on `scene`: prep (padded to whole groups),
     then (feats_t, scal, smeta, bscal, slot_pkt, aabb8, padded live)."""
@@ -3568,10 +3684,12 @@ def s3_stage_holds(name, stg, s3, scene, rows, tq_bits, card, live=None,
     out = {}
     ea = (scal, smeta, bscal, scene.knode_f, TMAX, stg.STEP_CAP, stg.PCAP)
     b_ms, (wk, ek) = cuda_ms(lambda: stg.emit_cuda(*ea, tq_bits=tq_bits), 5)
-    b_plain, b_st = emit_hold(stg, ea, (wk, ek), tq_bits)
-    b_bound, steps, words = emit_bounds(stg, [(ea, ek)])[0]
+    b_plain, b_st = emit_hold(stg, ea + (stg.STEP_ROWS,), (wk, ek), tq_bits)
+    b_bound, nodes, words, max_nodes = emit_bounds(
+        stg, [(ea + (stg.STEP_ROWS,), ek)])[0]
     out["emit"] = dict(ms=b_ms, plain_ms=b_plain, bound=b_bound,
-                       max_abs_err=0.0, longest_walk=b_st["max_steps"])
+                       max_abs_err=0.0, longest_walk=b_st["max_steps"],
+                       longest_walk_nodes=max_nodes)
     ra = (slot_pkt, feats_t, aabb8, TMAX, stg.PCAP)
     c_ms, (rk, rek) = cuda_ms(lambda: stg.refine_cuda(
         wk, ek, *ra, tq_bits=tq_bits), 5)
@@ -3597,8 +3715,10 @@ def s3_stage_holds(name, stg, s3, scene, rows, tq_bits, card, live=None,
         res = hold_launches(f"{name} D vs plain", [r])
         out["isect"] = dict(ms=r["ms"], plain_ms=r["plain_ms"],
                             bound=r["bound"], max_abs_err=res["max_abs_err"])
-    log(f"   {name} stages at tq {tq_bits} ({card}): {words} words, {steps} "
-        f"steps, {kept} kept; " + "; ".join(
+    log(f"   {name} stages at tq {tq_bits} ({card}): {words} words, "
+        f"{int(ek[:, 2].sum())} step windows ({nodes} nodes; longest walk "
+        f"{b_st['max_steps']} windows, {max_nodes} nodes), {kept} kept; "
+        + "; ".join(
             f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.1f}, bound "
             f"{v['bound'][0]:.4f} {v['bound'][1]})" for k, v in out.items()))
     return out
@@ -3746,6 +3866,18 @@ def leaf64(dev, card, tracer, city_tlas, scene, res, verts, tris, waves,
     w128, _ = cuda_ms(lambda: s3.trace_rows_stream3(
         scene, s3.rows_from_aos_fast(o1, d1), TMIN, TMAX), 5)
     out["stream3_wave_ms"], out["stream3_wave_ms_128"] = w64, w128
+    srows = s3.rows_from_aos_fast(so, sd)
+    out["step_windows"] = {
+        "[14] LEAF64 primary": step_rows_wave(
+            "[14] LEAF64 primary (tq 7)", stg, s3,
+            lambda: s3.trace_rows_stream3(s64, s3.rows_from_aos_fast(o1, d1),
+                                          TMIN, TMAX, with_diag=True,
+                                          tq_bits=TQ7), card),
+        "[14] LEAF64 shadow": step_rows_wave(
+            "[14] LEAF64 shadow (tq 7)", stg, s3,
+            lambda: s3.trace_rows_stream3(s64, srows, TMIN, TMAX, live=hit1,
+                                          occl=True, with_diag=True,
+                                          tq_bits=TQ7), card)}
     log(f"   LEAF64 stream3 primary 1080p ({card}): {w64:.3f} ms a wave "
         f"(cap 128, tq 9: {w128:.3f}); diag {json.dumps(out['stream3_diag'])}"
         f"; shadow diag {json.dumps(out['stream3_shadow_diag'])}")
@@ -4083,6 +4215,258 @@ def viewers(dev, card, pk, stg):
             f"{r.stdout.strip().splitlines()[-1:]}")
         if r.returncode != 0 or not os.path.exists(png):
             raise AssertionError(f"sample1 {flag} failed: {r.stderr[-2000:]}")
+    return out
+
+# ---- phase 18: the SAH-driven leaf collapse -------------------------------
+
+COLLAPSE_RHO = 0.15           # the JAX package's RADIANCE_COLLAPSE_RHO
+COLLAPSE_BUILDS = ((128, "greedy"), (128, "sah"), (64, "greedy"),
+                   (64, "sah"))
+
+
+def tq_for(supports, tables):
+    """The widest tq width (9 down to 5) whose words reach the tables'
+    leaves, by the route's supports(); fails where none does."""
+    bits = next((b for b in range(9, 4, -1) if supports(tables, b)), None)
+    if bits is None:
+        raise AssertionError("no tq width reaches the tables' leaves")
+    return bits
+
+
+def collapse_builds(dev, city_tlas, s3):
+    """The city's tables built anew four ways (COLLAPSE_BUILDS) from the
+    TLAS's own BLAS rows: ({"<collapse><cap>": (scene, tq width)}, each
+    build's leaves, kleaf MiB, node rows, seconds and tq width)."""
+    from radiance_tpu_torch.bvh import device as bvh_device
+
+    blas_by = {off: (b.nodes, b.faces, b.vertices)
+               for off, b in city_tlas.blas_offsets}
+    scenes, info = {}, {}
+    for cap, collapse in COLLAPSE_BUILDS:
+        t0 = time.time()
+        sc = bvh_device.build_device_scene(
+            city_tlas.nodes, city_tlas.instances, blas_by,
+            tlas_capacity=city_tlas.tlas_capacity, leaf_cap=cap,
+            collapse=collapse, rho=COLLAPSE_RHO, device=dev)
+        torch.cuda.synchronize()
+        key = f"{collapse}{cap}"
+        scenes[key] = (sc, tq_for(s3.supports, sc))
+        info[key] = dict(leaves=int(sc.kleaf.shape[0]),
+                         kleaf_mib=sc.kleaf.numel() * 4 / 2 ** 20,
+                         knode_rows=int(sc.knode_f.shape[0]),
+                         build_s=time.time() - t0, tq_bits=scenes[key][1])
+    return scenes, info
+
+
+def load_collapse_kernels(stg, scenes):
+    """The stream3 libraries each build's (leaf cap, tq width) needs,
+    built in parallel where phase [2] did not build them."""
+    stg_libs = {lib for sc, bits in scenes.values()
+                for lib in stg.variant_libs(sc.leaf_cap, bits)}
+    from radiance_tpu_torch.ops import cuda_build
+    cuda_build.load_all(sorted(stg_libs, key=lambda lib: lib.name))
+
+
+def collapse_timings(card, scene, bits, waves, rows, hit1, pk, s3):
+    """One build's numbers: bench's three 1080p waves through the packet
+    kernel (CUDA events over 5), and the stream3 primary and shadow waves:
+    each wave's ms (CUDA events over 3), its residual's ms (CUDA events
+    around retrace_flagged), and B, C, D and E on each launch from
+    torch.profiler's kernel records."""
+    row = {}
+    for wave, (o, d) in waves.items():
+        row[f"packet_{wave}_ms"] = cuda_ms(
+            lambda o=o, d=d, ah=wave == "shadow": pk.packet_trace_cuda(
+                o, d, None, scene.knode_f, scene.kleaf, TMIN, TMAX,
+                any_hit=ah, stable=True), 5)[0]
+    runs = {"primary": lambda: s3.trace_rows_stream3(
+                scene, rows["primary"], TMIN, TMAX, tq_bits=bits),
+            "shadow": lambda: s3.trace_rows_stream3(
+                scene, rows["shadow"], TMIN, TMAX, live=hit1, occl=True,
+                tq_bits=bits)}
+    for wave, run in runs.items():
+        row[f"stream3_{wave}_ms"] = cuda_ms(run, 3)[0]
+        _, sp, _ = call_spans(s3, ("retrace_flagged",), run)
+        row[f"stream3_{wave}_residual_ms"] = sum(sp["retrace_flagged"])
+
+    def fn(calls):
+        for wave, run in runs.items():
+            calls.tag = wave
+            run()
+    # B-E only: CUPTI keeps losing one of F's two records in this profile
+    _, calls, ms = profiled(pk, s3, fn, keep_args=False, names=(
+        "stage_emit", "stage_refine", "stage_isect"))
+    for key, name in (("emit", "B"), ("refine", "C"), ("isect", "D"),
+                      ("isect_occl", "E")):
+        for (tag, *_), m in zip(calls[key], ms[key]):
+            row[f"{name}_{tag}_ms"] = row.get(f"{name}_{tag}_ms", 0.0) + m
+    return row
+
+
+def collapse_and_windows(dev, card, tracer, city_tlas, res, verts, tris,
+                         waves, hit1, sl, pk, s3, s3m, stg):
+    """Phase 18: the SAH-driven leaf collapse on the H100.  (a) the city's
+    tables four ways, caps 128 and 64, each greedy and SAH at rho 0.15:
+    leaves, kleaf MiB, build seconds; (b) the driven path, with the
+    launch counts set to 0 just before and read just after: on the two
+    SAH builds, bench's three 1080p waves through the packet kernel and
+    the stream3 primary and shadow waves, multi64 built with the SAH cut
+    through the native route for one 1080p primary, and a 1080p b1 d2
+    engine frame on the city's SAH cap-128 build; (c) each SAH build's
+    hits against the greedy build's of the same cap on the same rays
+    (the parity bars, t on |dt| / (|o| + t), shadows as occluded or not),
+    multi64's native hits and slots against the greedy scene's, and the
+    SAH frame's u8 RMSE against the greedy frame's (< 2.0); (d) on every
+    build, the waves timed (the packet kernel's, and stream3's with B, C,
+    D and E a launch from torch.profiler, its flagged packets and
+    residual); (e) on the SAH builds, the packet kernel held to its plain
+    version on 64k-ray probes of the three waves, and B, C, D on the
+    primary and E on the shadow wave held to their plain versions (B and
+    C word for word, D and E to the bars; the greedy builds' launches
+    are phases [5], [6] and [14]'s)."""
+    n = W * H
+    out = {}
+    t0 = time.time()
+    scenes, out["builds"] = collapse_builds(dev, city_tlas, s3)
+    load_collapse_kernels(stg, scenes)
+    for key, b in out["builds"].items():
+        log(f"[18] city, {key}: {b['leaves']} leaves, kleaf "
+            f"{b['kleaf_mib']:.1f} MiB, knode_f {b['knode_rows']} rows, "
+            f"built in {b['build_s']:.1f} s; stream3 at tq {b['tq_bits']}")
+    o1, d1 = waves["primary"]
+    so, sd = waves["shadow"]
+    rows = {"primary": s3.rows_from_aos_fast(o1, d1),
+            "shadow": s3.rows_from_aos_fast(so, sd)}
+    _, _, mtlas = multi64_scene(dev, W, H)
+    multi = {c: mtlas.device_scene(dev, collapse=c, rho=COLLAPSE_RHO)
+             for c in ("greedy", "sah")}
+    mtabs = {c: s3m.multi_tables(m) for c, m in multi.items()}
+    mbits = {c: tq_for(s3m.supports_native, mt) for c, mt in mtabs.items()}
+    tracers = {k: dataclasses.replace(tracer, tq_bits=bits)
+               for k, (_, bits) in scenes.items()}
+
+    def traced(key):
+        sc, bits = scenes[key]
+        r = {w: pk.trace_rays_packet(sc, o, d, TMIN, TMAX,
+                                     any_hit=w == "shadow")
+             for w, (o, d) in waves.items()}
+        r["stream3"] = s3.trace_rows_stream3(
+            sc, rows["primary"], TMIN, TMAX, with_diag=True, tq_bits=bits)
+        r["stream3_shadow"] = s3.trace_rows_stream3(
+            sc, rows["shadow"], TMIN, TMAX, live=hit1, occl=True,
+            with_diag=True, tq_bits=bits)
+        return r
+
+    def native(c):
+        return s3m.trace_rows_tlas(multi[c], mtabs[c], rows["primary"], TMIN,
+                                   TMAX, with_diag=True, tq_bits=mbits[c])
+
+    def path():
+        return ({k: traced(k) for k in ("sah128", "sah64")}, native("sah"),
+                tracers["sah128"].render(
+                    scenes["sah128"][0], res, torch.zeros(n, 3, device=dev),
+                    0, W, H, batch=1, depth=2))
+
+    (recs, nat, (accum, image)), out["launches"] = drive_path(
+        pk, stg, "SAH collapse path", path,
+        [f"packet_trace[{v}]" for v in PATH_VARIANTS] + list(PATH_S3))
+    check_frame("SAH city frame", accum, image, n)
+    recs.update({k: traced(k) for k in ("greedy128", "greedy64")})
+
+    # (c) the SAH hits against the greedy build's: the same geometry and
+    # prim ids, other leaves (so other leaf frames: t on |dt| / (|o| + t))
+    prim_id = torch.arange(len(tris), device=dev, dtype=torch.int32)
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    out["vs_greedy"] = {}
+    for cap in (128, 64):
+        g, s = recs[f"greedy{cap}"], recs[f"sah{cap}"]
+        name = f"SAH vs greedy at cap {cap}"
+        r = {w: judge(f"{name}, {w}", s[w].t, s[w].prim, g[w].t, g[w].prim,
+                      *waves[w], None, prim_id, any_hit=False,
+                      t_scale="origin", mesh=(verts, tris))
+             for w in ("primary", "bounce")}
+        r["shadow"] = hold_occluded(f"{name}, shadow", s["shadow"].hit,
+                                    g["shadow"].hit, ones)
+        r["stream3"] = judge(f"{name}, stream3 primary", s["stream3"][0].t,
+                             s["stream3"][0].prim, g["stream3"][0].t,
+                             g["stream3"][0].prim, o1, d1, None, None,
+                             any_hit=False, t_scale="origin")
+        r["stream3_shadow"] = hold_occluded(
+            f"{name}, stream3 shadow", s["stream3_shadow"][0].hit,
+            g["stream3_shadow"][0].hit, hit1)
+        out["vs_greedy"][str(cap)] = r
+    (rec_s, dg_s), (rec_g, dg_g) = nat, native("greedy")
+    hold_prims("multi64 native, SAH vs greedy", rec_s.t, rec_s.prim,
+               rec_g.t, rec_g.prim)
+    both = rec_s.hit & rec_g.hit
+    slot_agree = float((rec_s.slot == rec_g.slot)[both].float().mean())
+    if slot_agree < BARS["prim"]:
+        raise AssertionError(f"multi64 SAH slots: {slot_agree}")
+    out["multi64"] = dict(
+        leaves={c: int(mt.kleaf_cat.shape[0]) for c, mt in mtabs.items()},
+        tq_bits=mbits, slot_agree=slot_agree, diag_sah=dg_s,
+        diag_greedy=dg_g,
+        **{f"native_ms_{c}": cuda_ms(lambda c=c: native(c), 3)[0]
+           for c in ("greedy", "sah")})
+    log(f"[18] multi64 native 1080p primary, SAH vs greedy ({card}): "
+        f"{json.dumps(out['multi64'])}")
+    ms_g, _, img_g = frame_ms(tracers["greedy128"], scenes["greedy128"][0],
+                              res, n, 1, 2)
+    ms_s, _, img_s = frame_ms(tracers["sah128"], scenes["sah128"][0], res,
+                              n, 1, 2)
+    rmse = float((img_s[..., :3].float() - img_g[..., :3].float())
+                 .pow(2).mean().sqrt())
+    out.update(frame_ms_sah128=ms_s, frame_ms_greedy128=ms_g,
+               frame_rmse=rmse)
+    log(f"[18] city engine frame 1920x1080 b1 d2 at cap 128 ({card}): SAH "
+        f"{ms_s:.1f} ms, greedy {ms_g:.1f} ms (warm); u8 RMSE between the "
+        f"images {rmse:.4f}")
+    if rmse >= 2.0:
+        raise AssertionError(f"SAH city frame: RMSE {rmse} against greedy")
+    del recs, accum, image, img_g, img_s
+    log(f"[18] (a)-(c) done in {time.time() - t0:.1f} s")
+    t0 = time.time()
+
+    # (d) every build's waves timed, B-E a launch from the profiler
+    out["waves"] = {}
+    for key, (sc, bits) in scenes.items():
+        row = collapse_timings(card, sc, bits, waves, rows, hit1, pk, s3)
+        out["waves"][key] = row
+        log(f"[18] {key} ({card}): {json.dumps(row)}")
+    # the wave diags of the recorded path: flagged packets, residual rays
+    for key in scenes:
+        sc, bits = scenes[key]
+        for wave, kw in (("primary", {}),
+                         ("shadow", dict(live=hit1, occl=True))):
+            _, dg = s3.trace_rows_stream3(sc, rows[wave], TMIN, TMAX,
+                                          with_diag=True, tq_bits=bits, **kw)
+            out["waves"][key][f"stream3_{wave}_diag"] = {
+                k: int(v) for k, v in dg.items()
+                if k in ("words", "kept_words", "steps", "capped",
+                         "flagged", "residual_rays")}
+
+    log(f"[18] (d) done in {time.time() - t0:.1f} s")
+    t0 = time.time()
+
+    # (e) the SAH builds' kernels held to their plain versions
+    out["holds"] = {}
+    for cap in (128, 64):
+        sc, bits = scenes[f"sah{cap}"]
+        held = {}
+        for wave, (o, d) in waves.items():
+            ah = wave == "shadow"
+            held[f"packet_{wave}"] = compare(
+                f"SAH cap {cap} {wave} probe/{pk.variant(ah, False, True)}",
+                pk, o[sl].contiguous(), d[sl].contiguous(), None,
+                sc.knode_f, sc.kleaf, sc.kprim, any_hit=ah, stable=True)
+        held["stages"] = s3_stage_holds(f"SAH cap {cap} primary", stg, s3,
+                                        sc, rows["primary"], bits, card)
+        held["shadow_stages"] = s3_stage_holds(
+            f"SAH cap {cap} shadow", stg, s3, sc,
+            s3.park_dead(rows["shadow"], hit1), bits, card, live=hit1,
+            occl=True)
+        out["holds"][str(cap)] = held
+    log(f"[18] (e) done in {time.time() - t0:.1f} s")
     return out
 
 
@@ -4426,24 +4810,28 @@ def main() -> int:
 
     # B: emit, kernel vs plain on the same slot tables; the plain walk
     # also counts kernel B's window loads
-    emit_args = (scal, smeta, bscal, knode, TMAX, stg.STEP_CAP, stg.PCAP)
-    b_ms, (wk, ek) = cuda_ms(lambda: stg.emit_cuda(*emit_args), 5)
-    b_plain, b_st = emit_hold(stg, emit_args, (wk, ek))
+    b_args = (scal, smeta, bscal, knode, TMAX, stg.STEP_CAP, stg.PCAP)
+    b_ms, (wk, ek) = cuda_ms(lambda: stg.emit_cuda(*b_args), 5)
+    b_plain, b_st = emit_hold(stg, b_args + (stg.STEP_ROWS,), (wk, ek))
     if stg.emit_window() != stg.EMIT_WINDOW:
         raise AssertionError(f"kernel B's window {stg.emit_window()} is "
                              f"not EMIT_WINDOW {stg.EMIT_WINDOW}")
-    b_bound, steps, words = emit_bounds(stg, [(emit_args, ek)])[0]
+    b_bound, nodes, words, _ = emit_bounds(
+        stg, [(b_args + (stg.STEP_ROWS,), ek)])[0]
     cnt = torch.clamp(ek[:, 0], max=stg.PCAP)
     log(f"   B emit: word lists and emeta identical on {nslot} slots "
-        f"({words} words, {steps} steps, {int(ek[:, 1].sum())} capped; "
-        f"longest walk {b_st['max_steps']} nodes; "
-        f"{b_st['window_loads']} window loads of {stg.EMIT_WINDOW} rows, "
-        f"{steps / max(b_st['window_loads'], 1):.2f} nodes a load, the "
+        f"({words} words, {int(ek[:, 2].sum())} step windows of "
+        f"{stg.STEP_ROWS} rows, {nodes} nodes, {int(ek[:, 1].sum())} "
+        f"capped; longest walk {b_st['max_steps']} step windows, "
+        f"{b_st['max_nodes']} nodes; {b_st['window_loads']} window loads "
+        f"of {stg.EMIT_WINDOW} rows, "
+        f"{nodes / max(b_st['window_loads'], 1):.2f} nodes a load, the "
         f"longest chain {b_st['max_window_loads']} loads)")
     s3k["emit"] = dict(
         ms=b_ms, plain_ms=b_plain, library_ms=None, max_abs_err=0.0,
         bound=b_bound, longest_walk=b_st["max_steps"],
-        nodes_per_load=steps / max(b_st["window_loads"], 1),
+        longest_walk_nodes=b_st["max_nodes"],
+        nodes_per_load=nodes / max(b_st["window_loads"], 1),
         max_window_loads=b_st["max_window_loads"])
 
     # C: refine, kernel vs plain on the (identical) emitted lists
@@ -4500,6 +4888,10 @@ def main() -> int:
         f"diag {json.dumps(s3_diag)}")
     log(f"    stage ms (CUDA events): "
         f"{json.dumps({k: round(v, 3) for k, v in spans.items()})}")
+    windows = {"[5] city tile-ordered primary": step_rows_wave(
+        "[5] the city's tile-ordered 1080p primary", stg, s3,
+        lambda: s3.trace_rows_stream3(scene, rows, TMIN, TMAX,
+                                      with_diag=True), card)}
     for key, r in s3k.items():
         per = " (per launch)" if key == "transpose" else ""
         log(f"    {key}{per}: kernel {r['ms']:.3f} ms, plain "
@@ -4809,6 +5201,10 @@ def main() -> int:
         f"{json.dumps(mdiag)}, poisoned share {mdiag['poisoned'] / n:.7f}")
     if slot_agree < BARS["prim"]:
         raise AssertionError(f"64-instance slots disagree: {slot_agree}")
+    windows["[7] multi64 scan primary"] = step_rows_wave(
+        "[7] multi64's 1080p primary on the scan", stg, s3,
+        lambda: s3m.trace_rows_multi(mscene, mt, mrows, TMIN, TMAX,
+                                     with_diag=True), card)
     _, m_spans, m_big = call_spans(s3, list(e_f), lambda: s3m.trace_rows_multi(
         mscene, mt, mrows, TMIN, TMAX), keep=e_f)
 
@@ -5035,7 +5431,6 @@ def main() -> int:
     t0 = time.time()
     wide = wide_leaves(dev, card, city_tlas, scene, waves, hit1, sl, pk, s3,
                        stg)
-    del city_tlas
     log(f"[15] done in {time.time() - t0:.1f} s")
 
     # ---- 16. many BLASes at leaf cap 64 ------------------------------
@@ -5048,7 +5443,18 @@ def main() -> int:
     views = viewers(dev, card, pk, stg)
     log(f"[17] done in {time.time() - t0:.1f} s")
 
-    # ---- 18. results -------------------------------------------------
+    # ---- 18. the SAH-driven leaf collapse ----------------------------
+    t0 = time.time()
+    coll = collapse_and_windows(dev, card, tracer, city_tlas, res, verts,
+                                tris, waves, hit1, sl, pk, s3, s3m, stg)
+    del city_tlas
+    windows.update(order.pop("step_windows"))
+    windows.update(l64.pop("step_windows"))
+    log(f"[18] step windows (8 rows, the default, against 1): "
+        f"{json.dumps(windows)}")
+    log(f"[18] done in {time.time() - t0:.1f} s")
+
+    # ---- 19. results -------------------------------------------------
     # per kernel: the main path's launches (the packet kernel: the city
     # frames and sample1; B, C, D and F: the city frames and the
     # 64-instance frame; E: the 64-instance frame), each timed on its own
@@ -5184,7 +5590,8 @@ def main() -> int:
              "wide256_launches": wide["launches"],
              "multi64_leaf64_launches": mb64["launches"],
              "viewer_web_launches": views["web_launches"],
-             "viewer_file_launches": views["file_launches"]}
+             "viewer_file_launches": views["file_launches"],
+             "collapse_launches": coll["launches"]}
     pk_waves = {"closest": ("primary/closest", "bounce/closest"),
                 "any_hit": ("shadow/any_hit",),
                 "masked_any_hit": ("shadow/masked_any_hit",)}
@@ -5200,6 +5607,14 @@ def main() -> int:
             probe = {"closest": "primary", "any_hit": "shadow"}.get(var)
             if probe:
                 row["wide256_probe"] = wide["packet"][probe]
+                # phase [18]: each build's 1080p wave (greedy and SAH at
+                # caps 128 and 64), the SAH builds' probes' holds
+                row["collapse_1080p"] = dict(
+                    {b: w[f"packet_{probe}_ms"]
+                     for b, w in coll["waves"].items()},
+                    sah_probe_max_abs_err=max(
+                        h[f"packet_{probe}"]["max_abs_err"]
+                        for h in coll["holds"].values()))
         elif key in ("emit", "refine", "isect", "isect_occl"):
             # B and C: the primary's launch; E: the shadow wave's
             for name, ph in (("leaf64_1080p", l64), ("wide256_probe", wide)):
@@ -5211,6 +5626,20 @@ def main() -> int:
             if key == "isect":
                 row["leaf64_1080p"].update(d_ms_in_turns=l64["d_ms_64"],
                                            d_ms_cap128=l64["d_ms_128"])
+            # phase [18]: each build's launch on the 1080p primary (E: the
+            # shadow wave), and the SAH builds' held launches
+            stage = {"emit": "B", "refine": "C", "isect": "D",
+                     "isect_occl": "E"}[key]
+            wave = "shadow" if stage == "E" else "primary"
+            row["collapse_1080p"] = {b: w[f"{stage}_{wave}_ms"]
+                                     for b, w in coll["waves"].items()}
+            for cap, h in coll["holds"].items():
+                st = h["shadow_stages" if stage == "E" else "stages"][key]
+                row["collapse_1080p"][f"sah{cap}_held"] = dict(
+                    {k: v for k, v in st.items() if k != "bound"},
+                    bound_ms=st["bound"][0], bound_by=st["bound"][1])
+            if key == "emit":   # B: the step windows' waves
+                row["step_windows"] = windows
     log(f"[14] metrics: " + json.dumps(
         {k: v for k, v in l64.items()
          if k not in ("launches", "stages", "shadow_stages")}))
@@ -5219,6 +5648,8 @@ def main() -> int:
          if k not in ("launches", "stages", "shadow_stages")}))
     log(f"[16] metrics: " + json.dumps(
         {k: v for k, v in mb64.items() if k != "launches"}))
+    log(f"[18] metrics: " + json.dumps(
+        {k: v for k, v in coll.items() if k not in ("launches", "holds")}))
     log(f"[10] metrics: {json.dumps({k: v for k, v in tlas.items() if k not in ('launches', 'held')})}")
     log(f"[11] metrics: "
         f"{json.dumps({k: v for k, v in tbound.items() if k != 'launches'})}")

@@ -72,12 +72,14 @@ class TopAccelStruct:
 
     def device_scene(self, device=rdevice.DEFAULT, *,
                      stable_frames: bool = True,
-                     leaf_cap: int = 128) -> bvh_device.DeviceScene:
+                     leaf_cap: int = 128, collapse: str = "greedy",
+                     rho: float = 0.15) -> bvh_device.DeviceScene:
         """The DeviceScene with its tensors on `device` (built once per
-        device, frame mode and leaf cap: triangles per kernel leaf, a
-        multiple of 32 in [32, 512], bvh_device.build_device_scene)."""
+        device, frame mode, leaf cap -- triangles per kernel leaf, a
+        multiple of 32 in [32, 512] -- and leaf collapse, "greedy" or
+        "sah" with its rho: bvh_device.build_device_scene)."""
         device = rdevice.resolve(device)
-        key = (str(device), stable_frames, leaf_cap)
+        key = (str(device), stable_frames, leaf_cap, collapse, float(rho))
         if key not in self._scenes:
             blas_by_offset = self._parsed_blas or {
                 off: (b.nodes, b.faces, b.vertices)
@@ -85,7 +87,8 @@ class TopAccelStruct:
             self._scenes[key] = bvh_device.build_device_scene(
                 self.nodes, self.instances, blas_by_offset,
                 tlas_capacity=self.tlas_capacity,
-                stable_frames=stable_frames, leaf_cap=leaf_cap, device=device)
+                stable_frames=stable_frames, leaf_cap=leaf_cap,
+                collapse=collapse, rho=rho, device=device)
             # where the build put each BLAS: its instances' root rows
             blas_at = dict(self.blas_offsets)
             self._blas_roots[key] = {

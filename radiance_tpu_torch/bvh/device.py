@@ -77,6 +77,11 @@ class DeviceScene:
     # triangles per kernel leaf of every BLAS's tables (the collapse cap;
     # kleaf is [Nl, 16, 4 * leaf_cap])
     leaf_cap: int = 128
+    # the leaf collapse the tables were built with ("greedy" or "sah")
+    # and the SAH cut's rho (kernel_pack.build_kernel_tables); unlike the
+    # cap, the tables do not tell them
+    collapse: str = "greedy"
+    rho: float = 0.15
     # the instance scan's tables (ops/stream3_multi.MultiTables), built at
     # the scene's first many-instance trace by stream3_multi.multi_tables
     multi: Optional[object] = dataclasses.field(default=None, repr=False)
@@ -258,17 +263,21 @@ def build_scene_arrays(tlas_nodes: np.ndarray,
                        leaf_width: int = config.LEAF_WIDTH,
                        tlas_capacity: int = 0,
                        stable_frames: bool = True,
-                       leaf_cap: int = 128) -> Dict:
+                       leaf_cap: int = 128, collapse: str = "greedy",
+                       rho: float = 0.15) -> Dict:
     """The numpy half of build_device_scene: every table as an array.
 
     Returns a dict with the DeviceScene's array fields plus kblas (a
-    tuple of per-BLAS table dicts or None), inst_kblas, stable_frames
-    and leaf_cap (the collapse cap every BLAS's tables share, as the JAX
-    package's import-time RADIANCE_LEAF_CAP does).
+    tuple of per-BLAS table dicts or None), inst_kblas, stable_frames,
+    leaf_cap (the collapse cap every BLAS's tables share, as the JAX
+    package's import-time RADIANCE_LEAF_CAP does), collapse and rho (the
+    leaf collapse of every BLAS's tables, its RADIANCE_COLLAPSE and
+    RADIANCE_COLLAPSE_RHO).
     """
     from radiance_tpu_torch.bvh import kernel_pack
 
     leaf_cap = kernel_pack.check_leaf_cap(leaf_cap)
+    collapse, rho = kernel_pack.check_collapse(collapse, rho)
     tlas = _tlas_tree(tlas_nodes, leaf_width, tlas_capacity)
 
     all_v0, all_e1, all_e2, all_prim = [], [], [], []
@@ -290,7 +299,8 @@ def build_scene_arrays(tlas_nodes: np.ndarray,
             # start indices
             kt = kernel_pack.build_kernel_tables(
                 t.kind, t.a, t.b, t.bot, t.top, faces, verts3,
-                stable=stable_frames, leaf_cap=leaf_cap)
+                stable=stable_frames, leaf_cap=leaf_cap, collapse=collapse,
+                rho=rho)
             kblas_by_offset[off] = kt
             if kt is None:
                 want_ktables = False  # one oversized BLAS disables all
@@ -368,6 +378,8 @@ def build_scene_arrays(tlas_nodes: np.ndarray,
             else (bool(next(iter(kblas_by_offset.values()))["stable"])
                   if want_ktables and kblas_by_offset else False)),
         leaf_cap=leaf_cap,
+        collapse=collapse,
+        rho=rho,
     )
     for k in ("knode_f", "kleaf", "kprim", "ktri_geo"):
         out[k] = None if ktables is None else ktables[k]
@@ -399,8 +411,9 @@ def scene_from_numpy(arrays: Mapping, stable_frames: bool,
     a tuple of 4-tuples (the JAX layout) or of table dicts; inst_kblas a
     tuple of ints or None.  The leaf cap is the tables' own (kleaf's
     width over 4, the single-instance or the first BLAS's), 128 where
-    there are none.  This is how the two packages are made to hold the
-    same scene state.
+    there are none; collapse and rho are the arrays' own where they hold
+    them (build_scene_arrays' output), else the greedy default.  This is
+    how the two packages are made to hold the same scene state.
     """
     from radiance_tpu_torch.bvh import kernel_pack
 
@@ -418,13 +431,17 @@ def scene_from_numpy(arrays: Mapping, stable_frames: bool,
         raise ValueError(f"kernel tables of leaf widths {sorted(widths)}: "
                          f"every BLAS of a scene shares one leaf cap")
     inst_kblas = arrays.get("inst_kblas")
+    collapse, rho = kernel_pack.check_collapse(
+        arrays.get("collapse", "greedy"),
+        arrays.get("rho", kernel_pack.DEFAULT_RHO))
     return DeviceScene(
         **fields, kblas=kblas,
         inst_kblas=None if inst_kblas is None else tuple(
             int(i) for i in inst_kblas),
         stable_frames=bool(stable_frames),
         leaf_cap=kernel_pack.check_leaf_cap(
-            widths.pop() if widths else kernel_pack.KERNEL_MAX_TRIS))
+            widths.pop() if widths else kernel_pack.KERNEL_MAX_TRIS),
+        collapse=collapse, rho=rho)
 
 
 def update_tlas(scene: DeviceScene, tlas_nodes: np.ndarray,
@@ -471,7 +488,8 @@ def build_device_scene(tlas_nodes: np.ndarray,
                        leaf_width: int = config.LEAF_WIDTH,
                        tlas_capacity: int = 0,
                        *, stable_frames: bool = True,
-                       leaf_cap: int = 128,
+                       leaf_cap: int = 128, collapse: str = "greedy",
+                       rho: float = 0.15,
                        device=rdevice.DEFAULT) -> DeviceScene:
     """Assemble the DeviceScene from parsed/built host arrays.
 
@@ -483,17 +501,21 @@ def build_device_scene(tlas_nodes: np.ndarray,
     leaf_cap: triangles per kernel leaf, a multiple of 32 in [32, 512]
     (the JAX package's RADIANCE_LEAF_CAP; 64 with tq_bits 7 is its
     LEAF64 configuration for 1M-triangle scenes).
+    collapse, rho: the leaf collapse, "greedy" or "sah" with its rho (the
+    JAX package's RADIANCE_COLLAPSE and RADIANCE_COLLAPSE_RHO;
+    kernel_pack.build_kernel_tables), recorded on the DeviceScene.
     device: where the tensors are made (the card unless the caller
     asks for the CPU).
     """
     device = rdevice.resolve(device)
     arrays = build_scene_arrays(tlas_nodes, device_instances,
                                 blas_by_offset, leaf_width, tlas_capacity,
-                                stable_frames, leaf_cap)
+                                stable_frames, leaf_cap, collapse, rho)
     return scene_from_numpy(arrays, arrays["stable_frames"], device)
 
 
 def device_scene_from_instances(instances, *, leaf_cap: int = 128,
+                                collapse: str = "greedy", rho: float = 0.15,
                                 device=rdevice.DEFAULT) -> DeviceScene:
     """Host-build path: RD-style instances -> DeviceScene on `device` (no
     blob round trip)."""
@@ -502,12 +524,15 @@ def device_scene_from_instances(instances, *, leaf_cap: int = 128,
     blas_by_offset = {off: (b.nodes, b.faces, b.vertices)
                       for off, b in blas_offsets}
     return build_device_scene(tlas_nodes, dev_inst, blas_by_offset,
-                              leaf_cap=leaf_cap, device=device)
+                              leaf_cap=leaf_cap, collapse=collapse, rho=rho,
+                              device=device)
 
 
 def device_scene_from_tlas_blob(blob: bytes, *, leaf_cap: int = 128,
+                                collapse: str = "greedy", rho: float = 0.15,
                                 device=rdevice.DEFAULT) -> DeviceScene:
     """Cache-load path: serialized TLAS blob -> DeviceScene on `device`."""
     parsed = serialize.parse_tlas(blob)
     return build_device_scene(parsed.nodes, parsed.instances, parsed.blas,
-                              leaf_cap=leaf_cap, device=device)
+                              leaf_cap=leaf_cap, collapse=collapse, rho=rho,
+                              device=device)

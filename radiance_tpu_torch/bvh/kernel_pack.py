@@ -2,9 +2,9 @@
 
 A carried copy of radiance_tpu/bvh/kernel_pack.py (numpy only; the
 tables must stay bit-identical to the JAX package's, which
-tests/test_torch_tables.py checks).  Differences: the frame mode and the
-leaf cap are arguments instead of environment reads, and only the
-default greedy leaf collapse is kept.
+tests/test_torch_tables.py checks).  Differences: the frame mode, the
+leaf cap and the leaf collapse (greedy, or the SAH-driven cut with its
+rho) are arguments instead of environment reads.
 
 The TPU kernel walks a node table resident in VMEM, so the table must
 be small, and intersects leaf triangles on the MXU, so each leaf must
@@ -67,6 +67,8 @@ Tables (numpy, converted to tensors by the DeviceScene assembly):
 
 from __future__ import annotations
 
+import math
+import numbers
 from typing import Optional
 
 import numpy as np
@@ -90,6 +92,25 @@ def check_leaf_cap(cap) -> int:
             f"RADIANCE_LEAF_CAP={cap} (leaf_cap): must be a multiple of 32 "
             f"in [32, 512]")
     return int(cap)
+
+COLLAPSES = ("greedy", "sah")
+DEFAULT_RHO = 0.15
+
+
+def check_collapse(collapse, rho) -> tuple:
+    """(collapse, rho) as (str, float), or ValueError where the JAX
+    package would not build them: RADIANCE_COLLAPSE is "greedy" (the
+    default) or "sah", and RADIANCE_COLLAPSE_RHO, the walk-step cost over
+    the pair cost of the SAH model, a finite number >= 0."""
+    if collapse not in COLLAPSES:
+        raise ValueError(f"RADIANCE_COLLAPSE={collapse!r} (collapse): must "
+                         f"be one of {COLLAPSES}")
+    if (isinstance(rho, bool) or not isinstance(rho, numbers.Real)
+            or not math.isfinite(rho) or rho < 0):
+        raise ValueError(f"RADIANCE_COLLAPSE_RHO={rho!r} (rho): must be a "
+                         f"finite number >= 0")
+    return collapse, float(rho)
+
 
 # Node-table cap per octant, kept from the TPU tables (whose node table
 # had to fit in VMEM) so both packages agree on which scenes get kernel
@@ -133,7 +154,9 @@ def leaf_matrix(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
 
 def build_kernel_tables(kind, a, b, bot, top, faces, verts3, *,
                         stable: bool = True,
-                        leaf_cap: int = KERNEL_MAX_TRIS) -> Optional[dict]:
+                        leaf_cap: int = KERNEL_MAX_TRIS,
+                        collapse: str = "greedy",
+                        rho: float = DEFAULT_RHO) -> Optional[dict]:
     """Collapse + thread + matrix-pack one BLAS tree for the packet kernel.
 
     kind/a/b: decoded node arrays (a=start, b=count for tri leaves;
@@ -145,9 +168,15 @@ def build_kernel_tables(kind, a, b, bot, top, faces, verts3, *,
       RADIANCE_STABLE_FRAMES=1 default); False builds the legacy
       origin-centred moments.
     leaf_cap: triangles per kernel leaf (RADIANCE_LEAF_CAP there).
+    collapse: "greedy" merges sibling leaves while they fit in leaf_cap;
+      "sah" cuts the tree where the SAH model says a leaf pays
+      (RADIANCE_COLLAPSE=sah there), rho the walk-step cost over the
+      pair cost (RADIANCE_COLLAPSE_RHO).  Both give leaves of <= leaf_cap
+      triangles in the same table format.
     Returns the table dict, or None when the scene exceeds kernel limits.
     """
     leaf_cap = check_leaf_cap(leaf_cap)
+    collapse, rho = check_collapse(collapse, rho)
     kind = np.asarray(kind, np.int32)
     a = np.asarray(a, np.int64)
     b = np.asarray(b, np.int64)
@@ -164,22 +193,78 @@ def build_kernel_tables(kind, a, b, bot, top, faces, verts3, *,
     ntri = np.where(is_kleaf, b, 0)
     inner_mask = kind == KIND_INNER
 
-    # --- 1. greedy leaf collapse (vectorized passes; each pass
-    # merges sibling pairs, so <= log2(leaf_cap) +
-    # stragglers iterations) ---
-    while True:
-        m = inner_mask & ~is_kleaf
-        l = np.where(m, a, 0)
-        r = np.where(m, b, 0)
-        can = (m & is_kleaf[l] & is_kleaf[r]
-               & (ntri[l] + ntri[r] <= leaf_cap)
-               & (start[l] + ntri[l] == start[r]))
-        if not can.any():
-            break
-        ci = np.nonzero(can)[0]
-        start[ci] = start[l[ci]]
-        ntri[ci] = ntri[l[ci]] + ntri[r[ci]]
-        is_kleaf[ci] = True
+    if collapse == "sah":
+        # --- 1. SAH-driven leaf collapse (RADIANCE_COLLAPSE=sah).
+        # Kernel leaves are PADDED to leaf_cap, so every ray entering a
+        # leaf pays the full pair product no matter how few triangles it
+        # holds; the greedy policy below therefore merges siblings
+        # whenever they fit, maximizing fill.  But merging two spatially
+        # tight children into their (larger) parent box makes MORE rays
+        # enter the leaf.  Under the standard SAH model (expected visits
+        # proportional to surface area) the expected wave cost of a cut
+        # set is sum(SA(leaf)) + rho * sum(SA(inner)) with rho =
+        # walk-step cost / pair cost; minimize it exactly with a
+        # bottom-up DP over subtrees (children follow parents in builder
+        # preorder, so one backward pass).  Collapse remains restricted
+        # to whole subtrees with contiguous face ranges (the kernel leaf
+        # is one dense face slab).
+        sa_wh = np.maximum(top - bot, 0.0).astype(np.float64)
+        sa = (sa_wh[:, 0] * sa_wh[:, 1] + sa_wh[:, 1] * sa_wh[:, 2]
+              + sa_wh[:, 2] * sa_wh[:, 0])
+        cnt = np.zeros(n, np.int64)
+        st = np.zeros(n, np.int64)
+        cost = np.zeros(n, np.float64)
+        cut = np.zeros(n, bool)
+        contig = np.zeros(n, bool)
+        for i in range(n - 1, -1, -1):
+            if kind[i] == KIND_TRI_LEAF:
+                cnt[i] = b[i]
+                st[i] = a[i]
+                cost[i] = sa[i]
+                cut[i] = True
+                contig[i] = True
+            elif kind[i] == KIND_INNER:
+                l, r = a[i], b[i]
+                cnt[i] = cnt[l] + cnt[r]
+                st[i] = min(st[l], st[r])
+                contig[i] = bool(contig[l] and contig[r]
+                                 and st[l] + cnt[l] == st[r])
+                c_split = rho * sa[i] + cost[l] + cost[r]
+                if (cnt[i] <= leaf_cap and contig[i]
+                        and sa[i] <= c_split):
+                    cost[i] = sa[i]
+                    cut[i] = True
+                else:
+                    cost[i] = c_split
+        # mark the HIGHEST cut node on each root-to-leaf path
+        is_kleaf = np.zeros(n, bool)
+        stack = [0]
+        while stack:
+            i = stack.pop()
+            if cut[i]:
+                is_kleaf[i] = True
+                start[i] = st[i]
+                ntri[i] = cnt[i]
+            else:
+                stack.append(int(a[i]))
+                stack.append(int(b[i]))
+    else:
+        # --- 1. greedy leaf collapse (vectorized passes; each pass
+        # merges sibling pairs, so <= log2(leaf_cap) +
+        # stragglers iterations) ---
+        while True:
+            m = inner_mask & ~is_kleaf
+            l = np.where(m, a, 0)
+            r = np.where(m, b, 0)
+            can = (m & is_kleaf[l] & is_kleaf[r]
+                   & (ntri[l] + ntri[r] <= leaf_cap)
+                   & (start[l] + ntri[l] == start[r]))
+            if not can.any():
+                break
+            ci = np.nonzero(can)[0]
+            start[ci] = start[l[ci]]
+            ntri[ci] = ntri[l[ci]] + ntri[r[ci]]
+            is_kleaf[ci] = True
 
     # --- subtree sizes in the collapsed tree (children after parents) ---
     size = np.ones(n, np.int64)

@@ -37,10 +37,19 @@
 // frustum hits: the row's bounds and tn are broadcast from its lane and
 // __ballot_sync folds the results.  Words are kept in lane (count % 32)
 // and stored 32 at a time.  The walk stops when the cursor escapes (-1)
-// or at the step_cap-th node visited, even inside a window (the packet
-// is then flagged for the exact residual); count, capped and steps
-// (nodes visited) are those of the lockstep walk, and a slot's list
-// keeps the first pcap words while the count goes on past it.  (Issuing
+// or where it would begin step window step_cap + 1 (the packet is then
+// flagged for the exact residual).  Step windows are the reference's
+// counting unit, apart from the 32-row load windows: a window of
+// step_rows rows starts at clip(base + (c / step_rows) * step_rows, 0,
+// nrows - step_rows) - base for the cursor c that enters it (the clamp
+// is global: on the native route's concatenated tables the start can be
+// negative), and the walk stays in it while the next row lies past the
+// current one and before the window's end.  step_rows 8 counts as the
+// compiled treelet walks (_emit3t_kernel :961-966, _emit3wst_kernel
+// :1298, :1346-1351, :1420-1431, :1490) do, 1 as the node walk
+// (_emit3_kernel :733).  count, capped and steps (step windows begun)
+// are those of the reference, and a slot's list keeps the first pcap
+// words while the count goes on past it.  (Issuing
 // the next window's loads before making this window's words, and 64-row
 // windows of two rows a lane, measured slower on the H100.)
 //
@@ -104,7 +113,7 @@ emit_window_kernel(const float* __restrict__ scal,
                    const int* __restrict__ smeta,
                    const float* __restrict__ bscal,
                    const float* __restrict__ nodef, int nslot, int nrows,
-                   float tmax, int step_cap, int pcap,
+                   float tmax, int step_cap, int step_rows, int pcap,
                    int* __restrict__ words, int* __restrict__ emeta) {
   const int lane = threadIdx.x & 31;
   const int slot = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -122,8 +131,24 @@ emit_window_kernel(const float* __restrict__ scal,
 
   int cur = alive > 0 ? 0 : -1;
   int cnt = 0, steps = 0;
+  int wend = 0;   // table-local end of the current step window
+  bool stop = false;
+  // the cursor begins a step window: count it, or stop at the cap
+  const auto enter = [&]() {
+    if (steps < step_cap) {
+      ++steps;
+      const int64_t g = base + static_cast<int64_t>(cur / step_rows)
+                        * step_rows;
+      const int64_t hi = nrows - step_rows;
+      wend = static_cast<int>((g < 0 ? 0 : (g > hi ? hi : g)) - base)
+             + step_rows;
+    } else {
+      stop = true;
+    }
+  };
+  if (cur >= 0) enter();
   int pend = 0;   // word cnt - cnt % 32 + lane, until its 32 are stored
-  while (cur >= 0 && steps < step_cap && cur < avail) {
+  while (!stop && cur >= 0 && cur < avail) {
     const int win = cur;
     const int nvalid = min(kWindow, avail - win);
     float bmn[3] = {0.f, 0.f, 0.f}, bmx[3] = {0.f, 0.f, 0.f};
@@ -175,10 +200,11 @@ emit_window_kernel(const float* __restrict__ scal,
           }
         }
       }
-      ++steps;
+      const bool same = nx > cur && nx < wend;
       cur = nx;
+      if (cur >= 0 && !same) enter();
       p = cur - win;
-    } while (cur >= 0 && steps < step_cap
+    } while (!stop && cur >= 0
              && static_cast<unsigned>(p) < static_cast<unsigned>(nvalid));
   }
   if (lane < (cnt & 31) && cnt - (cnt & 31) + lane < pcap) {
@@ -197,17 +223,18 @@ extern "C" {
 // scal [nslot, 16] f32, smeta [nslot, 8] i32 (pkt, alive, base row),
 // bscal [npk * 32, 16] f32, nodef [nrows = 8 * nk, 16] f32 -> words
 // [nslot, pcap] i32 (the first min(count, pcap) of a row defined), emeta
-// [nslot, 8] i32 (count, capped, steps, 0...).  Returns
-// cudaGetLastError().
+// [nslot, 8] i32 (count, capped, step windows, 0...); step_rows in
+// [1, 8] (nrows is a multiple of 8).  Returns cudaGetLastError().
 int rt_s3_emit(const float* scal, const int* smeta, const float* bscal,
                const float* nodef, int nslot, int nrows, float tmax,
-               int step_cap, int pcap, int* words, int* emeta, void* stream) {
+               int step_cap, int step_rows, int pcap, int* words,
+               int* emeta, void* stream) {
   if (nslot <= 0) return 0;
   const unsigned grid = static_cast<unsigned>((nslot + kWarps - 1) / kWarps);
   emit_window_kernel<<<grid, kWarps * 32, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      scal, smeta, bscal, nodef, nslot, nrows, tmax, step_cap, pcap, words,
-      emeta);
+      scal, smeta, bscal, nodef, nslot, nrows, tmax, step_cap, step_rows,
+      pcap, words, emeta);
   return static_cast<int>(cudaGetLastError());
 }
 

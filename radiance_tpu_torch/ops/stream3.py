@@ -19,8 +19,8 @@ stages it runs (`_run`, :2459):
           the winner's prim and barycentrics (kernel D), or, on occlusion
           waves, any hit in (tmin, tmax) (kernel E: t = 0 when occluded);
   glue    (plain torch) slot results folded into per-packet winners;
-  residual  packets whose walk was cut (STEP_CAP) or whose list
-          overflowed (PCAP) are re-traced exactly, ray by ray.
+  residual  packets whose walk was cut (STEP_CAP step windows) or whose
+          list overflowed (PCAP) are re-traced exactly, ray by ray.
 
 The layout transposes (rows_from_aos_fast, feats_rows_to_major) are
 kernel A.  The kernels and their plain versions live in
@@ -60,8 +60,12 @@ Differences from the JAX module, none visible in a hit record:
     stream3_stages.WordFormat), and the leaf width is the scene's tables'
     (DeviceScene.leaf_cap, the reference's RADIANCE_LEAF_CAP): its LEAF64
     configuration is a scene built with leaf_cap=64 traced at tq_bits=7;
-  * emeta lane 2 counts each slot's own walk steps (the TPU kernel stamps
-    its 8-slot group's count), and diag["steps"] sums them.
+  * the step cap (STEP_CAP) counts 8-row step windows, as the compiled
+    treelet walks do (_emit3t_kernel, _emit3wst_kernel; the JAX module's
+    default off interpret mode): stream3_stages.stage_emit's step_rows.
+    emeta lane 2 counts each slot's own windows (the TPU kernels stamp
+    the group's count or the work-stealing loop's), and diag["steps"]
+    sums them.
 
 Temporal t-bounds (blk_bound; stream3.py:1749-1801, :2647-2725): a
 per-128-ray-block upper bound on t, the previous progressive sample's

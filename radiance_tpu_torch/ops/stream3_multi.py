@@ -35,8 +35,10 @@ Differences from the JAX module, none visible in a hit record:
     hits, the flags and the poisoning are the reference's;
   * no environment variable is read: the route is an argument (the
     reference's RADIANCE_MULTI, default scan), so is the native route's
-    slot capacity (RADIANCE_TLAS_SCAP); f32, the lockstep emit walk (no
-    work stealing or treelets, which emit the same words).  Occlusion
+    slot capacity (RADIANCE_TLAS_SCAP); f32, one emit walk a slot (no
+    work stealing or treelets, which emit the same words), its step cap
+    counted in the compiled walks' 8-row windows with their global clamp
+    at the end of nodef_cat (stream3_stages._emit_plain).  Occlusion
     waves refine their word lists before kernel E on both routes
     (stream3._run, the JAX module's exact_refine=True; the JAX native
     route refines closest-hit waves only), an exact change that no hit
@@ -556,7 +558,7 @@ def trace_rows_tlas(scene, mt, rows_w, tmin, tmax, *, live=None,
     With with_diag, returns (rec, diag): "slots_alive", "scap",
     "pool_overflow" (packets with a slot past scap), "flagged" (packets
     re-traced), "residual_rays", "words", "kept_words", "steps" (slot walk
-    nodes) and "capped" (slots cut at STEP_CAP); with blk_bound also
+    step windows) and "capped" (slots cut at STEP_CAP); with blk_bound also
     "block_pairs" and "block_pairs_bounded" ((word, block) pairs before
     and after the cull), "tb_residual", "tb_cap" and "tb_marked"."""
     n = rows_w[0].shape[0]

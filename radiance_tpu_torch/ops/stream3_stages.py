@@ -19,8 +19,9 @@ drives them):
 
 Each stage takes its kernel for CUDA tensors (no fallback: a failed
 launch raises) and its plain version for CPU tensors.  The plain
-versions are vectorised over slots or packets: emit is a loop over walk
-steps, refine and both pair intersections loops over word positions.
+versions are vectorised over slots or packets: emit finds each slot's
+walk by pointer doubling over its table's successors, refine and both
+pair intersections loop over word positions.
 Each kernel wrapper launches with its tensors' device made current
 (cuda_build.on_device) and counts its launches in `<wrapper>.launches`.
 
@@ -63,10 +64,22 @@ PKT = 1024                  # rays per packet (= walk slot granularity)
 BLK = 128                   # rays per phase-2 block (8 per packet)
 PCAP = 1024                 # emitted words per slot
 EXTRA = 256                 # sub-walk slot pool for mixed-octant packets
-STEP_CAP = 2048             # walk steps per slot before its packet flags
+STEP_CAP = 2048             # step windows per slot before its packet flags
+STEP_ROWS = 8               # node rows of a step window (check_step_rows)
 EMIT_WINDOW = 32            # node rows kernel B loads per dependent load
 REFINE_SUB = 32             # rays per emit-refine sub-frustum
 NLANES = 8 * (BLK // REFINE_SUB)    # sub-frusta per packet (32)
+
+
+def check_step_rows(rows) -> int:
+    """The rows of kernel B's step window as an int, or ValueError: 1..8.
+    The reference's compiled walks (_emit3t_kernel, _emit3wst_kernel)
+    count STEP_CAP in aligned 8-row node windows, its node walk
+    (_emit3_kernel, _emit3ws_kernel) in nodes, that is windows of 1."""
+    if (isinstance(rows, bool) or not isinstance(rows, int)
+            or not 1 <= rows <= 8):
+        raise ValueError(f"step_rows must be in [1, 8], got {rows}")
+    return rows
 
 
 def check_tq_bits(bits) -> int:
@@ -142,8 +155,8 @@ LIBS = {
     # FMA contraction their word lists are bit-identical to the plain
     # versions'
     "emit": cuda_build.KernelLib("s3_emit", (
-        ("rt_s3_emit", (_P, _P, _P, _P, _I32, _I32, _F32, _I32, _I32, _P,
-                        _P, _P)),
+        ("rt_s3_emit", (_P, _P, _P, _P, _I32, _I32, _F32, _I32, _I32, _I32,
+                        _P, _P, _P)),
         ("rt_s3_emit_window", ())), ("-fmad=false",)),
     "refine": cuda_build.KernelLib("s3_refine", (
         ("rt_s3_refine", (_P, _P, _P, _P, _I64, _P, _I32, _I32, _F32, _I32,
@@ -469,82 +482,185 @@ def _interval_test(bmn, bmx, s, tf0):
     return tn, tf
 
 
+# slots a pass of _walk_paths holds: its [slots, table rows] tensors stay
+# near 2^21 elements
+PATH_ELEMS = 1 << 21
+
+
+def _jump_rounds(n: int) -> int:
+    """Pointer-doubling rounds that cover a chain of n links."""
+    return max(int(n), 1).bit_length() + 1
+
+
+def _walk_paths(nodef, scal, smeta, tmax, step_cap, rows):
+    """The walk of every slot, as kernel B walks it, in passes of slots:
+    yields (slots [k], base [k], row [k, A, 11], tn [k, A], box_hit [k,
+    A], walked [k, A] bool, steps [k], capped [k]) for the A rows of each
+    slot's octant table (table-local rows 0..A-1; rows past a slot's table
+    are never walked).
+
+    The tables are preorder with escape threading, so every successor
+    (the child, or the escape row) lies past its node: the walk is the
+    chain of successors from row 0, found here by pointer doubling over
+    every row's successor at once instead of a step at a time.  Step
+    windows (step_rows rows, the reference's compiled count at 8) are
+    aligned blocks of rows from the table base, the block that starts
+    past nrows - rows clamped GLOBALLY at the end of nodef (stream3.py:
+    1341-1351), so that window takes every later row; a walk keeps the
+    nodes of its first step_cap windows and is capped where a node of
+    window step_cap + 1 follows."""
+    dev = scal.device
+    i64 = torch.int64
+    nrows = nodef.shape[0]
+    base_all = smeta[:, 2].to(i64)
+    # rows of each slot's octant table that lie inside nodef (kernel B's)
+    avail_all = torch.clamp(nrows - base_all, max=nrows // 8)
+    amax = int(avail_all.max()) if smeta.shape[0] else 0
+    per = max(PATH_ELEMS // max(amax, 1), 1)
+    tmax_t = torch.tensor(tmax, dtype=torch.float32, device=dev)
+    lane = torch.arange(amax + 1, device=dev)
+    for lo in range(0, smeta.shape[0], per):
+        sl = torch.arange(lo, min(lo + per, smeta.shape[0]), device=dev)
+        base, avail = base_all[sl], avail_all[sl]
+        k, n = sl.numel(), amax
+        j = lane[:n]
+        valid = j < avail[:, None]
+        row = nodef[torch.clamp(base[:, None] + j, max=nrows - 1), :11]
+        tn, tf = _interval_test(row[..., 0:3], row[..., 3:6],
+                                scal[sl][:, None], float(tmax))
+        box_hit = (tf >= tn) & (tn < tmax_t)
+        nxt = torch.where((row[..., 10] > 0.0) | ~box_hit, row[..., 9],
+                          row[..., 8]).to(i64)
+        # successors as indices into [0, n]; n: the walk has ended
+        jump = torch.cat([torch.where(valid & (nxt > j) & (nxt < n), nxt, n),
+                          torch.full((k, 1), n, dtype=i64, device=dev)], 1)
+        reach = torch.zeros(k, n + 1, dtype=torch.bool, device=dev)
+        reach[:, 0] = smeta[sl, 1] > 0
+        for _ in range(_jump_rounds(n)):
+            reach |= torch.zeros(k, n + 1, dtype=torch.int32, device=dev) \
+                .scatter_add_(1, jump, reach.to(torch.int32)) > 0
+            jump = torch.gather(jump, 1, jump)
+        on = reach[:, :n] & valid
+        # step windows: aligned blocks, those past the clamp merged into one
+        clamp_blk = torch.div(nrows - rows - base, rows,
+                              rounding_mode="floor") + 1
+        key = torch.minimum(j // rows, clamp_blk[:, None])
+        nkey = n // rows + 1
+        seen = torch.zeros(k, nkey, dtype=torch.int32, device=dev) \
+            .scatter_add_(1, key, on.to(torch.int32)) > 0
+        before = torch.cumsum(seen.to(i64), dim=1)
+        wid = torch.gather(before, 1, key)          # 1-based, on the walk
+        total = before[:, -1]
+        walked = on & (wid <= step_cap)
+        yield (sl, base, row, tn, box_hit, walked,
+               torch.clamp(total, max=max(int(step_cap), 0)),
+               total > step_cap)
+
+
+def _window_loads(walked, window):
+    """Kernel B's dependent loads of each slot's walk (walked [k, A],
+    rows ascending): a load at the first node and at each node at or past
+    the last load's row + window; in the loads' chain, by pointer
+    doubling."""
+    k, n = walked.shape
+    dev = walked.device
+    lane = torch.arange(n + 1, device=dev)
+    at = torch.where(torch.cat([walked, torch.zeros_like(walked[:, :1])], 1),
+                     lane, n)
+    # the first walked row at or past each row (n: none)
+    nxt = torch.flip(torch.cummin(torch.flip(at, [1]), dim=1).values, [1])
+    jump = torch.gather(nxt, 1, torch.clamp(lane + window, max=n)
+                        .expand(k, -1))
+    jump[:, n] = n
+    dist = (lane < n).to(torch.int64).expand(k, -1).clone()
+    for _ in range(_jump_rounds(n)):
+        dist = dist + torch.gather(dist, 1, jump)
+        jump = torch.gather(jump, 1, jump)
+    return torch.gather(dist, 1, nxt[:, :1]).squeeze(1)
+
+
 def _emit_plain(scal, smeta, bscal, nodef, tmax, step_cap, pcap,
-                stats=None, tq_bits=W_TQ_BITS):
-    """Plain version of kernel B: the lockstep walk of _emit3_kernel,
-    every live slot advanced one node per loop step, words in the format
-    of tq_bits (word_format).  stats, if a dict,
-    receives "steps" and "max_steps" (nodes visited, in all and by the
-    longest slot) and "window_loads" and "max_window_loads": the
-    dependent loads of kernel B's walk, which loads EMIT_WINDOW rows from
-    the cursor and follows the walk inside them."""
+                stats=None, tq_bits=W_TQ_BITS, step_rows=STEP_ROWS):
+    """Plain version of kernel B: each live slot's walk (_walk_paths), its
+    step cap counted in step windows of step_rows rows (8: the reference's
+    compiled treelet walks, _emit3t_kernel and _emit3wst_kernel; 1: its
+    node walk, _emit3_kernel): a slot stops where it would begin window
+    step_cap + 1, so a capped slot has walked step_cap whole windows.  At
+    each walked leaf the slot frustum hits, the 32 sub-frustum tests make
+    the keep mask, and a word is kept where it is not empty; words in
+    walk order, in the format of tq_bits (word_format).  stats, if a dict,
+    receives "steps" and "max_steps" (step windows, in all and of the
+    longest slot: emeta lane 2), "nodes" and "max_nodes" (nodes visited)
+    and "window_loads" and "max_window_loads": the dependent loads of
+    kernel B's walk, which loads EMIT_WINDOW rows from the cursor and
+    follows the walk inside them."""
     dev = scal.device
     i32, i64 = torch.int32, torch.int64
     fmt = word_format(tq_bits)
+    rows = check_step_rows(step_rows)
     nslot = scal.shape[0]
     tmax_t = torch.tensor(tmax, dtype=torch.float32, device=dev)
     words = torch.zeros(nslot, pcap, dtype=i32, device=dev)
     cnt = torch.zeros(nslot, dtype=i64, device=dev)
     steps = torch.zeros(nslot, dtype=i64, device=dev)
-    idx = torch.where(smeta[:, 1] > 0, 0, -1).to(i64)
-    base = smeta[:, 2].to(i64)
-    # the window's rows: inside the octant table and inside nodef
-    nk, nrows = nodef.shape[0] // 8, nodef.shape[0]
-    win = idx.clone()
-    loads = (idx >= 0).to(i64)
-    sub = bscal.view(-1, NLANES, 16)[smeta[:, 0].to(i64)]  # [nslot, 32, 16]
+    capped = torch.zeros(nslot, dtype=torch.bool, device=dev)
+    nodes = torch.zeros(nslot, dtype=i64, device=dev)
+    loads = torch.zeros(nslot, dtype=i64, device=dev)
+    sub = bscal.view(-1, NLANES, 16)
     pow2 = (1 << torch.arange(8, device=dev)).to(i32)
-    for _ in range(int(step_cap)):
-        act = torch.nonzero(idx >= 0).squeeze(1)
-        if act.numel() == 0:
-            break
-        row = nodef[base[act] + idx[act]]                   # [k, 16]
-        bmn, bmx = row[:, 0:3], row[:, 3:6]
-        tn, tf = _interval_test(bmn, bmx, scal[act], float(tmax))
-        box_hit = (tf >= tn) & (tn < tmax_t)
-        tn_b, tf_b = _interval_test(bmn[:, None], bmx[:, None], sub[act],
-                                    FMAX)
-        keep = ((tf_b >= tn_b) & (tn_b < tmax_t)).view(-1, NLANES // 8, 8)
-        kmask = (keep.any(dim=1).to(i32) * pow2).sum(dim=1, dtype=i32)
-        tq = torch.clamp((torch.maximum(tn, torch.zeros_like(tn))
-                          .view(i32) >> fmt.tq_shift) - fmt.tq_bias3, 0,
-                         fmt.tq_mask)
-        a = row[:, 8].to(i32)
-        word = (((a + 1) << fmt.leaf_shift) | (kmask << fmt.keep_shift)
-                | tq)
-        is_leaf = row[:, 10] > 0.0
-        emit = is_leaf & box_hit & (kmask > 0)
-        c = cnt[act]
-        wr = emit & (c < pcap)
-        words[act[wr], c[wr]] = word[wr]
-        cnt[act] = c + emit.to(i64)
-        steps[act] += 1
-        nxt = torch.where(is_leaf | ~box_hit, row[:, 9].to(i64), a.to(i64))
+    for sl, _, row, tn, box_hit, walked, st, cp in _walk_paths(
+            nodef, scal, smeta, tmax, step_cap, rows):
+        steps[sl], capped[sl] = st, cp
+        nodes[sl] = walked.sum(dim=1)
         if stats is not None:
-            off = nxt - win[act]
-            new = (nxt >= 0) & (steps[act] < step_cap) & (
-                (off < 0) | (off >= EMIT_WINDOW) | (nxt >= nk)
-                | (base[act] + nxt >= nrows))
-            win[act] = torch.where(new, nxt, win[act])
-            loads[act] += new.to(i64)
-        idx[act] = nxt
+            loads[sl] = _window_loads(walked, EMIT_WINDOW)
+        # the walked leaves the slot frustum hits, in walk order
+        s, r = torch.nonzero(walked & (row[..., 10] > 0.0) & box_hit,
+                             as_tuple=True)
+        per = PATH_ELEMS // NLANES
+        for q in range(0, s.numel(), per):
+            s_q, r_q = s[q:q + per], r[q:q + per]
+            node = row[s_q, r_q]
+            tn_b, tf_b = _interval_test(
+                node[:, None, 0:3], node[:, None, 3:6],
+                sub[smeta[sl[s_q], 0].to(i64)], FMAX)
+            keep = ((tf_b >= tn_b) & (tn_b < tmax_t)).view(-1, NLANES // 8,
+                                                           8)
+            kmask = (keep.any(dim=1).to(i32) * pow2).sum(dim=1, dtype=i32)
+            t0 = tn[s_q, r_q]
+            tq = torch.clamp((torch.maximum(t0, torch.zeros_like(t0))
+                              .view(i32) >> fmt.tq_shift) - fmt.tq_bias3, 0,
+                             fmt.tq_mask)
+            word = (((node[:, 8].to(i32) + 1) << fmt.leaf_shift)
+                    | (kmask << fmt.keep_shift) | tq)
+            ok = kmask > 0
+            slot, word = sl[s_q[ok]], word[ok]
+            # each word's place in its slot's list: pairs are in slot order
+            first = torch.searchsorted(slot, slot, right=False)
+            pos = cnt[slot] + torch.arange(slot.numel(), device=dev) - first
+            wr = pos < pcap
+            words[slot[wr], pos[wr]] = word[wr]
+            cnt.index_add_(0, slot, torch.ones_like(slot))
     emeta = torch.zeros(nslot, 8, dtype=i32, device=dev)
     emeta[:, 0] = cnt.to(i32)
-    emeta[:, 1] = (idx >= 0).to(i32)
+    emeta[:, 1] = capped.to(i32)
     emeta[:, 2] = steps.to(i32)
     if stats is not None:
         stats.update(steps=int(steps.sum()),
                      max_steps=int(steps.max()) if nslot else 0,
+                     nodes=int(nodes.sum()),
+                     max_nodes=int(nodes.max()) if nslot else 0,
                      window_loads=int(loads.sum()),
                      max_window_loads=int(loads.max()) if nslot else 0)
     return words, emeta
 
 
 def emit_cuda(scal, smeta, bscal, nodef, tmax, step_cap, pcap,
-              tq_bits=W_TQ_BITS):
+              tq_bits=W_TQ_BITS, step_rows=STEP_ROWS):
     """Kernel B: (words [nslot, pcap] i32, emeta [nslot, 8] i32), words
-    in the format of tq_bits (its library built for that width).  Only
-    the first min(emeta[:, 0], pcap) words of a row are defined."""
+    in the format of tq_bits (its library built for that width), the step
+    cap counted in windows of step_rows rows (_emit_plain).  Only the
+    first min(emeta[:, 0], pcap) words of a row are defined."""
     dev = _cuda_only("emit_cuda", scal)
     chk = functools.partial(cuda_build.check_tensor, "emit_cuda",
                             dev=dev)
@@ -558,6 +674,7 @@ def emit_cuda(scal, smeta, bscal, nodef, tmax, step_cap, pcap,
                          "and nodef rows of 8")
     if not _aligned(nodef):
         raise ValueError("emit_cuda: nodef must be 16-byte aligned")
+    step_rows = check_step_rows(step_rows)
     words = torch.empty(nslot, pcap, dtype=torch.int32, device=dev)
     emeta = torch.empty(nslot, 8, dtype=torch.int32, device=dev)
     if nslot:
@@ -565,7 +682,7 @@ def emit_cuda(scal, smeta, bscal, nodef, tmax, step_cap, pcap,
             err = _lib("emit", tq_bits=tq_bits).rt_s3_emit(
                 scal.data_ptr(), smeta.data_ptr(), bscal.data_ptr(),
                 nodef.data_ptr(), nslot, nodef.shape[0], float(tmax),
-                int(step_cap), int(pcap), words.data_ptr(),
+                int(step_cap), step_rows, int(pcap), words.data_ptr(),
                 emeta.data_ptr(), stream)
         cuda_build.check_launch("s3_emit", err)
         cuda_build.count_launch(emit_cuda)
@@ -576,13 +693,15 @@ emit_cuda.launches = 0
 
 
 def stage_emit(scal, smeta, bscal, nodef, tmax, *, step_cap=STEP_CAP,
-               pcap=PCAP, tq_bits=W_TQ_BITS):
+               pcap=PCAP, tq_bits=W_TQ_BITS, step_rows=STEP_ROWS):
     """Walk every slot: (words, emeta) with emeta lanes 0 count (past
-    pcap on overflow), 1 capped (walk cut at step_cap), 2 steps; words
-    in the format of tq_bits."""
+    pcap on overflow), 1 capped (walk cut at step_cap step windows), 2
+    step windows walked; windows of step_rows node rows (8, the default:
+    the reference's compiled count; 1: its node walk); words in the
+    format of tq_bits."""
     fn = emit_cuda if _route(scal) == "cuda" else _emit_plain
     return fn(scal, smeta, bscal, nodef, tmax, step_cap, pcap,
-              tq_bits=tq_bits)
+              tq_bits=tq_bits, step_rows=step_rows)
 
 
 # ---------------------------------------------------------------------------

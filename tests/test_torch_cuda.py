@@ -6,9 +6,12 @@ TLAS-native route on the card against their CPU routes, and sample1's RD-API rou
 render of the same inputs; a temporally bounded stream3 wave against
 its unbounded trace, and the temporal cull on the card against the CPU;
 kernel C's tq-sort form and kernel D's lean and cull forms against their
-plain versions on hand-made lists, long lists and exact ties; and B-E and
+plain versions on hand-made lists, long lists and exact ties; B-E and
 the packet kernel built for leaf caps 64, 256 and 512 and tq widths 7, 9
-and 5 against their plain versions.
+and 5 against their plain versions; kernel B's step cap in windows of 8
+and of 1 rows, also where the window start clamps at the end of the
+native route's concatenated tables; and B-E and the packet kernel on
+tables of the SAH-driven leaf collapse.
 
 Every case is marked `gpu` and skips (with the reason) where no CUDA
 card is present; the `cuda` fixture decides at run time, never at
@@ -284,11 +287,11 @@ def test_s3_emit_and_refine_identical_to_plain(cuda):
     assert torch.equal(rk[valid], rp[valid])
 
 
-def _emit_pair(args):
-    """Kernel B and its plain version on the same arguments: emeta and
-    the valid words identical.  Returns the emeta."""
-    wk, ek = stg.emit_cuda(*args)
-    wp, ep = stg._emit_plain(*args)
+def _emit_pair(args, step_rows=stg.STEP_ROWS):
+    """Kernel B and its plain version on the same arguments and step
+    windows: emeta and the valid words identical.  Returns the emeta."""
+    wk, ek = stg.emit_cuda(*args, step_rows=step_rows)
+    wp, ep = stg._emit_plain(*args, step_rows=step_rows)
     assert torch.equal(ek, ep)
     valid = (torch.arange(args[6], device=ek.device)[None, :]
              < torch.clamp(ek[:, :1], max=args[6]))
@@ -296,44 +299,113 @@ def _emit_pair(args):
     return ek
 
 
-def test_s3_emit_edge_cases(cuda):
+@pytest.mark.parametrize("step_rows", [1, 8])
+def test_s3_emit_edge_cases(cuda, step_rows):
     """Kernel B against its plain version where its windows could go
-    wrong: step caps that cut a walk inside a window and on its edges,
-    list caps the count runs past, dead slots, NaN slot scalars, slots
-    sharing a packet (the mixed-octant pool), every octant table walked
-    to its end (the last one's final window reaches past nodef's rows),
-    and a one-leaf table."""
+    wrong: step caps that cut a walk inside a load window and on its
+    edges (node steps), or after one step window, list caps the count
+    runs past, dead slots, NaN slot scalars, slots sharing a packet (the
+    mixed-octant pool), every octant table walked to its end (the last
+    one's final window reaches past nodef's rows), and a one-leaf
+    table."""
     assert stg.emit_window() == stg.EMIT_WINDOW
     tlas = _scene(_mesh(10, 3000, 8.0))
     ds, _, scal, smeta, bscal = _s3_stages(cuda, tlas)
     assert int((smeta[:, 1] > 0).sum()) > smeta.shape[0] // 8
     assert int(torch.unique(smeta[smeta[:, 1] > 0, 0]).numel()) \
         < int((smeta[:, 1] > 0).sum())       # packets with several slots
+    cut = 33 if step_rows == 1 else 1       # a cap that cuts some walks
     for cap in (1, 5, 31, 32, 33, 100, stg.STEP_CAP):
         ek = _emit_pair((scal, smeta, bscal, ds.knode_f, 1e3, cap,
-                         stg.PCAP))
-        if cap == 33:
-            assert int(ek[:, 1].sum()) > 0 and int((ek[:, 2] == 33).sum())
+                         stg.PCAP), step_rows)
+        if cap == cut:
+            assert int(ek[:, 1].sum()) > 0 and int((ek[:, 2] == cut).sum())
         if cap == stg.STEP_CAP:     # walks that reach their table's end
             assert int(ek[:, 1].sum()) == 0
-            assert int(ek[:, 2].max()) > 32 and int(ek[:, 0].max()) > 7
+            assert int(ek[:, 2].max()) > 32 // step_rows
+            assert int(ek[:, 0].max()) > 7
     for pcap in (1, 7):
         ek = _emit_pair((scal, smeta, bscal, ds.knode_f, 1e3, stg.STEP_CAP,
-                         pcap))
+                         pcap), step_rows)
         assert int(ek[:, 0].max()) > pcap
     odd_scal, odd_meta = scal.clone(), smeta.clone()
     odd_meta[::3, 1] = 0                       # dead slots
     odd_scal[1::5, 9] = float("nan")           # a NaN interval scalar
     odd_scal[2::7] = float("nan")              # every scalar NaN
     ek = _emit_pair((odd_scal, odd_meta, bscal, ds.knode_f, 1e3,
-                     stg.STEP_CAP, stg.PCAP))
+                     stg.STEP_CAP, stg.PCAP), step_rows)
     assert bool((ek[::3] == 0).all())
     one = _scene(_mesh(3, 2, 1.0))
     ds1, _, scal1, smeta1, bscal1 = _s3_stages(cuda, one)
     assert ds1.knode_f.shape[0] == 8
     ek = _emit_pair((scal1, smeta1, bscal1, ds1.knode_f, 1e3, stg.STEP_CAP,
-                     stg.PCAP))
+                     stg.PCAP), step_rows)
     assert int(ek[:, 2].max()) == 1
+
+
+def _clamp_stages(dev):
+    """The native route's concatenated tables of three BLASes of 140, 90
+    and 61 triangles (six instances; the last BLAS's octant tables are
+    one row each, last in nodef_cat) and a wave whose packet p looks
+    along direction octant p at an instance of that BLAS, through the
+    route's prep: slots whose step window starts clamped at the end of
+    nodef (tests/test_torch_step_windows.py's case)."""
+    rng = np.random.default_rng(17)
+    blases = []
+    for tris_per in (140, 90, 61):
+        c = rng.uniform(-2, 2, size=(tris_per, 3)).astype(np.float32)
+        v = (c[:, None, :] + rng.normal(scale=0.35, size=(tris_per, 3, 3))
+             .astype(np.float32)).reshape(-1, 3)
+        blases.append(accel.BuildBottomAccelStruct(types.Mesh(
+            v, np.arange(len(v), dtype=np.uint32).reshape(-1, 3))))
+    insts, tfs = [], []
+    for i in range(6):
+        tf = np.eye(4, dtype=np.float32)
+        tf[:3, 3] = rng.uniform(-8, 8, 3)
+        tfs.append(tf)
+        insts.append(types.Instance(tf, 0, i, blases[i % 3]))
+    ds = accel.BuildTopAccelStruct(insts).device_scene(dev)
+    o, d = [], []
+    for p in range(8):
+        sgn = np.array([-1.0 if p >> k & 1 else 1.0 for k in range(3)])
+        dp = sgn * (1.0 + rng.uniform(0.0, 0.3, (stg.PKT, 3)))
+        dp /= np.linalg.norm(dp, axis=-1, keepdims=True)
+        aim = tfs[2 + 3 * (p % 2)][:3, 3] + rng.uniform(-1.5, 1.5,
+                                                        (stg.PKT, 3))
+        o.append(aim - 25.0 * dp)
+        d.append(dp)
+    rows = s3.rows_from_aos(
+        torch.from_numpy(np.concatenate(o).astype(np.float32)).to(dev),
+        torch.from_numpy(np.concatenate(d).astype(np.float32)).to(dev))
+    mt = s3m.multi_tables(ds)
+    _, scal, smeta, bscal, *_ = s3m._prep_tlas(
+        mt, ds.inst_inv[:6], rows, 1e-3, 1e3, None, 48, stable=True)
+    return mt.nodef_cat, scal, smeta, bscal
+
+
+def test_emit_step_windows_match_plain(cuda):
+    """Kernel B against its plain version at step_rows 8 (the reference's
+    compiled count) and 1 (its node count), at the step cap and at caps
+    that cut walks (9, 7, 1), on a mixed-octant wave and on
+    concatenated tables where the window start clamps at the end of
+    nodef: emeta (count, capped, step windows) and the words identical;
+    8-row windows cut fewer walks than nodes at the same cap."""
+    tlas = _scene(_mesh(10, 3000, 8.0))
+    ds, _, scal, smeta, bscal = _s3_stages(cuda, tlas)
+    nodef_c, scal_c, smeta_c, bscal_c = _clamp_stages(cuda)
+    live = smeta_c[:, 1] > 0
+    assert bool((smeta_c[live, 2] > nodef_c.shape[0] - 8).any())
+    for nodef, sc, sm, bs in ((ds.knode_f, scal, smeta, bscal),
+                              (nodef_c, scal_c, smeta_c, bscal_c)):
+        for cap in (stg.STEP_CAP, 9, 7, 1):
+            em = {r: _emit_pair((sc, sm, bs, nodef, 1e3, cap, stg.PCAP), r)
+                  for r in (8, 1)}
+            assert int(em[8][:, 1].sum()) <= int(em[1][:, 1].sum())
+            assert bool((em[8][:, 2] <= em[1][:, 2]).all())
+    # every live slot of the wave walks its octant's 65 rows: 9 windows
+    cut = {r: _emit_pair((scal, smeta, bscal, ds.knode_f, 1e3, 9, stg.PCAP),
+                         r) for r in (8, 1)}
+    assert int(cut[8][:, 1].sum()) == 0 < int(cut[1][:, 1].sum())
 
 
 @pytest.mark.parametrize("grid", [1, 7, 0])
@@ -856,6 +928,88 @@ def test_trace_rows_multi_on_card_matches_cpu(cuda, occl):
     ok = (got.slot != -2).cpu().numpy()
     assert ((sweeps.t.cpu().numpy() < FLT_MAX)
             == (got.t.cpu().numpy() < FLT_MAX))[ok].mean() >= 0.999
+
+
+def _clustered_mesh(seed=7, clusters=64, per=60):
+    """A clustered mesh (tests/test_stream3.py's mini city): spatially
+    separate clusters, where the SAH collapse cuts other leaves than the
+    greedy one."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-20, 20, size=(clusters, 3)).astype(np.float32)
+    local = rng.uniform(-1.5, 1.5, size=(clusters, per, 3)).astype(np.float32)
+    offs = rng.normal(scale=0.08, size=(clusters, per, 3, 3)).astype(
+        np.float32)
+    v = ((centers[:, None, :] + local)[:, :, None, :] + offs).reshape(-1, 3)
+    return types.Mesh(v, np.arange(len(v), dtype=np.uint32).reshape(-1, 3))
+
+
+@pytest.mark.parametrize("cap", [128, 64])
+def test_sah_tables_match_plain(cuda, cap):
+    """Tables built with collapse="sah" (more, tighter leaves than the
+    greedy cut on a clustered mesh): the packet kernel's closest and
+    any-hit traces against its plain version on the CPU build of the same
+    tables, and B, C, D and E against their plain versions on a wave's
+    stages (B and C word for word, D to the traversal bars, E on >= 0.999
+    of rays); the stream3 wave against the packet kernel."""
+    mesh = _clustered_mesh()
+    tlas = _scene(mesh)
+    ds = tlas.device_scene(cuda, leaf_cap=cap, collapse="sah")
+    greedy = tlas.device_scene(cuda, leaf_cap=cap)
+    assert (ds.collapse, ds.rho) == ("sah", 0.15)
+    assert ds.kleaf.shape[0] > greedy.kleaf.shape[0]
+    rng = np.random.default_rng(2)
+    verts = mesh.vertices
+    aim = verts[rng.integers(0, len(verts), 8192)] + rng.normal(
+        scale=0.05, size=(8192, 3))
+    d = rng.normal(size=(8192, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = (aim - 30.0 * d).astype(np.float32)
+    d = d.astype(np.float32)
+    for any_hit in (False, True):
+        ref, got = (pk.trace_rays_packet(
+            tlas.device_scene(dev, leaf_cap=cap, collapse="sah"),
+            torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev), 1e-3,
+            1e3, any_hit=any_hit) for dev in ("cpu", cuda))
+        assert _agree(ref, got, any_hit).mean() > 0.05
+    o_t, d_t = torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda)
+    rows = s3.rows_from_aos(o_t, d_t)
+    _, feats_t, scal, smeta, bscal, _ = s3._stage_prep(
+        rows, ds.knode_f, ds.inst_inv[0], stable=ds.stable_frames)
+    bits = 9 if s3.supports(ds) else 7
+    args = (scal, smeta, bscal, ds.knode_f, 1e3, stg.STEP_CAP, stg.PCAP)
+    wk, ek = stg.emit_cuda(*args, tq_bits=bits)
+    wp, ep = stg._emit_plain(*args, tq_bits=bits)
+    assert torch.equal(ek, ep)
+    valid = (torch.arange(stg.PCAP, device=cuda)[None, :]
+             < torch.clamp(ek[:, :1], max=stg.PCAP))
+    assert torch.equal(wk[valid], wp[valid]) and int(valid.sum()) > 100
+    slot_pkt = smeta[:, 0].contiguous()
+    aabb8 = s3.leaf_aabb8(ds.knode_f, ds.kleaf.shape[0])
+    rk, rek = stg.refine_cuda(wk, ek, slot_pkt, feats_t, aabb8, 1e3,
+                              stg.PCAP, tq_bits=bits)
+    rp, rep = stg._refine_plain(wp, ep, slot_pkt, feats_t, aabb8, 1e3,
+                                stg.PCAP, tq_bits=bits)
+    assert torch.equal(rek, rep)
+    kept = torch.arange(stg.PCAP, device=cuda)[None, :] < rek[:, :1]
+    assert torch.equal(rk[kept], rp[kept])
+    iargs = (rk, rek, slot_pkt, feats_t.t().contiguous(), ds.kleaf, 1e-3,
+             1e3, stg.PCAP, ds.stable_frames)
+    ok = stg.isect_cuda(*iargs, tq_bits=bits)
+    op = stg._isect_plain(*iargs, tq_bits=bits)
+    ref = pk.HitRecord(t=op[..., 0].reshape(-1), prim=op[..., 1].reshape(-1),
+                       slot=None, b1=None, b2=None)
+    got = pk.HitRecord(t=ok[..., 0].reshape(-1), prim=ok[..., 1].reshape(-1),
+                       slot=None, b1=None, b2=None)
+    assert _agree(ref, got, False).mean() > 0.02
+    eargs = (wk, ek) + iargs[2:]
+    occ_k = stg.isect_occl_cuda(*eargs, tq_bits=bits)
+    occ_p = stg._isect_occl_plain(*eargs, tq_bits=bits)
+    assert float((occ_k == occ_p).all(dim=2).float().mean()) >= 0.999
+    wave = s3.trace_rows_stream3(ds, s3.rows_from_aos_fast(o_t, d_t), 1e-3,
+                                 1e3, tq_bits=bits)
+    torch.cuda.synchronize()
+    assert _agree(pk.trace_rays_packet(ds, o_t, d_t, 1e-3, 1e3), wave,
+                  False).mean() > 0.05
 
 
 def _tlas_scene(dev, n_inst=9, n_uniq=3, tris_per=400, seed=7):

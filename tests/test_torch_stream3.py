@@ -211,108 +211,149 @@ def staged():
     return jds, tds, j, t
 
 
-def test_stage_emit_matches_jax(staged):
-    _, tds, j, t = staged
+@pytest.mark.parametrize("step_rows", [8, 1])
+def test_stage_emit_matches_jax(staged, step_rows):
+    """stage_emit against the JAX kernel that counts as it does: at
+    step_rows 8 the windowed walk (_emit3t_kernel), at 1 the node walk
+    (_emit3_kernel, the fixture's): count, capped flag and words on every
+    slot; the port counts each slot's own steps, the TPU stamps its
+    group's."""
+    jds, tds, j, t = staged
+    if step_rows == 1:
+        jw, je = j["words"], j["emeta"]
+    else:
+        jw, je = (np.asarray(v) for v in js3._stage_emit(
+            jnp.asarray(j["lim"]), jnp.asarray(j["scal"]),
+            jnp.asarray(j["smeta"]), jnp.asarray(j["bscal"]), jds.knode_f,
+            interpret=True, treelet=True))
     words, emeta = stg.stage_emit(t["scal"], t["smeta"], t["bscal"],
-                                  tds.knode_f, TMAX)
+                                  tds.knode_f, TMAX, step_rows=step_rows)
     words, emeta = words.numpy(), emeta.numpy()
-    np.testing.assert_array_equal(emeta[:, :2], j["emeta"][:, :2])
+    np.testing.assert_array_equal(emeta[:, :2], je[:, :2])
     cnt = np.minimum(emeta[:, 0], stg.PCAP)
     for s in np.nonzero(cnt)[0]:
-        np.testing.assert_array_equal(words[s, :cnt[s]],
-                                      j["words"][s, :cnt[s]])
+        np.testing.assert_array_equal(words[s, :cnt[s]], jw[s, :cnt[s]])
     assert cnt.sum() > 100 and (j["smeta"][:, 1] > 0).sum() > 16
-    # the port counts each slot's own steps; the TPU stamps its group's
     alive = j["smeta"][:, 1] > 0
     assert (emeta[alive, 2] > 0).all() and (emeta[~alive, 2] == 0).all()
-    assert (emeta[:, 2].reshape(-1, js3.G).max(1)
-            == j["emeta"][::js3.G, 2]).all()
+    assert (emeta[:, 2].reshape(-1, js3.G).max(1) == je[::js3.G, 2]).all()
 
 
-def test_stage_emit_matches_jax_treelet_walk(staged):
+@pytest.mark.parametrize("step_rows", [8, 1])
+def test_stage_emit_matches_jax_treelet_walk(staged, step_rows):
     """The reference's windowed walk (_emit3t_kernel, stream3.py:753:
     aligned 8-row node windows, the walk followed inside each) emits the
-    same word lists and counts as the port's walk on every slot neither
-    caps: following a window does not change the lists.  (The reference
-    counts its step cap in windows, the port in nodes.)"""
+    same word lists, counts and capped flags as the port's walk at either
+    step_rows on every slot: following a window does not change the
+    lists, and at STEP_CAP neither walk is cut on this wave."""
     jds, tds, j, t = staged
     jw, je = (np.asarray(v) for v in js3._stage_emit(
         jnp.asarray(j["lim"]), jnp.asarray(j["scal"]),
         jnp.asarray(j["smeta"]), jnp.asarray(j["bscal"]), jds.knode_f,
         interpret=True, treelet=True))
     words, emeta = (v.numpy() for v in stg.stage_emit(
-        t["scal"], t["smeta"], t["bscal"], tds.knode_f, TMAX))
-    whole = (emeta[:, 1] == 0) & (je[:, 1] == 0)
-    assert whole.sum() > 16 and (j["smeta"][whole, 1] > 0).sum() > 16
-    np.testing.assert_array_equal(emeta[whole, 0], je[whole, 0])
+        t["scal"], t["smeta"], t["bscal"], tds.knode_f, TMAX,
+        step_rows=step_rows))
+    np.testing.assert_array_equal(emeta[:, :2], je[:, :2])
+    assert not emeta[:, 1].any() and (j["smeta"][:, 1] > 0).sum() > 16
     cnt = np.minimum(emeta[:, 0], stg.PCAP)
-    for s in np.nonzero(whole & (cnt > 0))[0]:
+    for s in np.nonzero(cnt)[0]:
         np.testing.assert_array_equal(words[s, :cnt[s]], jw[s, :cnt[s]])
-    assert cnt[whole].sum() > 100
+    assert cnt.sum() > 100
 
 
+@pytest.mark.parametrize("step_rows", [8, 1])
 @pytest.mark.parametrize("step_cap", [stg.STEP_CAP, 7])
-def test_emit_plain_stats_count_window_loads(staged, monkeypatch, step_cap):
+def test_emit_plain_stats_count_window_loads(staged, monkeypatch, step_cap,
+                                             step_rows):
     """_emit_plain(stats=) leaves its output unchanged and counts kernel
     B's dependent loads: with one-row windows one a visited node, with
     windows wider than a table one a live slot (the walk only moves
-    forward), fewer the wider the window; steps are emeta's."""
+    forward), fewer the wider the window; steps are emeta's step windows,
+    nodes the nodes visited (as many as the steps at step_rows 1)."""
     _, tds, _, t = staged
     args = (t["scal"], t["smeta"], t["bscal"], tds.knode_f, TMAX, step_cap,
             stg.PCAP)
-    words, emeta = stg._emit_plain(*args)
+    words, emeta = stg._emit_plain(*args, step_rows=step_rows)
     whole = tds.knode_f.shape[0]
     windows = (1, 4, stg.EMIT_WINDOW, whole)
     loads = []
     for window in windows:
         monkeypatch.setattr(stg, "EMIT_WINDOW", window)
         st = {}
-        w2, e2 = stg._emit_plain(*args, stats=st)
+        w2, e2 = stg._emit_plain(*args, stats=st, step_rows=step_rows)
         assert torch.equal(w2, words) and torch.equal(e2, emeta)
         assert st["steps"] == int(emeta[:, 2].sum())
         assert st["max_steps"] == int(emeta[:, 2].max())
         loads.append(st["window_loads"])
+    nodes = st["nodes"]
+    assert st["max_nodes"] <= step_cap * step_rows
+    if step_rows == 1:
+        assert nodes == st["steps"]
+    else:
+        assert nodes > st["steps"]
     alive = int((t["smeta"][:, 1] > 0).sum())
-    assert loads[0] == int(emeta[:, 2].sum()) and loads[-1] == alive
+    assert loads[0] == nodes and loads[-1] == alive
     assert loads == sorted(loads, reverse=True)
     assert alive < loads[1] < loads[0]
 
 
+def walk_windows(nodef, scal, base, alive, step_cap, step_rows):
+    """One slot's walk, node by node, with its step cap in windows of
+    step_rows rows (stream3_stages._emit_plain): (step windows, nodes,
+    hit leaves, rows visited)."""
+    nrows = nodef.shape[0]
+    idx, steps, nodes, hits, rows = (0 if alive else -1), 0, 0, 0, set()
+    wend, prev = 0, -1
+    while idx >= 0:
+        if not prev < idx < wend:
+            if steps == step_cap:
+                break
+            steps += 1
+            wend = min(max(base + idx // step_rows * step_rows, 0),
+                       nrows - step_rows) - base + step_rows
+        row = nodef[base + idx]
+        tn, tf = stg._interval_test(row[None, 0:3], row[None, 3:6],
+                                    scal[None], TMAX)
+        box_hit = bool(tf[0] >= tn[0]) and float(tn[0]) < TMAX
+        leaf = float(row[10]) > 0.0
+        hits += leaf and box_hit
+        rows.add(base + idx)
+        nodes += 1
+        prev = idx
+        idx = int(row[9]) if leaf or not box_hit else int(row[8])
+    return steps, nodes, hits, rows
+
+
+@pytest.mark.parametrize("step_rows", [8, 1])
 @pytest.mark.parametrize("step_cap", [stg.STEP_CAP, 7])
-def test_emit_counts_match_a_walk_of_each_slot(staged, step_cap):
+def test_emit_counts_match_a_walk_of_each_slot(staged, step_cap, step_rows):
     """chip_smoke.emit_counts, which kernel B's bound reads, on two
     launches walked together: each launch's steps are _emit_plain's
-    emeta lane 2, and its hit leaves and distinct rows those of a walk
-    of each of its slots on its own (the visited leaves whose box the
-    slot frustum hits; the node rows any of its slots visits)."""
+    emeta lane 2, and its nodes, hit leaves and distinct rows those of a
+    walk of each of its slots on its own (the visited leaves whose box
+    the slot frustum hits; the node rows any of its slots visits)."""
     import chip_smoke
     _, tds, _, t = staged
     nodef = tds.knode_f
     alive = torch.nonzero(t["smeta"][:, 1] > 0).squeeze(1)
     sel = torch.cat([alive[torch.linspace(0, alive.numel() - 1, 12).long()],
                      torch.nonzero(t["smeta"][:, 1] == 0)[:2, 0]])
-    launches = [(t["scal"][s], t["smeta"][s], nodef, TMAX, step_cap)
-                for s in (sel[:5], sel[5:])]
-    for (scal, smeta, *_), (steps, hit_leaves, nrows) in zip(
+    launches = [(t["scal"][s], t["smeta"][s], nodef, TMAX, step_cap,
+                 step_rows) for s in (sel[:5], sel[5:])]
+    for (scal, smeta, *_), (steps, nodes, hit_leaves, nrows) in zip(
             launches, chip_smoke.emit_counts(stg, launches)):
         _, emeta = stg._emit_plain(scal, smeta, t["bscal"], nodef, TMAX,
-                                   step_cap, stg.PCAP)
+                                   step_cap, stg.PCAP, step_rows=step_rows)
         assert torch.equal(steps, emeta[:, 2].long())
-        hits, rows = 0, set()
-        for s in range(scal.shape[0]):
-            base, idx, n = int(smeta[s, 2]), int(smeta[s, 1] > 0) - 1, 0
-            while idx >= 0 and n < step_cap:
-                row = nodef[base + idx]
-                tn, tf = stg._interval_test(row[None, 0:3], row[None, 3:6],
-                                            scal[s:s + 1], TMAX)
-                box_hit = bool(tf[0] >= tn[0]) and float(tn[0]) < TMAX
-                leaf = float(row[10]) > 0.0
-                hits += leaf and box_hit
-                rows.add(base + idx)
-                n += 1
-                idx = int(row[9]) if leaf or not box_hit else int(row[8])
-        assert hit_leaves == hits > 0
-        assert nrows == len(rows) < int(steps.sum())
+        walks = [walk_windows(nodef, scal[s], int(smeta[s, 2]),
+                              int(smeta[s, 1]) > 0, step_cap, step_rows)
+                 for s in range(scal.shape[0])]
+        assert steps.tolist() == [w[0] for w in walks]
+        assert nodes.tolist() == [w[1] for w in walks]
+        assert hit_leaves == sum(w[2] for w in walks) > 0
+        rows = set().union(*(w[3] for w in walks))
+        assert nrows == len(rows) < int(nodes.sum())
 
 
 def test_stage_refine_matches_jax(staged):

@@ -67,10 +67,10 @@ def test_trace_rows_stream3_live_mask_matches_jax():
 
 
 def test_forced_residual_rewalks_every_packet(monkeypatch):
-    """With the walk cut after 4 steps every packet is flagged and
-    re-traced exactly; the result still holds the end-to-end bar against
-    the JAX traversal walk (an exact oracle)."""
-    monkeypatch.setattr(ts3, "STEP_CAP", 4)
+    """With the walk cut after its first step window (8 node rows) every
+    packet is flagged and re-traced exactly; the result still holds the
+    end-to-end bar against the JAX traversal walk (an exact oracle)."""
+    monkeypatch.setattr(ts3, "STEP_CAP", 1)
     jds, tds = soup_pair(900, 3)
     o, d = camera_wave(2 * js3.PKT, 64, 12.0)
     ref = traversal.trace_rays(jds, jnp.asarray(o), jnp.asarray(d), TMIN,

@@ -295,10 +295,10 @@ def test_trace_rows_stream3_occl_matches_jax(window):
 
 
 def test_forced_occlusion_residual_rewalks_every_packet(monkeypatch):
-    """With the walk cut after 4 steps every packet is flagged and
-    re-walked by the packet tracer's any-hit mode; occluded-or-not still
-    holds against the JAX any-hit traversal walk."""
-    monkeypatch.setattr(ts3, "STEP_CAP", 4)
+    """With the walk cut after its first step window (8 node rows) every
+    packet is flagged and re-walked by the packet tracer's any-hit mode;
+    occluded-or-not still holds against the JAX any-hit traversal walk."""
+    monkeypatch.setattr(ts3, "STEP_CAP", 1)
     jds, tds = soup_pair(900, 3)
     o, d = camera_wave(2 * js3.PKT, 64, 12.0)
     ref = traversal.trace_rays(jds, jnp.asarray(o), jnp.asarray(d), TMIN,

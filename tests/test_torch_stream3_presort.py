@@ -31,13 +31,14 @@ from test_torch_stream3 import (  # noqa: F401
 from test_torch_stream3_modes import closed_pair, jax_run, torch_run
 from test_traversal import gen_rays
 
-# a wave whose middle half is tile-ordered camera rays (short walks) and
-# whose outer quarters scatter (long walks): at this step cap the
-# presorted wave flags all but one of its 8 packets
-PARTIAL_CAP = 12
+# closed_pair's walls under a wave whose middle half is tile-ordered
+# camera rays (short walks) and whose outer quarters scatter (long
+# walks): at this step cap (in 8-row step windows) the presorted wave
+# flags all but one of its 8 packets
+PARTIAL_CAP = 10
 # closed_pair's camera wave: at this step cap one of its 8 packets flags,
 # in caller order and presorted
-CLOSED_CAP = 60
+CLOSED_CAP = 16
 
 
 @pytest.fixture(scope="module")
@@ -81,20 +82,31 @@ def test_presort_run_matches_jax(mixed):
                                   got.prim.numpy()[inside])
 
 
-def test_presort_forced_residual_rewalks_caller_blocks(mixed, monkeypatch):
+@pytest.fixture(scope="module")
+def mixed_closed(mixed):
+    """mixed's wave over closed_pair's walls, whose walks are long enough
+    for a step cap in windows to flag some packets and not others."""
+    jds, tds = closed_pair()
+    return jds, tds, mixed[2], mixed[3]
+
+
+def test_presort_forced_residual_rewalks_caller_blocks(mixed_closed,
+                                                       monkeypatch):
     """At a step cap that flags some presorted packets: the flags equal
-    JAX's; trace_rows_stream3(presort=True) re-traces exactly the rays of
-    the flagged packets' caller blocks (diag["blk_perm"]) through the
-    packet kernel: those rays' records equal a packet-kernel trace of them
-    bit for bit, the others _run's at the same cap; hits and prims agree
-    with the JAX traversal walk on >= 0.999 of the rays.  (t is held to
-    the port's own tracers here: on this soup's grazing triangles the
-    kernels' plane numerators and the walk's Moeller-Trumbore differ by
-    up to ~2e-5 of t.)"""
-    jds, tds, o, d = mixed
+    those of JAX's compiled default walk (ws=True, treelet=True: the step
+    cap in 8-row windows); trace_rows_stream3(presort=True) re-traces
+    exactly the rays of the flagged packets' caller blocks
+    (diag["blk_perm"]) through the packet kernel: those rays' records
+    equal a packet-kernel trace of them bit for bit, the others _run's at
+    the same cap; hits and prims agree with the JAX traversal walk on >=
+    0.999 of the rays.  (t is held to the port's own tracers here, as on
+    the soup's grazing triangles, where the kernels' plane numerators and
+    the walk's Moeller-Trumbore differ by up to ~2e-5 of t.)"""
+    jds, tds, o, d = mixed_closed
     monkeypatch.setattr(js3, "STEP_CAP", PARTIAL_CAP)
     monkeypatch.setattr(ts3, "STEP_CAP", PARTIAL_CAP)
-    _, jd = jax_run(jds, o, d, presort=True, with_diag=True)
+    _, jd = jax_run(jds, o, d, presort=True, with_diag=True, ws=True,
+                    treelet=True)
     traced = []
     real = tpk.trace_rays_packet
 

@@ -313,10 +313,11 @@ def test_trace_rows_tlas_matches_jax_native_route(nine):
 
 @pytest.mark.parametrize("occl", [False, True])
 def test_forced_residual_gives_the_same_hits(nine, monkeypatch, occl):
-    """A pool of 8 slots (most packets' slots do not fit), and then the
-    walk cut after the root (every slot that enters its root box is
-    capped): every flagged packet is re-traced through the packet sweeps,
-    and the hits equal an unforced run's."""
+    """A pool of 8 slots (most packets' slots do not fit), and then a
+    step cap of 0 (every live slot is capped before its first step
+    window: these BLASes' octant tables fit in one): every flagged packet
+    is re-traced through the packet sweeps, and the hits equal an
+    unforced run's."""
     _, tds, _, tm = nine
     o, d = random_wave(6, 3 * 1024)
     rows = trows(o, d)
@@ -326,7 +327,7 @@ def test_forced_residual_gives_the_same_hits(nine, monkeypatch, occl):
     small, sd = tsm.trace_rows_tlas(tds, tm, rows, TMIN, TMAX, occl=occl,
                                     scap=8, with_diag=True)
     assert sd["scap"] == 8 and sd["pool_overflow"] >= 3
-    monkeypatch.setattr(ts3, "STEP_CAP", 1)
+    monkeypatch.setattr(ts3, "STEP_CAP", 0)
     capped, cd = tsm.trace_rows_tlas(tds, tm, rows, TMIN, TMAX, occl=occl,
                                      with_diag=True)
     assert cd["capped"] > 0
