@@ -3483,9 +3483,9 @@ def sharded_frames(dev, card, tracer, scene, res, pk, stg):
     shadows on stream3, so E runs, and gen1_sort bounces) against
     frame_fn of the same routes, and, where the machine has two cards, a
     real 2-card pixel mesh.  Each run twice (the second warm), timed by
-    profiling.timed (host clock ending in a synchronize) into a
-    FrameStats; the sharded runs driven (counts set to 0 just before and
-    read just after).  Returns the counts, times and gates."""
+    profiling.timed (host clock ending in a synchronize, its
+    box["seconds"]); the sharded runs driven (counts set to 0 just before
+    and read just after).  Returns the counts, times and gates."""
     from radiance_tpu_torch.parallel import sharding
     from radiance_tpu_torch.utils import profiling
 
@@ -3495,14 +3495,14 @@ def sharded_frames(dev, card, tracer, scene, res, pk, stg):
     zero = torch.zeros(n, 3, device=dev)
 
     def frames(name, fn, drive=True):
-        stats = profiling.FrameStats()
+        ms = out["ms"][name] = []
         for _ in range(2):
             with profiling.timed(name, quiet=True) as box:
                 box["sync"] = (driven(pk, stg, total, fn) if drive
                                else fn())
-            stats.record(box["seconds"])
-        out["ms"][name] = [s * 1e3 for s in stats.history]
-        log(f"[13] {name} ({card}): {stats.report()}")
+            ms.append(box["seconds"] * 1e3)
+        log(f"[13] {name} ({card}): frames " + ", ".join(
+            f"{m:.1f}" for m in ms) + " ms")
         return box["sync"]
 
     def render(batch):

@@ -33,6 +33,7 @@ from radiance_tpu_torch.core import types
 from radiance_tpu_torch.engine.pathtracer import WavefrontPathTracer
 from radiance_tpu_torch.scene.bindings import Sampler
 from radiance_tpu_torch.shading import camera as camera_mod
+from radiance_tpu_torch.utils import profiling
 
 # Descriptor type tags (reference: radiance.h:21-29)
 ACCEL_STRUCT_TYPE = "accel_struct"
@@ -236,46 +237,53 @@ def TraceRays(platform: Platform,
         additive record offsets), so (0, 0, 0) reproduces the
         reference's sample behavior exactly.
     """
-    pipeline: Pipeline = platform.active_pipeline
-    if not (0 <= raygen_group_index < len(pipeline.modules)):
-        raise IndexError(
-            f"raygen group index {raygen_group_index} out of range for "
-            f"pipeline with {len(pipeline.modules)} module(s)")
-    program = pipeline.modules[raygen_group_index]
-    ds = platform.bound_descriptor_set
-    handles = dict(zip(program.descriptor_semantics, ds))
-    device = platform.device
-
-    rtprop = _parse_struct(handles["rtprop"], types.RAY_TRACE_PROPERTIES_DTYPE)[0]
-    batch = int(rtprop["batchSize"])
-    depth = int(rtprop["depth"])
-    debug = int(rtprop["debug"])
-    total_samples = int(rtprop["totalSamples"])
-
-    top = handles["top_as"]
-    scene = top.device_scene(device) if hasattr(top, "device_scene") else top
-
-    res = build_resources(program, ds, device)
-
     n = width * height
-    scratch_buf: Buffer = handles["image_scratch"]
-    if scratch_buf.device_dirty and scratch_buf.device_value is not None:
-        accum = scratch_buf.device_value     # last frame's, on the device
-    else:
-        accum = scratch_buf.device("accum", lambda host: _on(
-            device, np.frombuffer(host.tobytes(), np.float32)
-            .reshape(n, 4)[:, :3]))
+    with profiling.span("rdapi.trace_rays"):
+        with profiling.span("rdapi.parse"):
+            pipeline: Pipeline = platform.active_pipeline
+            if not (0 <= raygen_group_index < len(pipeline.modules)):
+                raise IndexError(
+                    f"raygen group index {raygen_group_index} out of range "
+                    f"for pipeline with {len(pipeline.modules)} module(s)")
+            program = pipeline.modules[raygen_group_index]
+            ds = platform.bound_descriptor_set
+            handles = dict(zip(program.descriptor_semantics, ds))
+            device = platform.device
 
-    accum, image = program.tracer.render(
-        scene, res, accum, total_samples, width, height,
-        batch=batch, depth=depth, debug=debug,
-        hit_group_offset=hit_group_index, miss_group_offset=miss_group_index)
+            rtprop = _parse_struct(handles["rtprop"],
+                                   types.RAY_TRACE_PROPERTIES_DTYPE)[0]
+            batch = int(rtprop["batchSize"])
+            depth = int(rtprop["depth"])
+            debug = int(rtprop["debug"])
+            total_samples = int(rtprop["totalSamples"])
 
-    def accum_to_host(a):
-        out = np.zeros((n, 4), np.float32)
-        out[:, :3] = a
-        return out
+            top = handles["top_as"]
+            scene = (top.device_scene(device)
+                     if hasattr(top, "device_scene") else top)
 
-    scratch_buf.set_device_value(accum, to_host=accum_to_host, key="accum")
-    image_buf: Buffer = handles["image"]
-    image_buf.set_device_value(image)
+            res = build_resources(program, ds, device)
+
+            scratch_buf: Buffer = handles["image_scratch"]
+            if (scratch_buf.device_dirty
+                    and scratch_buf.device_value is not None):
+                accum = scratch_buf.device_value  # last frame's, on device
+            else:
+                accum = scratch_buf.device("accum", lambda host: _on(
+                    device, np.frombuffer(host.tobytes(), np.float32)
+                    .reshape(n, 4)[:, :3]))
+
+        accum, image = program.tracer.render(
+            scene, res, accum, total_samples, width, height,
+            batch=batch, depth=depth, debug=debug,
+            hit_group_offset=hit_group_index,
+            miss_group_offset=miss_group_index)
+
+        def accum_to_host(a):
+            out = np.zeros((n, 4), np.float32)
+            out[:, :3] = a
+            return out
+
+        scratch_buf.set_device_value(accum, to_host=accum_to_host,
+                                     key="accum")
+        image_buf: Buffer = handles["image"]
+        image_buf.set_device_value(image)

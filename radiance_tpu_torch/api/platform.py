@@ -22,6 +22,7 @@ import torch
 from radiance_tpu_torch import config
 from radiance_tpu_torch.core import device as rdevice
 from radiance_tpu_torch.scene.bindings import Sampler
+from radiance_tpu_torch.utils import profiling
 
 
 class Buffer:
@@ -55,11 +56,13 @@ class Buffer:
 
     def sync_to_host(self):
         if self.device_dirty and self.device_value is not None:
-            raw = self.device_value.cpu().numpy()
-            if self._to_host is not None:
-                raw = self._to_host(raw)
-            raw = np.frombuffer(np.ascontiguousarray(raw).tobytes(), np.uint8)
-            self.host[:raw.size] = raw
+            with profiling.span("rdapi.read_back"):
+                raw = self.device_value.cpu().numpy()
+                if self._to_host is not None:
+                    raw = self._to_host(raw)
+                raw = np.frombuffer(np.ascontiguousarray(raw).tobytes(),
+                                    np.uint8)
+                self.host[:raw.size] = raw
             self.version += 1
             self.device_dirty = False
 

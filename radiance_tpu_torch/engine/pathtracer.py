@@ -109,6 +109,7 @@ from radiance_tpu_torch.ops import (compaction, packet_trace, reorder,
 from radiance_tpu_torch.ops import tonemap as tonemap_ops
 from radiance_tpu_torch.ops.intersect import FLT_MAX
 from radiance_tpu_torch.ops.traversal import HitRecord
+from radiance_tpu_torch.utils import profiling
 
 # Parking spot for lanes that must not trace: a ray starting here misses
 # the scene root box on its first step.
@@ -172,16 +173,17 @@ def _retrace_distrusted(scene, rec, o, d, tmin, tmax, alive, *, occl: bool,
     the scan again); on occlusion waves t is normalised to 0 / FLT_MAX.
     It must run before the slot clamp, which would make the marker a
     silent miss and erase geometry from the accumulation."""
-    bad = torch.nonzero((rec.slot == -2) & alive).squeeze(1)
-    if bad.numel() == 0:
-        return
-    if many:
-        sub = packet_trace.trace_rays_packet_multi(scene, o[bad], d[bad], tmin,
-                                                   tmax, any_hit=occl)
-    else:
-        sub = _trace_dispatch(scene, o[bad], d[bad], tmin, tmax,
-                              any_hit_terminate=occl)
-    stream3.patch_retraced(rec, bad, sub, occl)
+    with profiling.span("engine.retrace"):
+        bad = torch.nonzero((rec.slot == -2) & alive).squeeze(1)
+        if bad.numel() == 0:
+            return
+        if many:
+            sub = packet_trace.trace_rays_packet_multi(
+                scene, o[bad], d[bad], tmin, tmax, any_hit=occl)
+        else:
+            sub = _trace_dispatch(scene, o[bad], d[bad], tmin, tmax,
+                                  any_hit_terminate=occl)
+        stream3.patch_retraced(rec, bad, sub, occl)
 
 
 def _traced_wavefront(scene, o, d, tmin, tmax, alive, *, route: str,
@@ -319,43 +321,48 @@ def _sample_step(tracer, scene, resources, pixel_index, frame_id, b, state,
         prog = sbt.make_any_hit_program(tracer.shadow_hit_offset, resources)
         kw = dict(any_hit_terminate=prog is None, any_hit_program=prog,
                   multi_route=tracer.multi_route, tq_bits=tracer.tq_bits)
-        if active is None:
-            rec = _trace_dispatch(scene, origin, direction, tmin, tmax, **kw)
-        else:
-            rec = _traced_wavefront(scene, origin, direction, tmin, tmax,
-                                    active, route=shadow_route, **kw)
+        with profiling.span("engine.trace.shadow"):
+            if active is None:
+                rec = _trace_dispatch(scene, origin, direction, tmin, tmax,
+                                      **kw)
+            else:
+                rec = _traced_wavefront(scene, origin, direction, tmin, tmax,
+                                        active, route=shadow_route, **kw)
         return rec.hit
 
-    hits = _traced_wavefront(
-        scene, o, d, tracer.tmin, tracer.tmax, alive, route=route,
-        any_hit_program=sbt.make_any_hit_program(hit_offset, resources),
-        multi_route=tracer.multi_route, blk_bound=blk_bound,
-        tq_bits=tracer.tq_bits)
-    ctx = _make_context(scene, hits, o, d, pixel_index, frame_id, b,
-                        resources, debug, trace_occlusion,
-                        functools.partial(_trace_dispatch, scene,
-                                          multi_route=tracer.multi_route,
-                                          tq_bits=tracer.tq_bits))
-    payload = Payload(
-        color=torch.zeros(n, 3, dtype=torch.float32, device=dev),
-        hit=torch.zeros(n, dtype=torch.bool, device=dev),
-        next_factor=torch.ones(n, 3, dtype=torch.float32, device=dev),
-        next_origin=o,
-        next_dir=d)
-    payload = sbt.call_hit(hit_offset, ctx, payload, alive & hits.hit)
-    payload = sbt.call_miss(miss_index, ctx, payload, alive & ~hits.hit)
+    with profiling.span("engine.trace.primary" if b == 0
+                        else "engine.trace.bounce"):
+        hits = _traced_wavefront(
+            scene, o, d, tracer.tmin, tracer.tmax, alive, route=route,
+            any_hit_program=sbt.make_any_hit_program(hit_offset, resources),
+            multi_route=tracer.multi_route, blk_bound=blk_bound,
+            tq_bits=tracer.tq_bits)
+    with profiling.span("engine.shade"):
+        ctx = _make_context(scene, hits, o, d, pixel_index, frame_id, b,
+                            resources, debug, trace_occlusion,
+                            functools.partial(_trace_dispatch, scene,
+                                              multi_route=tracer.multi_route,
+                                              tq_bits=tracer.tq_bits))
+        payload = Payload(
+            color=torch.zeros(n, 3, dtype=torch.float32, device=dev),
+            hit=torch.zeros(n, dtype=torch.bool, device=dev),
+            next_factor=torch.ones(n, 3, dtype=torch.float32, device=dev),
+            next_origin=o,
+            next_dir=d)
+        payload = sbt.call_hit(hit_offset, ctx, payload, alive & hits.hit)
+        payload = sbt.call_miss(miss_index, ctx, payload, alive & ~hits.hit)
 
-    # accumulation logic of shader.cl:238-252
-    hit = payload.hit
-    add = alive & hit
-    color = color + torch.where(add[:, None], contribution * payload.color,
-                                0.0)
-    # first-bounce miss paints the background
-    bg = alive & ~hit & (b == 0)
-    color = torch.where(bg[:, None], payload.color, color)
-    contribution = torch.where(add[:, None],
-                               contribution * payload.next_factor,
-                               contribution)
+        # accumulation logic of shader.cl:238-252
+        hit = payload.hit
+        add = alive & hit
+        color = color + torch.where(add[:, None],
+                                    contribution * payload.color, 0.0)
+        # first-bounce miss paints the background
+        bg = alive & ~hit & (b == 0)
+        color = torch.where(bg[:, None], payload.color, color)
+        contribution = torch.where(add[:, None],
+                                   contribution * payload.next_factor,
+                                   contribution)
     st_out = (color, contribution, alive & hit, payload.next_origin,
               payload.next_dir)
     return (st_out, hits.t) if want_t else st_out
@@ -366,12 +373,13 @@ def _sample_init(tracer, resources, pixel_index, frame_id, total_samples0):
     (shader.cl:197-231)."""
     n = pixel_index.shape[0]
     dev = pixel_index.device
-    rand_input = torch.stack([
-        torch.full((n,), frame_id, dtype=torch.int64, device=dev),
-        torch.full((n,), total_samples0, dtype=torch.int64, device=dev),
-        pixel_index.to(torch.int64)], dim=-1)
-    origin, direction = tracer.ray_generator(resources, pixel_index,
-                                             rand_input)
+    with profiling.span("engine.raygen"):
+        rand_input = torch.stack([
+            torch.full((n,), frame_id, dtype=torch.int64, device=dev),
+            torch.full((n,), total_samples0, dtype=torch.int64, device=dev),
+            pixel_index.to(torch.int64)], dim=-1)
+        origin, direction = tracer.ray_generator(resources, pixel_index,
+                                                 rand_input)
     return (torch.zeros(n, 3, dtype=torch.float32, device=dev),
             torch.ones(n, 3, dtype=torch.float32, device=dev),
             torch.ones(n, dtype=torch.bool, device=dev), origin, direction)
@@ -379,11 +387,12 @@ def _sample_init(tracer, resources, pixel_index, frame_id, total_samples0):
 
 def _finish_frame(tracer, batch, debug, accum, colors, total_samples):
     """Running average + tonemap + quantize (shader.cl:262-305)."""
-    f = torch.tensor(float(total_samples), dtype=torch.float32,
-                     device=accum.device)
-    accum = (f * accum + colors) / (f + float(batch))
-    rgb = accum if debug else tracer.tonemap(accum)
-    return accum, tonemap_ops.quantize_rgba8(rgb)
+    with profiling.span("engine.finish"):
+        f = torch.tensor(float(total_samples), dtype=torch.float32,
+                         device=accum.device)
+        accum = (f * accum + colors) / (f + float(batch))
+        rgb = accum if debug else tracer.tonemap(accum)
+        return accum, tonemap_ops.quantize_rgba8(rgb)
 
 
 @dataclasses.dataclass(eq=False)
@@ -544,13 +553,15 @@ class WavefrontPathTracer:
         def frame(scene, resources, accum, total_samples, pixel_index,
                   tb=None):
             ts = int(total_samples)
-            if tbound:
-                colors, tb = sample_sum(scene, resources, pixel_index, ts,
-                                        ts, tb)
-            else:
-                colors = sample_sum(scene, resources, pixel_index, ts, ts)
-            accum, image = _finish_frame(self, int(batch), debug, accum,
-                                         colors, ts)
+            with profiling.span("engine.frame"):
+                if tbound:
+                    colors, tb = sample_sum(scene, resources, pixel_index, ts,
+                                            ts, tb)
+                else:
+                    colors = sample_sum(scene, resources, pixel_index, ts,
+                                        ts)
+                accum, image = _finish_frame(self, int(batch), debug, accum,
+                                             colors, ts)
             return (accum, image, tb) if tbound else (accum, image)
 
         frame.sample_sum = sample_sum

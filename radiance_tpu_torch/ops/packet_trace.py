@@ -44,6 +44,7 @@ from radiance_tpu_torch.ops.intersect import FLT_MAX, intersect_triangle
 # HitRecord lives with the walk (ops/traversal.py), as in the JAX package;
 # it is re-exported here for existing imports
 from radiance_tpu_torch.ops.traversal import HitRecord
+from radiance_tpu_torch.utils import profiling
 
 PACKET = 1024                 # rays per packet in the plain version
 PACKET_RAYS = 64              # rays per packet (and block) of the kernel:
@@ -378,27 +379,29 @@ def packet_trace(o, d, live, nodef, kleaf, tmin, tmax, *, any_hit: bool,
 
 def _run(origin, direction, tmin, tmax, nodef, kleaf, kprim, ktri_geo,
          inv0, *, any_hit: bool, live=None, stable: bool) -> HitRecord:
-    o = rmath.mat4_transform_point(inv0, origin.to(torch.float32))
-    d = rmath.mat4_transform_dir(inv0, direction.to(torch.float32))
-    if live is not None:
-        live = live.bool()
-        # dead lanes may carry NaN/Inf: park them on an out-of-scene ray
-        o = torch.where(live[:, None], o, 1e30)
-        d = torch.where(live[:, None], d, 1.0)
-    t, tri = packet_trace(o.contiguous(), d.contiguous(), live, nodef,
-                          kleaf, tmin, tmax, any_hit=any_hit, stable=stable)
-    hit = t < FLT_MAX
-    tri_c = tri.clamp(0, kprim.shape[0] - 1).to(torch.int64)
-    prim = torch.where(hit, kprim[tri_c], -1)
-    slot = torch.where(hit, 0, -1).to(torch.int32)
-    # barycentrics of the winning triangle, recomputed from the
-    # per-face geometry table (object-space ray)
-    geo = ktri_geo[tri_c]
-    _, _, b1, b2 = intersect_triangle(o, d, geo[:, 0:3], geo[:, 3:6],
-                                      geo[:, 6:9])
-    return HitRecord(t=t, prim=prim, slot=slot,
-                     b1=torch.where(hit, b1, 0.0),
-                     b2=torch.where(hit, b2, 0.0))
+    with profiling.span("packet.trace"):
+        o = rmath.mat4_transform_point(inv0, origin.to(torch.float32))
+        d = rmath.mat4_transform_dir(inv0, direction.to(torch.float32))
+        if live is not None:
+            live = live.bool()
+            # dead lanes may carry NaN/Inf: park them on an out-of-scene ray
+            o = torch.where(live[:, None], o, 1e30)
+            d = torch.where(live[:, None], d, 1.0)
+        t, tri = packet_trace(o.contiguous(), d.contiguous(), live, nodef,
+                              kleaf, tmin, tmax, any_hit=any_hit,
+                              stable=stable)
+        hit = t < FLT_MAX
+        tri_c = tri.clamp(0, kprim.shape[0] - 1).to(torch.int64)
+        prim = torch.where(hit, kprim[tri_c], -1)
+        slot = torch.where(hit, 0, -1).to(torch.int32)
+        # barycentrics of the winning triangle, recomputed from the
+        # per-face geometry table (object-space ray)
+        geo = ktri_geo[tri_c]
+        _, _, b1, b2 = intersect_triangle(o, d, geo[:, 0:3], geo[:, 3:6],
+                                          geo[:, 6:9])
+        return HitRecord(t=t, prim=prim, slot=slot,
+                         b1=torch.where(hit, b1, 0.0),
+                         b2=torch.where(hit, b2, 0.0))
 
 
 def trace_rays_packet(scene, origin, direction, tmin, tmax,

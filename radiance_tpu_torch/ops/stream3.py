@@ -108,6 +108,7 @@ from radiance_tpu_torch.ops.stream3_stages import (
     BIG, BLK, EXTRA, FMAX, G, PCAP, PKT, STEP_CAP, W_LEAF_MAX, W_TQ_BITS,
     feats_rows_to_major, lb_bits, octant_scalars, rows_from_aos_fast,
     stage_emit, stage_isect, stage_refine, word_format)
+from radiance_tpu_torch.utils import profiling
 
 # the temporal residual's floor: a wave re-traces at most
 # max(TB_RES_RAYS, n // 128) rays past their block bounds (stream3.py:65)
@@ -531,13 +532,17 @@ def _winner_barys(rows_w, inv0, kprim, ktri_geo, prim, t, n):
 
 def _run(rows_w, tmin, tmax, nodef, kleaf, inv0, *, live=None,
          stable: bool, occl: bool = False, with_diag: bool = False,
-         blk_bound=None, count_pairs: bool = False, presort: bool = False,
-         tqsort: bool = False, lean: bool = False, cull: bool = False,
-         kprim=None, ktri_geo=None, tq_bits: int = W_TQ_BITS):
+         flags: bool = False, blk_bound=None, count_pairs: bool = False,
+         presort: bool = False, tqsort: bool = False, lean: bool = False,
+         cull: bool = False, kprim=None, ktri_geo=None,
+         tq_bits: int = W_TQ_BITS):
     """The pipeline on world-space component rows (stream3.py::_run,
     non-work-stealing branch).  Returns a HitRecord, and with with_diag
     (rec, diag): diag["pkt_flag"] [npk] i32 marks packets whose walk was
-    cut or whose list overflowed -- the caller must re-trace them.  Dead
+    cut or whose list overflowed -- the caller must re-trace them --
+    beside the sums "words", "kept_words", "steps" and "capped"; flags
+    alone returns (rec, diag) without the sums (the residual's needs:
+    "pkt_flag", "blk_perm" and count_pairs' keys).  Dead
     lanes of `live` come back as garbage for the caller to mask.  occl
     runs an occlusion wave: kernel E, t = 0 on occluded rays (prim 0, no
     barycentrics).  Kernel C refines the word lists of both kinds of wave
@@ -561,72 +566,82 @@ def _run(rows_w, tmin, tmax, nodef, kleaf, inv0, *, live=None,
     to closest-hit waves only.  tq_bits: the word format's tq width (5..9;
     kleaf's leaves must be within its reach, supports())."""
     n = rows_w[0].shape[0]
-    rows_w, live = _pad_wave(rows_w, live)
-    rows_keep = rows_w          # caller order, for the lean barycentrics
-    nb = rows_w[0].shape[0] // BLK
-    inv_blk = None
-    if presort:
-        rows_w, inv_blk, live = _block_sort(rows_w, live)
     lean = lean and not occl
     if lean and (kprim is None or ktri_geo is None):
         raise ValueError("_run(lean=True) needs kprim and ktri_geo")
-    rows, feats_t, scal, smeta, bscal, order = _stage_prep(
-        rows_w, nodef, inv0, live=live, stable=stable)
-    npad = rows[0].shape[0]
-    npk = npad // PKT
-    words, emeta = stage_emit(scal, smeta, bscal, nodef, tmax,
-                              step_cap=STEP_CAP, pcap=PCAP, tq_bits=tq_bits)
-    slot_pkt = smeta[:, 0].contiguous()
-    words_i, emeta_i = stage_refine(
-        words, emeta, slot_pkt, feats_t,
-        leaf_aabb8(nodef, kleaf.shape[0]), tmax, pcap=PCAP, sort=tqsort,
-        tq_bits=tq_bits)
-    words_b = words_i
-    if blk_bound is not None:
-        bbv = pad_blk_bound(blk_bound, nb)
+    with profiling.span("stream3.prep"):
+        rows_w, live = _pad_wave(rows_w, live)
+        rows_keep = rows_w      # caller order, for the lean barycentrics
+        nb = rows_w[0].shape[0] // BLK
+        inv_blk = None
         if presort:
-            # caller-order bounds -> sorted block space
-            bbv_s = torch.empty_like(bbv)
-            bbv_s[inv_blk.to(bbv.device)] = bbv
-            bbv = bbv_s
-        words_b = _apply_block_bound(words_i, slot_pkt, bbv, tq_bits)
-    feats = feats_rows_to_major(feats_t)
-    out_s = stage_isect(words_b, emeta_i, slot_pkt, feats, kleaf, tmin,
-                        tmax, stable=stable, pcap=PCAP, occl=occl,
-                        lean=lean, cull=cull and not occl, tq_bits=tq_bits)
-    # back to storage order (slot p == packet p for base slots)
-    inv_order = torch.empty_like(order)
-    inv_order[order] = torch.arange(order.shape[0], device=order.device)
-    smeta_u = torch.empty_like(smeta)
-    smeta_u[order] = smeta
-    rec = _stage_glue(out_s[inv_order], smeta_u, npk, npad)
-    if presort:             # back to caller ray order
-        rec = HitRecord(*(getattr(rec, f).reshape(nb, BLK)[inv_blk]
-                          .reshape(-1)[:n]
-                          for f in ("t", "prim", "slot", "b1", "b2")))
-    else:
-        rec = HitRecord(t=rec.t[:n], prim=rec.prim[:n], slot=rec.slot[:n],
-                        b1=rec.b1[:n], b2=rec.b2[:n])
-    if lean:
-        rec.b1, rec.b2 = _winner_barys(rows_keep, inv0, kprim, ktri_geo,
-                                       rec.prim, rec.t, n)
-    if not with_diag:
-        return rec
-    alive = smeta[:, 1] > 0
-    trunc = alive & ((emeta[:, 1] > 0) | (emeta[:, 0] > PCAP))
-    pkt_flag = torch.zeros(npk, dtype=torch.int32, device=alive.device) \
-        .scatter_reduce(0, smeta[:, 0].to(torch.int64), trunc.to(torch.int32),
-                        "amax")
-    a64 = alive.to(torch.int64)
-    if presort:             # sorted block -> caller block
-        blk_perm = compaction.invert_perm(inv_blk)
-    else:
-        blk_perm = torch.arange(nb, dtype=torch.int64, device=alive.device)
-    diag = {"pkt_flag": pkt_flag, "blk_perm": blk_perm,
-            "words": (torch.clamp(emeta[:, 0], max=PCAP) * a64).sum(),
-            "kept_words": (torch.clamp(emeta_i[:, 0], max=PCAP) * a64).sum(),
-            "steps": emeta[:, 2].to(torch.int64).sum(),
-            "capped": ((emeta[:, 1] > 0) & alive).sum()}
+            rows_w, inv_blk, live = _block_sort(rows_w, live)
+        rows, feats_t, scal, smeta, bscal, order = _stage_prep(
+            rows_w, nodef, inv0, live=live, stable=stable)
+        npad = rows[0].shape[0]
+        npk = npad // PKT
+    with profiling.span("stream3.emit"):
+        words, emeta = stage_emit(scal, smeta, bscal, nodef, tmax,
+                                  step_cap=STEP_CAP, pcap=PCAP,
+                                  tq_bits=tq_bits)
+    with profiling.span("stream3.refine"):
+        slot_pkt = smeta[:, 0].contiguous()
+        words_i, emeta_i = stage_refine(
+            words, emeta, slot_pkt, feats_t,
+            leaf_aabb8(nodef, kleaf.shape[0]), tmax, pcap=PCAP, sort=tqsort,
+            tq_bits=tq_bits)
+        words_b = words_i
+        if blk_bound is not None:
+            bbv = pad_blk_bound(blk_bound, nb)
+            if presort:
+                # caller-order bounds -> sorted block space
+                bbv_s = torch.empty_like(bbv)
+                bbv_s[inv_blk.to(bbv.device)] = bbv
+                bbv = bbv_s
+            words_b = _apply_block_bound(words_i, slot_pkt, bbv, tq_bits)
+    with profiling.span("stream3.isect"):
+        feats = feats_rows_to_major(feats_t)
+        out_s = stage_isect(words_b, emeta_i, slot_pkt, feats, kleaf, tmin,
+                            tmax, stable=stable, pcap=PCAP, occl=occl,
+                            lean=lean, cull=cull and not occl,
+                            tq_bits=tq_bits)
+    with profiling.span("stream3.glue"):
+        # back to storage order (slot p == packet p for base slots)
+        inv_order = torch.empty_like(order)
+        inv_order[order] = torch.arange(order.shape[0], device=order.device)
+        smeta_u = torch.empty_like(smeta)
+        smeta_u[order] = smeta
+        rec = _stage_glue(out_s[inv_order], smeta_u, npk, npad)
+        if presort:             # back to caller ray order
+            rec = HitRecord(*(getattr(rec, f).reshape(nb, BLK)[inv_blk]
+                              .reshape(-1)[:n]
+                              for f in ("t", "prim", "slot", "b1", "b2")))
+        else:
+            rec = HitRecord(t=rec.t[:n], prim=rec.prim[:n],
+                            slot=rec.slot[:n], b1=rec.b1[:n], b2=rec.b2[:n])
+        if lean:
+            rec.b1, rec.b2 = _winner_barys(rows_keep, inv0, kprim, ktri_geo,
+                                           rec.prim, rec.t, n)
+        if not (with_diag or flags):
+            return rec
+        alive = smeta[:, 1] > 0
+        trunc = alive & ((emeta[:, 1] > 0) | (emeta[:, 0] > PCAP))
+        pkt_flag = torch.zeros(npk, dtype=torch.int32,
+                               device=alive.device).scatter_reduce(
+            0, smeta[:, 0].to(torch.int64), trunc.to(torch.int32), "amax")
+        if presort:             # sorted block -> caller block
+            blk_perm = compaction.invert_perm(inv_blk)
+        else:
+            blk_perm = torch.arange(nb, dtype=torch.int64,
+                                    device=alive.device)
+        diag = {"pkt_flag": pkt_flag, "blk_perm": blk_perm}
+    if with_diag:
+        a64 = alive.to(torch.int64)
+        diag.update(
+            words=(torch.clamp(emeta[:, 0], max=PCAP) * a64).sum(),
+            kept_words=(torch.clamp(emeta_i[:, 0], max=PCAP) * a64).sum(),
+            steps=emeta[:, 2].to(torch.int64).sum(),
+            capped=((emeta[:, 1] > 0) & alive).sum())
     if blk_bound is not None and count_pairs:
         cnt = torch.clamp(emeta_i[:, 0], max=PCAP)
         diag["block_pairs"] = _kept_pairs(words_i, cnt, alive, tq_bits)
@@ -721,31 +736,40 @@ def trace_rows_stream3(scene, rows_w, tmin, tmax, live=None,
     "flagged" packets and "residual_rays" re-traced; with blk_bound also
     "block_pairs" and "block_pairs_bounded" (the (word, block) pairs
     before and after the cull), "tb_residual" (rays re-traced for the
-    bound), "tb_cap" and "tb_marked" (rays marked -2)."""
+    bound), "tb_cap" and "tb_marked" (rays marked -2).
+
+    Its span, stream3.trace, notes "rays" (N) and "residual_rays" (the
+    flagged packets' rays and the temporal residual's, re-traced
+    exactly)."""
     n = rows_w[0].shape[0]
-    if live is not None:
-        live = live.bool()
-        rows_w = park_dead(rows_w, live)
-    rec, diag = _run(rows_w, tmin, tmax, scene.knode_f, scene.kleaf,
-                     scene.inst_inv[0], live=live,
-                     stable=bool(scene.stable_frames), occl=occl,
-                     with_diag=True, blk_bound=blk_bound,
-                     count_pairs=with_diag, presort=presort, tqsort=tqsort,
-                     lean=lean, cull=cull, kprim=scene.kprim,
-                     ktri_geo=scene.ktri_geo, tq_bits=tq_bits)
+    with profiling.span("stream3.trace") as sp:
+        if live is not None:
+            live = live.bool()
+            rows_w = park_dead(rows_w, live)
+        rec, diag = _run(rows_w, tmin, tmax, scene.knode_f, scene.kleaf,
+                         scene.inst_inv[0], live=live,
+                         stable=bool(scene.stable_frames), occl=occl,
+                         with_diag=with_diag, flags=True, blk_bound=blk_bound,
+                         count_pairs=with_diag, presort=presort,
+                         tqsort=tqsort, lean=lean, cull=cull,
+                         kprim=scene.kprim, ktri_geo=scene.ktri_geo,
+                         tq_bits=tq_bits)
 
-    def exact(o, d):
-        return packet_trace.trace_rays_packet(scene, o, d, tmin, tmax,
-                                              any_hit=occl)
+        def exact(o, d):
+            return packet_trace.trace_rays_packet(scene, o, d, tmin, tmax,
+                                                  any_hit=occl)
 
-    diag["flagged"], diag["residual_rays"] = retrace_flagged(
-        rec, rows_w, diag["pkt_flag"], occl, exact,
-        diag["blk_perm"] if presort else None)
-    if blk_bound is not None:
-        diag.update(_tb_residual(rows_w, rec, blk_bound, exact, occl=occl,
-                                 live=live, n=n))
-    if live is not None:
-        rec = rec.masked_miss(~live[:n])
+        with profiling.span("stream3.residual"):
+            diag["flagged"], diag["residual_rays"] = retrace_flagged(
+                rec, rows_w, diag["pkt_flag"], occl, exact,
+                diag["blk_perm"] if presort else None)
+            if blk_bound is not None:
+                diag.update(_tb_residual(rows_w, rec, blk_bound, exact,
+                                         occl=occl, live=live, n=n))
+        sp.note(rays=n, residual_rays=diag["residual_rays"]
+                + diag.get("tb_residual", 0))
+        if live is not None:
+            rec = rec.masked_miss(~live[:n])
     return (rec, diag) if with_diag else rec
 
 

@@ -335,7 +335,7 @@ def trace_rows_multi(scene, mt, rows_w, tmin, tmax, *, bcap_blocks=None,
                                  FLT_MAX)
         rec, diag = s3._run(sub, tmin, tmax, nodef, kleaf, scene.inst_inv[i],
                             live=live_i, stable=stable, occl=occl,
-                            with_diag=True, blk_bound=bb_sub,
+                            flags=True, blk_bound=bb_sub,
                             count_pairs=with_diag, tq_bits=tq_bits)
         # a step-capped or word-overflowed sub-packet lost hits for this
         # instance: its rays are poisoned, not returned as silent misses

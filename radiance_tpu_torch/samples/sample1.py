@@ -30,6 +30,7 @@ from radiance_tpu_torch.core import types
 from radiance_tpu_torch.engine import programs
 from radiance_tpu_torch.scene import procedural
 from radiance_tpu_torch.utils import image as image_io
+from radiance_tpu_torch.utils import profiling
 
 
 def sample1_camera(width: int, height: int) -> types.PhysicalCamera:
@@ -64,12 +65,13 @@ class Sample1:
         """The render() callback (sample1.cpp:455-490): trace, read the
         image [H, W, 4] u8, advance totalSamples on the host."""
         plt, w, h = self.plt, self.width, self.height
-        pipeline.TraceRays(plt, 0, 0, 0, w, h)
-        img = platform.ReadBuffer(plt, self.rd_image,
-                                  self.rd_image.size).reshape(h, w, 4)
-        rt = self._read(self.rd_rtprop, types.RAY_TRACE_PROPERTIES_DTYPE)
-        rt["totalSamples"] += rt["batchSize"]
-        platform.WriteBuffer(plt, self.rd_rtprop, 16, rt)
+        with profiling.span("rdapi.frame"):
+            pipeline.TraceRays(plt, 0, 0, 0, w, h)
+            img = platform.ReadBuffer(plt, self.rd_image,
+                                      self.rd_image.size).reshape(h, w, 4)
+            rt = self._read(self.rd_rtprop, types.RAY_TRACE_PROPERTIES_DTYPE)
+            rt["totalSamples"] += rt["batchSize"]
+            platform.WriteBuffer(plt, self.rd_rtprop, 16, rt)
         return img
 
     def _read(self, buf, dtype) -> np.ndarray:

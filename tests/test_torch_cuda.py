@@ -1661,3 +1661,29 @@ def test_launches_run_on_their_tensors_card(two_cards):
     assert float((out[0][0] < FLT_MAX).float().mean()) > 0.05
     for a, b in zip(out[0], out[1]):
         assert torch.equal(a, b)
+
+
+def test_span_maps_device_records_inside_it(cuda):
+    """Under rtbench's CUDA-only profile (rtbench/prof.device_profile), a
+    kernel launched inside a span that ends with torch.cuda.synchronize()
+    has its device record inside the span once mapped onto
+    perf_counter_ns by the span log's anchor, within 20 us."""
+    from radiance_tpu_torch.utils import profiling
+    from rtbench import prof
+
+    with profiling.span("off"):             # a span found off ends a session
+        pass
+    with prof.device_profile() as p:
+        for i in range(4):
+            with profiling.span(f"clock.{i}"):
+                torch.cuda._sleep(200_000)
+                torch.cuda.synchronize()
+    log = profiling.spans()
+    spans = [r for r in log.records if r.name.startswith("clock.")]
+    recs = [r for r in prof.records(p) if "spin" in r[0]]
+    assert len(spans) == len(recs) == 4
+    slack = 20_000
+    for sp, (_, start, dur) in zip(spans, recs):
+        a = log.anchor.to_perf_ns(start)
+        assert sp.start_ns - slack <= a < a + dur <= sp.end_ns + slack, (
+            sp, a - sp.start_ns, sp.end_ns - a - dur)
