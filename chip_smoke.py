@@ -238,7 +238,12 @@ prints no result):
      windows of 8 rows (the default) and of 1 in turns (step_rows_wave:
      flagged packets, residual, B's ms and longest walk; every launch of
      B held to its plain version at both);
- 19. the kernels' JSON line (per kernel: the main path's launches, the
+ 19. the fused material wave (chip_smoke.fused_material_wave) on the
+     city's 1920x1080 primary wave and first bounce: rt_material_prep and
+     rt_material_finish timed alone beside their byte bounds, the whole
+     wave through the fused route and through the SBT path it replaces,
+     the two routes' path states equal bit for bit;
+ 20. the kernels' JSON line (per kernel: the main path's launches, the
      per-launch means of kernel ms, plain ms and bound and their sums,
      by scene where a kernel runs in several; A from phase 5, B and C
      also phase 5's 1080p wave, F phase 7's masked 1080p rows; each
@@ -252,7 +257,8 @@ prints no result):
      cap 64 / tq 7 (`leaf64_1080p`) and on the 256-lane probe
      (`wide256_probe`), and phase [18]'s launches (`collapse_launches`)
      and per-build ms (`collapse_1080p`); B's row the step windows'
-     waves (`step_windows`).
+     waves (`step_windows`); the fused material wave's row its
+     launches on phase [6]'s main path and phase [19]'s numbers.
 
 Imports nothing of JAX or radiance_tpu (bench.py's numpy-only scene
 helpers are reused).  Needs one CUDA card; exits 2 without one.
@@ -4470,6 +4476,111 @@ def collapse_and_windows(dev, card, tracer, city_tlas, res, verts, tris,
     return out
 
 
+def fused_material_wave(dev, card, tracer, scene, res):
+    """Phase [19]: the fused material wave (shading/material_cuda.py,
+    csrc/shade_material.cu) on the city's 1920x1080 primary wave and first
+    bounce, from a fresh sample's state: rt_material_prep and
+    rt_material_finish each timed alone (device_ms), bounded by the bytes
+    each moves on these lanes (every input byte read once, every output
+    byte written once), and the whole wave (closest-hit trace, shading,
+    update) timed through the fused route and through the SBT path it
+    replaces (its plain version; host clock ending in a synchronize), the
+    traces alone beside them; the two routes' path states equal bit for
+    bit, the launches counted.  Returns {"primary": ..., "bounce": ...,
+    "launches": ...}."""
+    import dataclasses as dc
+
+    from radiance_tpu_torch.engine import context as ctx_mod
+    from radiance_tpu_torch.engine import pathtracer as pt
+    from radiance_tpu_torch.shading import material_cuda as mc
+
+    n = W * H
+    pixel = torch.arange(n, dtype=torch.int64, device=dev)
+    plain = dc.replace(tracer)
+    plain.fuses_material = lambda *a, **k: False
+    if not tracer.fuses_material(scene, tracer.hit_offset,
+                                 tracer.miss_index, 0):
+        raise AssertionError("the city's waves do not take the fused route")
+    primary, p_shadow, bounce, b_shadow = tracer._routes(scene, None)
+    light = ctx_mod.get_light_direction(res)
+    rgb = res["light_color"][0, :3]
+    launches0 = mc.material_prep.launches, mc.material_finish.launches
+    out = {}
+    state = pt._sample_init(tracer, res, pixel, 0, 0)
+    for b, wave in ((0, "primary"), (1, "bounce")):
+        route, sroute = (primary, p_shadow) if b == 0 else (bounce, b_shadow)
+        color, contribution, alive, o, d = state
+
+        def step(t, st=state, b=b, route=route, sroute=sroute):
+            return pt._sample_step(
+                t, scene, res, pixel, 0, b, tuple(x.clone() for x in st),
+                debug=0, hit_offset=t.hit_offset, miss_index=t.miss_index,
+                route=route, shadow_route=sroute)
+
+        def trace(o=o, d=d, alive=alive, route=route):
+            return pt._traced_wavefront(
+                scene, o, d, tracer.tmin, tracer.tmax, alive, route=route,
+                multi_route=tracer.multi_route, tq_bits=tracer.tq_bits)
+
+        hits = trace()
+        act = alive & hits.hit
+        hit_pos, rec = mc.material_prep(scene, res, hits, o, d, alive)
+
+        def shadow(hit_pos=hit_pos, act=act, sroute=sroute):
+            return pt._traced_wavefront(
+                scene, hit_pos, light.expand(n, 3), 0.001, 1000.0, act,
+                route=sroute, any_hit_terminate=True,
+                multi_route=tracer.multi_route, tq_bits=tracer.tq_bits).hit
+
+        occl = shadow()
+        prep_ms, _ = device_ms(
+            lambda: mc.material_prep(scene, res, hits, o, d, alive), 20)
+        st = [x.clone() for x in state]
+        finish_ms, _ = device_ms(lambda: mc.material_finish(
+            hits.t, occl, rec, o, d, pixel, light, rgb, 0, b, st[0], st[1],
+            st[2]), 20)
+        s_lanes = int(act.sum())
+        # prep: t and alive of every lane, the record, ray, indices and
+        # normals of each shading lane; the shadow origin of every lane
+        # and the 64-B shading record of each shading lane
+        prep_bytes = n * (5 + 12) + s_lanes * (16 + 24 + 12 + 36 + 64)
+        # finish: t, alive, colour and direction of every lane, the
+        # occlusion bit, record, pixel and throughput of each shading
+        # lane, the origin of every other; writes colour and the next ray
+        # of every lane, the throughput of each shading lane, alive of
+        # every other
+        finish_bytes = (n * (4 + 1 + 12 + 12 + 12 + 24)
+                        + s_lanes * (1 + 64 + 8 + 12 + 12)
+                        + (n - s_lanes) * (12 + 1))
+        ref = step(plain)
+        got = step(tracer)
+        torch.cuda.synchronize()
+        equal = [bool(torch.equal(g, r)) for g, r in zip(got, ref)]
+        if not all(equal):
+            raise AssertionError(f"fused {wave} wave differs from the SBT "
+                                 f"path: {equal}")
+        err = max(float(torch.where(g == r, 0.0, (g.float() - r.float())
+                                    .abs()).max()) for g, r in zip(got, ref))
+        fused_wave_ms = cuda_ms(lambda: step(tracer), 5)[0]
+        plain_wave_ms = cuda_ms(lambda: step(plain), 3)[0]
+        trace_ms, shadow_ms = cuda_ms(trace, 5)[0], cuda_ms(shadow, 5)[0]
+        out[wave] = dict(
+            lanes=n, shading_lanes=s_lanes,
+            prep_ms=prep_ms, finish_ms=finish_ms,
+            prep_bound_ms=bound(0, prep_bytes)[0],
+            finish_bound_ms=bound(0, finish_bytes)[0],
+            fused_wave_ms=fused_wave_ms, plain_wave_ms=plain_wave_ms,
+            trace_ms=trace_ms, shadow_ms=shadow_ms,
+            plain_shade_ms=plain_wave_ms - trace_ms - shadow_ms,
+            state_bit_equal=True, max_abs_err=err)
+        log(f"[19] {wave}: {json.dumps(out[wave])} ({card})")
+        state = got
+    out["launches"] = dict(
+        prep=mc.material_prep.launches - launches0[0],
+        finish=mc.material_finish.launches - launches0[1])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4489,6 +4600,7 @@ def main() -> int:
     from radiance_tpu_torch.ops.intersect import (FLT_MAX,
                                                   intersect_triangle_soup)
     from radiance_tpu_torch.shading import camera
+    from radiance_tpu_torch.shading import material_cuda as mc
 
     dev = torch.device("cuda")
     t_start = time.time()
@@ -4909,9 +5021,14 @@ def main() -> int:
     cscene, cres = cornell_inputs(dev, CW)
     torch.cuda.synchronize()
 
+    def fused_launches():
+        return dict(prep=mc.material_prep.launches,
+                    finish=mc.material_finish.launches)
+
     def main_frames(calls):
         pk.packet_trace_cuda.launches.clear()
         stg.reset_launches()
+        mc.material_prep.launches = mc.material_finish.launches = 0
         frame_ms = []
         accum = torch.zeros(n, 3, device=dev)
         ts = 0
@@ -4925,6 +5042,7 @@ def main() -> int:
             ts += 4
         city_launches = dict(pk.packet_trace_cuda.launches)
         city_s3 = {k: fn.launches for k, fn in stg.KERNELS.items()}
+        city_fused = fused_launches()
         calls.tag = "cornell"
         t0 = time.time()
         caccum, cimage = tracer.render(cscene, cres,
@@ -4932,14 +5050,19 @@ def main() -> int:
                                        0, CW, CW, batch=16, depth=4)
         torch.cuda.synchronize()
         cornell_ms = (time.time() - t0) * 1e3
-        return (frame_ms, accum, image, city_launches, city_s3, caccum,
-                cimage, cornell_ms)
+        return (frame_ms, accum, image, city_launches, city_s3, city_fused,
+                caccum, cimage, cornell_ms)
 
     # each try of the profile resets the counts and renders anew
-    ((frame_ms, accum, image, city_launches, city_s3, caccum, cimage,
-      cornell_ms), main_calls, main_ms) = profiled(pk, s3, main_frames)
+    ((frame_ms, accum, image, city_launches, city_s3, city_fused, caccum,
+      cimage, cornell_ms), main_calls, main_ms) = profiled(pk, s3,
+                                                           main_frames)
     launches = dict(pk.packet_trace_cuda.launches)
     s3_launches = {k: fn.launches for k, fn in stg.KERNELS.items()}
+    # the fused material wave's launches on the main path: every wave of
+    # the city frames and of sample1 (the default SBT) takes it
+    main_fused = dict(city=city_fused, cornell={
+        k: v - city_fused[k] for k, v in fused_launches().items()})
 
     log(f"[6] city 1920x1080 batch 4 depth 4 ({card}; under "
         f"torch.profiler): frames "
@@ -4949,7 +5072,11 @@ def main() -> int:
         f"stream3 {city_s3}")
     check_frame("city", accum, image, n)
     log(f"[6] sample1 Cornell 512x512 batch 16 depth 4: {cornell_ms:.1f} ms; "
-        f"launches after both {launches}, stream3 {s3_launches}")
+        f"launches after both {launches}, stream3 {s3_launches}, fused "
+        f"material wave {main_fused}")
+    if any(v <= 0 for c in main_fused.values() for v in c.values()):
+        raise AssertionError(f"the main path missed the fused material "
+                             f"wave: {main_fused}")
     check_frame("sample1", caccum, cimage, CW * CW)
     for var in PATH_VARIANTS:
         if launches.get(var, 0) <= 0:
@@ -5454,7 +5581,12 @@ def main() -> int:
         f"{json.dumps(windows)}")
     log(f"[18] done in {time.time() - t0:.1f} s")
 
-    # ---- 19. results -------------------------------------------------
+    # ---- 19. the fused material wave ---------------------------------
+    t0 = time.time()
+    fused = fused_material_wave(dev, card, tracer, scene, res)
+    log(f"[19] done in {time.time() - t0:.1f} s")
+
+    # ---- 20. results -------------------------------------------------
     # per kernel: the main path's launches (the packet kernel: the city
     # frames and sample1; B, C, D and F: the city frames and the
     # 64-instance frame; E: the 64-instance frame), each timed on its own
@@ -5658,6 +5790,25 @@ def main() -> int:
     log(f"[13] metrics: "
         f"{json.dumps({k: v for k, v in shard.items() if k != 'launches'})}")
     log(f"total {time.time() - t_start:.1f} s")
+    # the fused material wave: launches the main path's ([6]: prep +
+    # finish, the city frames and sample1), ms, plain_ms and bound_ms
+    # phase [19]'s primary wave (ms the two kernels, plain_ms the SBT
+    # path's shading and update without the wave's traces)
+    prim = fused["primary"]
+    kernels.append({
+        "name": "shade_material", "route": "cuda",
+        "source": "radiance_tpu_torch/csrc/shade_material.cu",
+        "replaces": None,
+        "launches": sum(v for c in main_fused.values() for v in c.values()),
+        "main_launches": main_fused,
+        "max_abs_err": max(fused[w]["max_abs_err"]
+                           for w in ("primary", "bounce")),
+        "ms": prim["prep_ms"] + prim["finish_ms"],
+        "plain_ms": prim["plain_shade_ms"],
+        "bound_ms": prim["prep_bound_ms"] + prim["finish_bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "fused_phase_launches": fused["launches"],
+        "wave_1080p": {w: fused[w] for w in ("primary", "bounce")}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

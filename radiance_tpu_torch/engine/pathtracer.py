@@ -13,6 +13,12 @@ the SBT's skip of shaders no lane selects):
       colour/throughput/alive update (shader.cl:233-260)
   running average into the accumulation image, tonemap, u8 quantize
 
+A wave on CUDA whose shading is the built-in material and environment
+shaders alone (WavefrontPathTracer.fuses_material, decided from the SBT
+and the scene's instance table) shades and updates in two CUDA kernels
+around the same shadow trace (shading/material_cuda.py), with no host
+sync; other waves (custom shaders, debug modes, the CPU) take the SBT.
+
 Wave routes (_traced_wavefront; reference :151-335):
   "stream3"    the stream3 pipeline (ops/stream3.py: emit walk, exact
                refine, pair intersection) on rays in pixel order, dead
@@ -103,12 +109,15 @@ import torch
 from radiance_tpu_torch.api.sbt import ShaderBindingTable
 from radiance_tpu_torch.bvh.device import DeviceScene
 from radiance_tpu_torch.core import math as rmath
-from radiance_tpu_torch.engine.context import Payload, ShadeContext
+from radiance_tpu_torch.engine import shaders
+from radiance_tpu_torch.engine.context import (Payload, ShadeContext,
+                                              get_light_direction)
 from radiance_tpu_torch.ops import (compaction, packet_trace, reorder,
                                     stream3, stream3_multi, traversal)
 from radiance_tpu_torch.ops import tonemap as tonemap_ops
 from radiance_tpu_torch.ops.intersect import FLT_MAX
 from radiance_tpu_torch.ops.traversal import HitRecord
+from radiance_tpu_torch.shading import material_cuda
 from radiance_tpu_torch.utils import profiling
 
 # Parking spot for lanes that must not trace: a ray starting here misses
@@ -302,13 +311,40 @@ def _make_context(scene: DeviceScene, hits: HitRecord, origin, direction,
         trace_occlusion=trace_occlusion, trace_rays=trace_full)
 
 
+def _material_only(sbt, offsets, hit_offset: int, miss_index: int) -> bool:
+    """Whether every record the instance SBT offsets `offsets` reach at
+    hit_offset names the built-in shaders.material as its closest hit and
+    the record at miss_index shaders.environment as its miss, with every
+    closest-hit and miss name of the table registered (else the SBT path
+    raises its KeyError)."""
+    recs = sbt.records
+    names = [getattr(r, k) for r in recs for k in ("closest_hit", "miss")]
+    if any(nm and nm not in sbt.shaders for nm in names):
+        return False
+
+    def shader(index, kind):
+        name = getattr(recs[index], kind) if 0 <= index < len(recs) else ""
+        return sbt.shaders.get(name) if name else None
+
+    return (all(shader(off + hit_offset, "closest_hit") is shaders.material
+                for off in offsets)
+            and shader(miss_index, "miss") is shaders.environment)
+
+
 def _sample_step(tracer, scene, resources, pixel_index, frame_id, b, state,
                  *, debug, hit_offset, miss_index, route, shadow_route,
                  blk_bound=None, want_t: bool = False):
     """One engine wave: closest-hit trace, SBT shading (shaders trace
     occlusion rays inline), colour/throughput/alive update
     (shader.cl:233-260).  blk_bound bounds the wave's closest-hit trace
-    (_traced_wavefront); want_t also returns its t (reference :338-415)."""
+    (_traced_wavefront); want_t also returns its t (reference :338-415).
+
+    Where tracer.fuses_material holds, the shading and the update run as
+    the fused material wave (shading/material_cuda.shade_wave: two CUDA
+    kernels around the same shadow trace) instead of the context, the SBT
+    calls and the torch update below, which are its plain version.  The
+    engine.shade span notes the wave's lanes (rays) and, on that route,
+    fused_rays."""
     sbt = tracer.sbt
     color, contribution, alive, o, d = state
     n = pixel_index.shape[0]
@@ -337,7 +373,14 @@ def _sample_step(tracer, scene, resources, pixel_index, frame_id, b, state,
             any_hit_program=sbt.make_any_hit_program(hit_offset, resources),
             multi_route=tracer.multi_route, blk_bound=blk_bound,
             tq_bits=tracer.tq_bits)
-    with profiling.span("engine.shade"):
+    fused = tracer.fuses_material(scene, hit_offset, miss_index, debug)
+    with profiling.span("engine.shade") as sp:
+        sp.note(rays=n, fused_rays=n if fused else 0)
+        if fused:
+            st_out = material_cuda.shade_wave(
+                scene, resources, hits, state, pixel_index, frame_id, b,
+                get_light_direction(resources), trace_occlusion)
+            return (st_out, hits.t) if want_t else st_out
         ctx = _make_context(scene, hits, o, d, pixel_index, frame_id, b,
                             resources, debug, trace_occlusion,
                             functools.partial(_trace_dispatch, scene,
@@ -442,9 +485,40 @@ class WavefrontPathTracer:
     _tb_store: dict = dataclasses.field(default_factory=dict, init=False,
                                         repr=False)
     _TB_CAP = 8
+    # fuses_material's decisions: (id(sbt), id(inst_sbt), its version,
+    # hit_offset, miss_index) -> (sbt, inst_sbt, decision), oldest evicted
+    # past _FUSE_CAP
+    _fuse_store: dict = dataclasses.field(default_factory=dict, init=False,
+                                          repr=False)
+    _FUSE_CAP = 8
 
     def __post_init__(self):
         stream3.word_format(self.tq_bits)    # 5..9, or ValueError
+
+    def fuses_material(self, scene, hit_offset: int, miss_index: int,
+                       debug: int) -> bool:
+        """The fused material wave's route (_sample_step): a wave on CUDA,
+        without a debug mode, whose shading is the built-in material and
+        environment shaders alone (_material_only over the scene's instance
+        SBT offsets).  The offsets are read from the device once per
+        instance table (and again after an in-place refit), the decision
+        kept per (SBT, table, hit_offset, miss_index): no wave reads the
+        device for it."""
+        if debug or scene.device.type != "cuda":
+            return False
+        inst_sbt = scene.inst_sbt
+        key = (id(self.sbt), id(inst_sbt), inst_sbt._version, hit_offset,
+               miss_index)
+        held = self._fuse_store.get(key)
+        if held is None:
+            held = (self.sbt, inst_sbt,
+                    _material_only(self.sbt, set(inst_sbt.tolist()),
+                                   hit_offset, miss_index))
+            self._fuse_store[key] = held
+            while len(self._fuse_store) > self._FUSE_CAP:
+                # (None: a sharded frame's other thread may pop it first)
+                self._fuse_store.pop(next(iter(self._fuse_store)), None)
+        return held[2]
 
     def wave_route(self, wave: str, default: str) -> str:
         """The route of `wave` ("primary", "bounce" or "shadow"): its
