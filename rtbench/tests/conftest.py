@@ -1,8 +1,33 @@
 """rtbench's tests: `python -m pytest rtbench/tests` from the repository
 root.  Tests marked `card` need a CUDA card and skip without one (the
-decision is made inside a fixture, never at import)."""
+decision is made inside a fixture, never at import).
 
+The CPU tests run every cell of BENCHMARK.json on a copy of the
+benchmark cut to tiny sizes (make_tiny), its control and the faults its
+driver can have.  A later cell, configuration, mix, driver or metric is
+new files only, each found by its name:
+
+  rtbench/configs/<config>.json              the configuration
+  rtbench/geometry/<generator>.py            its geometry's generator
+  rtbench/traffic/<traffic>.json             the mix: {"driver": ...}
+  rtbench/drivers/<driver>.py                setup / window / check
+  rtbench/metrics/<metric>.py                read(run) -> float or None
+  rtbench/limits/<workload>.json             the cell's limits
+  rtbench/tests/tiny/configs/<config>.json   the configuration's tiny cut
+  rtbench/tests/tiny/drivers/<driver>.json   the tiny cut of every mix of
+                                             that driver
+  rtbench/tests/faults/<driver>.py           the faults planted in its
+                                             cells' runs (see faults/*.py)
+
+and the entries in BENCHMARK.json.  A tiny file is the keys it changes,
+with their values, and a "why" that is not copied.  A missing file raises
+FileNotFoundError that names it.
+"""
+
+import json
 import os
+import shutil
+import subprocess
 import sys
 
 import pytest
@@ -11,6 +36,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
+
+from rtbench import harness  # noqa: E402
+
+FAULT_KEYS = ("NAME", "SECONDS", "MIN_ATTEMPTED", "FAULTS")
 
 
 def pytest_configure(config):
@@ -27,37 +56,53 @@ def card():
     return torch.device("cuda", 0)
 
 
-TINY = {  # the tiny sizes the CPU runs use, over a copy of the benchmark
-    # the city's clusters packed in front of a nearer eye, so that a
-    # 64 x 64 image hits them
-    "city_1m": {"n_tris": 20000, "eye": [0.0, 0.0, 20.0],
-                "generator_args": {"n_clusters": 100, "spread": 8.0}},
-    "interior_1m": {"n_tris": 6000},
-    "waves": {"width": 64, "height": 64, "check_rays": 512, "check_iters": 2,
-              "control_iters": 8, "warmup_iters": 1},
-    "view": {"width": 32, "height": 24, "batch": 2, "check_pixels": 64,
-             "control_frames": 4, "warmup_frames": 1, "check_lanes": 1024,
-             "check_frames": 48},
-}
+def tests_dir(src=ROOT):
+    return os.path.join(src, "rtbench", "tests")
 
 
-def make_tiny(dst):
-    """A copy of BENCHMARK.json and rtbench/ under `dst` with every
-    configuration and mix cut to TINY; returns dst."""
-    import json
-    import shutil
+def tiny_cut(kind, name, src=ROOT):
+    """The keys rtbench/tests/tiny/<kind>/<name>.json of `src` changes
+    (kind "configs" or "drivers"), without its "why"."""
+    cut = harness.load_json(harness.find(os.path.join("tiny", kind), name,
+                                         ".json", tests_dir(src)))
+    cut.pop("why", None)
+    return cut
 
-    shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), dst)
-    shutil.copytree(os.path.join(ROOT, "rtbench"), os.path.join(dst, "rtbench"),
+
+def faults(driver, src=ROOT):
+    """The module rtbench/tests/faults/<driver>.py of `src`: NAME, SECONDS,
+    MIN_ATTEMPTED and FAULTS, at least one."""
+    mod = harness.load_module("faults", driver, tests_dir(src))
+    missing = [k for k in FAULT_KEYS if not hasattr(mod, k)]
+    if missing:
+        raise ValueError(f"{mod.__file__} lacks {', '.join(missing)}")
+    if not mod.FAULTS:
+        raise ValueError(f"{mod.__file__} holds no fault")
+    return mod
+
+
+def cell_drivers(src=ROOT):
+    """Each cell of `src`'s BENCHMARK.json, in order, with the driver its
+    traffic names."""
+    rt = os.path.join(src, "rtbench")
+    return {w["name"]: harness.load_json(harness.find(
+        "traffic", w["traffic"], ".json", rt))["driver"]
+        for w in harness.benchmark(src)["workloads"]}
+
+
+def make_tiny(dst, src=ROOT):
+    """A copy of `src`'s BENCHMARK.json and rtbench/ under `dst` with every
+    configuration and mix cut to its tiny file; returns dst."""
+    shutil.copy(os.path.join(src, "BENCHMARK.json"), dst)
+    shutil.copytree(os.path.join(src, "rtbench"), os.path.join(dst, "rtbench"),
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    for kind, names in (("configs", None), ("traffic", ("waves", "view"))):
+    for kind, key, cuts in (("configs", "name", "configs"),
+                            ("traffic", "driver", "drivers")):
         folder = os.path.join(dst, "rtbench", kind)
         for f in os.listdir(folder):
             p = os.path.join(folder, f)
-            with open(p) as fh:
-                d = json.load(fh)
-            d.update(TINY[d["name"]] if kind == "configs"
-                     else TINY[d["driver"]])
+            d = harness.load_json(p)
+            d.update(tiny_cut(cuts, d[key], src))
             with open(p, "w") as fh:
                 json.dump(d, fh)
     return dst
@@ -67,8 +112,6 @@ def run_cli(root, args, prelude="", timeout=600):
     """Run rtbench/run.py of `root` in a fresh interpreter on the CPU,
     after `prelude` (Python that patches the program); returns
     (returncode, stdout, stderr)."""
-    import subprocess
-
     code = (f"import sys; sys.path[:0] = [{root!r}, {ROOT!r}]\n"
             f"{prelude}\n"
             f"from rtbench import run\n"
@@ -77,6 +120,16 @@ def run_cli(root, args, prelude="", timeout=600):
     p = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                        capture_output=True, text=True, timeout=timeout)
     return p.returncode, p.stdout, p.stderr
+
+
+def run_cell(root, cell, seed, extra=(), prelude="", seconds=2):
+    """A CPU run of `cell` in `root` that must exit 0: its last line, parsed,
+    and its stderr."""
+    rc, out, err = run_cli(root, ["--workload", cell, "--seed", str(seed),
+                                  "--seconds", str(seconds), "--trace", "0",
+                                  "--cpu", *extra], prelude=prelude)
+    assert rc == 0, err[-4000:]
+    return json.loads(out.strip().splitlines()[-1]), err
 
 
 @pytest.fixture(scope="session")

@@ -1,11 +1,12 @@
 """BENCHMARK.json against the contract's form: names, units, keys, the
-files each entry needs, and the check's time budget."""
+files each entry needs (the CPU tests' tiny and faults files too), and
+the check's time budget."""
 
 import json
 import os
 import re
 
-from conftest import ROOT
+from conftest import ROOT, cell_drivers, faults, tiny_cut
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -83,6 +84,12 @@ def test_every_entry_has_its_files():
                                            w["name"] + ".json"))
     for m in b["end_to_end"] + b["per_layer"]:
         assert os.path.isfile(os.path.join(RT, "metrics", m["name"] + ".py"))
+    # the CPU tests' files; a missing one raises FileNotFoundError naming it
+    for c in b["configs"]:
+        tiny_cut("configs", c["name"])
+    for driver in set(cell_drivers().values()):
+        tiny_cut("drivers", driver)
+        faults(driver)
 
 
 def test_each_cell_reports_what_it_needs():

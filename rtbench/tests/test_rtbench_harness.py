@@ -1,26 +1,24 @@
 """The harness on the CPU: a run without a card fails, the last line's
-keys, a configuration, mix and metric added as new files only, the
-window statistics, and the imports."""
+keys, a cell with its configuration, mix, driver, metric and test files
+added as new files only, a missing test file named, the window
+statistics, and the imports."""
 
 import ast
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
 
 import pytest
 
-from conftest import ROOT, make_tiny, run_cli
+from conftest import ROOT, cell_drivers, faults, make_tiny, run_cell
 
 sys.path.insert(0, ROOT)
 from rtbench import harness  # noqa: E402
 
 KEYS = ["correct", "attempted", "failed", "metrics", "device"]
-
-
-def last_json(out):
-    return json.loads(out.strip().splitlines()[-1])
 
 
 def test_no_card_fails_without_a_result(tiny):
@@ -49,53 +47,128 @@ def test_only_the_benchmark_fails(tmp_path):
     assert p.returncode != 0 and p.stdout.strip() == ""
 
 
+def untouched_copy(dst):
+    """BENCHMARK.json and rtbench/, its tests' files included, as the
+    repository holds them, under a new directory `dst`; returns dst."""
+    os.makedirs(dst)
+    shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), dst)
+    shutil.copytree(os.path.join(ROOT, "rtbench"), os.path.join(dst, "rtbench"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    return dst
+
+
+def add_file(root, rel, text=None, like=None, **changes):
+    """A new file rtbench/<rel> of `root`: `text`, or the JSON of
+    rtbench/<like> with `changes`, or rtbench/<like> as it is."""
+    path = os.path.join(root, "rtbench", rel)
+    assert not os.path.exists(path), rel
+    if like is not None:
+        with open(os.path.join(root, "rtbench", like)) as f:
+            text = f.read()
+        if changes:
+            text = json.dumps(dict(json.loads(text), **changes))
+    with open(path, "w") as f:
+        f.write(text)
+
+
+def add_config(src):
+    add_file(src, "configs/city_small.json", like="configs/city_1m.json",
+             name="city_small")
+
+
+def add_mix(src):
+    add_file(src, "traffic/view_inst.json", like="traffic/view.json",
+             driver="view_inst")
+
+
+def add_cell_files(src):
+    """The files of a new cell small_view: the configuration city_small,
+    the mix view_inst of a new driver view_inst that is the view driver,
+    their tiny and faults files, the cell's limits."""
+    add_config(src)
+    add_mix(src)
+    add_file(src, "drivers/view_inst.py",
+             "from rtbench.drivers.view import (  # noqa: F401\n"
+             "    check, control, control_setup, release, setup, window)\n")
+    add_file(src, "limits/small_view.json", like="limits/city_view.json")
+    add_file(src, "tests/tiny/configs/city_small.json",
+             like="tests/tiny/configs/city_1m.json")
+    add_file(src, "tests/tiny/drivers/view_inst.json",
+             like="tests/tiny/drivers/view.json")
+    add_file(src, "tests/faults/view_inst.py", like="tests/faults/view.py")
+
+
 def test_new_files_only_add_a_cell_and_a_metric(tmp_path):
-    """A configuration, a mix, a metric and a limits file added as new
-    files, with new BENCHMARK.json entries, run without any edit."""
-    root = make_tiny(str(tmp_path))
-    rt = os.path.join(root, "rtbench")
-    with open(os.path.join(rt, "configs", "city_1m.json")) as f:
-        cfg = json.load(f)
-    cfg.update(name="city_small", n_tris=2000)
-    with open(os.path.join(rt, "configs", "city_small.json"), "w") as f:
-        json.dump(cfg, f)
-    with open(os.path.join(rt, "traffic", "waves.json")) as f:
-        tr = json.load(f)
-    tr.update(width=32, height=32)
-    with open(os.path.join(rt, "traffic", "waves_small.json"), "w") as f:
-        json.dump(tr, f)
-    shutil.copy(os.path.join(rt, "limits", "city_waves.json"),
-                os.path.join(rt, "limits", "small_waves.json"))
-    with open(os.path.join(rt, "metrics", "iterations.count.py"), "w") as f:
-        f.write("def read(run):\n    return float(run.window['done'])\n")
-    with open(os.path.join(root, "BENCHMARK.json")) as f:
+    """A configuration, a mix of a new driver, limits, a metric, their
+    tiny and faults files and BENCHMARK.json entries, added to an
+    untouched copy with no edit to any file that was there, before it is
+    cut to tiny sizes: the new cell runs correct, and its control and a
+    fault of its driver do not."""
+    src = untouched_copy(str(tmp_path / "src"))
+    add_cell_files(src)
+    add_file(src, "metrics/frames.count.py",
+             "def read(run):\n    return float(run.window['done'])\n")
+    with open(os.path.join(src, "BENCHMARK.json")) as f:
         b = json.load(f)
     b["configs"].append(dict(b["configs"][0], name="city_small",
                              file="rtbench/configs/city_small.json"))
-    b["workloads"].append(dict(b["workloads"][0], name="small_waves",
-                               config="city_small", traffic="waves_small"))
+    b["workloads"].append(dict(name="small_view", config="city_small",
+                               traffic="view_inst", chips=1, why="a test"))
     for m in b["end_to_end"]:
-        if "workloads" in m and "city_waves" in m["workloads"]:
-            m["workloads"].append("small_waves")
-    b["end_to_end"].append(dict(name="iterations.count", unit="iters",
+        if "workloads" in m and "city_view" in m["workloads"]:
+            m["workloads"].append("small_view")
+    b["end_to_end"].append(dict(name="frames.count", unit="frames",
                                 better="higher", bound=0.05,
                                 source="host_clock",
-                                workloads=["small_waves"]))
-    with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
+                                workloads=["small_view"]))
+    with open(os.path.join(src, "BENCHMARK.json"), "w") as f:
         json.dump(b, f)
-    rc, out, err = run_cli(root, ["--workload", "small_waves", "--seed",
-                                  "3000000000", "--seconds", "1", "--trace",
-                                  "0", "--cpu"])
-    assert rc == 0, err[-3000:]
-    line = last_json(out)
+    os.makedirs(tmp_path / "tiny")
+    root = make_tiny(str(tmp_path / "tiny"), src)
+
+    line, err = run_cell(root, "small_view", 3000000000, seconds=1)
     assert list(line)[:5] == KEYS and list(line)[5:] == ["checked"]
-    assert line["correct"] is True
-    assert set(line["metrics"]) == {"wave_mrays_per_s", "setup_s",
-                                    "iterations.count"}
-    assert line["metrics"]["iterations.count"]["value"] >= 1
+    assert line["correct"] is True, err[-2000:]
+    assert set(line["metrics"]) == {"frame_msamples_per_s", "setup_s",
+                                    "frames.count"}
+    assert line["metrics"]["frames.count"]["value"] >= 1
     # the checked numbers are also the last lines of stderr
     tail = err.strip().splitlines()[-len(line["checked"]):]
     assert all(t.startswith("checked ") for t in tail)
+
+    line, _ = run_cell(root, "small_view", 11, ["--control", "bf16"])
+    assert line["correct"] is False
+
+    fl = faults(cell_drivers(src)["small_view"], src)
+    fault = sorted(fl.FAULTS)[0]
+    line, err = run_cell(root, "small_view", 5, prelude=fl.FAULTS[fault],
+                         seconds=fl.SECONDS)
+    assert line["attempted"] >= fl.MIN_ATTEMPTED
+    assert line["correct"] is False, (fault, err[-2000:])
+
+
+@pytest.mark.parametrize("change, named", [
+    (add_config, "rtbench/tests/tiny/configs/city_small.json"),
+    (add_mix, "rtbench/tests/tiny/drivers/view_inst.json"),
+    (None, "rtbench/tests/tiny/configs/interior_1m.json"),
+    (None, "rtbench/tests/tiny/drivers/view.json"),
+    (None, "rtbench/tests/faults/waves.py"),
+], ids=["new-config", "new-driver", "config-removed", "driver-removed",
+        "faults-removed"])
+def test_a_missing_test_file_is_named(tmp_path, change, named):
+    """Cutting a copy to tiny sizes and finding its cells' faults, as the
+    cells tests do, stops at a configuration or driver without its tiny
+    file, and a driver without its faults file, naming the file."""
+    src = untouched_copy(str(tmp_path / "src"))
+    if change is None:
+        os.remove(os.path.join(src, named))
+    else:
+        change(src)
+    os.makedirs(tmp_path / "tiny")
+    with pytest.raises(FileNotFoundError, match=re.escape(named)):
+        make_tiny(str(tmp_path / "tiny"), src)
+        for driver in set(cell_drivers(src).values()):
+            faults(driver, src)
 
 
 class _Run:
