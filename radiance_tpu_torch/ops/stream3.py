@@ -244,30 +244,75 @@ def _block_sort(rows_w, live=None):
     return rows_s, inv, live_s
 
 
-def _stage_prep(rows_w, nodef, inv0, live=None, *, stable: bool):
+def to_object(rows_w, m):
+    """Six world-space rows moved to object space by the inverse transform
+    m: one [4, 4] matrix for every ray, or [..., 4, 4] whose m[..., r, k]
+    broadcast against the rows (a matrix a block); the same f32 products
+    and sums either way.  m None: the rows are in object space already."""
+    f32 = torch.float32
+    ox_w, oy_w, oz_w, dx_w, dy_w, dz_w = (r.to(f32) for r in rows_w)
+    if m is None:
+        return ox_w, oy_w, oz_w, dx_w, dy_w, dz_w
+    m = m.to(f32)
+
+    def e(r, k):
+        return m[..., r, k]
+
+    return (e(0, 0) * ox_w + e(0, 1) * oy_w + e(0, 2) * oz_w + e(0, 3),
+            e(1, 0) * ox_w + e(1, 1) * oy_w + e(1, 2) * oz_w + e(1, 3),
+            e(2, 0) * ox_w + e(2, 1) * oy_w + e(2, 2) * oz_w + e(2, 3),
+            e(0, 0) * dx_w + e(0, 1) * dy_w + e(0, 2) * dz_w,
+            e(1, 0) * dx_w + e(1, 1) * dy_w + e(1, 2) * dz_w,
+            e(2, 0) * dx_w + e(2, 1) * dy_w + e(2, 2) * dz_w)
+
+
+def _pool_rank(flat, pkt_ids, segments):
+    """Rank of each set entry of `flat` ([npk * 8] bool, packet-major)
+    among the set entries of its segment: the wave's when segments is
+    None, else of its sub-wave (segments: pkt_seg [npk] i64, nondecreasing,
+    and their count)."""
+    rank = torch.cumsum(flat.to(torch.int64), 0) - 1
+    if segments is None:
+        return rank
+    pkt_seg, nseg = segments
+    cnt = flat.view(-1, 8).sum(dim=1)
+    before = torch.cumsum(cnt, 0) - cnt          # set entries before a packet
+    base = torch.zeros(nseg, dtype=torch.int64, device=flat.device)
+    base = base.scatter_reduce(0, pkt_seg, before, "amin", include_self=False)
+    return rank - base[pkt_seg][pkt_ids]
+
+
+def _stage_prep(rows_w, nodef, inv0, live=None, *, stable: bool,
+                segments=None, tables=None):
     """Object-space rows, phase-2 features [16, Npad], sub-block scalars
     and the slot tables (stream3.py::_stage_prep, :449-590).
 
     `live` ([N] bool) drops dead lanes from every interval frustum;
-    packets with no live ray get no active slot.  Returns (rows, feats_t,
-    scal [nslot, 16] f32, smeta [nslot, 8] i32 (lanes 0 packet, 1 alive,
-    2 node-table base row), bscal [npk*32, 16] f32, order [nslot] i64):
-    slots sorted heavy-walk first, order the stable sort permutation."""
+    packets with no live ray get no active slot.  inv0: to_object's m.
+    segments (pkt_seg [npk] i64, nondecreasing, and their count nseg): the
+    wave is nseg sub-waves of whole packets, each with an EXTRA pool of
+    its own, so that every packet gets the slots it would get in a wave of
+    its sub-wave alone.  tables (base [npk] i32, nk [npk] i32): nodef is
+    several BLASes' tables end to end (MultiTables.nodef_cat), a packet's
+    octant o table starting at row base + o * nk; None: nodef is one
+    BLAS's.  Returns (rows, feats_t, scal [nslot, 16] f32,
+    smeta [nslot, 8] i32 (lanes 0 packet, 1 alive, 2 node-table base row),
+    bscal [npk*32, 16] f32, order [nslot] i64): slots sorted heavy-walk
+    first, order the stable sort permutation."""
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
     rows_w, live = _pad_wave(rows_w, live)
-    ox_w, oy_w, oz_w, dx_w, dy_w, dz_w = (r.to(f32) for r in rows_w)
-    m = inv0.to(f32)
-    ox = m[0, 0] * ox_w + m[0, 1] * oy_w + m[0, 2] * oz_w + m[0, 3]
-    oy = m[1, 0] * ox_w + m[1, 1] * oy_w + m[1, 2] * oz_w + m[1, 3]
-    oz = m[2, 0] * ox_w + m[2, 1] * oy_w + m[2, 2] * oz_w + m[2, 3]
-    dx = m[0, 0] * dx_w + m[0, 1] * dy_w + m[0, 2] * dz_w
-    dy = m[1, 0] * dx_w + m[1, 1] * dy_w + m[1, 2] * dz_w
-    dz = m[2, 0] * dx_w + m[2, 1] * dy_w + m[2, 2] * dz_w
-    rows = (ox, oy, oz, dx, dy, dz)
+    rows = to_object(rows_w, inv0)
+    ox, oy, oz, dx, dy, dz = rows
     dev = ox.device
     npad = ox.shape[0]
     npk = npad // PKT
     nk_local = nodef.shape[0] // 8
+
+    def table_row(pkt, octant):
+        """The first row of packet pkt's octant table in nodef."""
+        if tables is None:
+            return octant * nk_local
+        return tables[0][pkt] + octant * tables[1][pkt]
 
     ones = torch.ones(npad, dtype=f32, device=dev)
     zeros = torch.zeros(npad, dtype=f32, device=dev)
@@ -294,31 +339,36 @@ def _stage_prep(rows_w, nodef, inv0, live=None, *, stable: bool):
     oct_full = ((full[:, 0] < 0).to(i32) + 2 * (full[:, 1] < 0).to(i32)
                 + 4 * (full[:, 2] < 0).to(i32))
 
-    nslot = npk + EXTRA
-    scal = torch.zeros(nslot, 16, dtype=f32, device=dev)
+    nseg = 1 if segments is None else segments[1]
+    nslot = npk + nseg * EXTRA
+    # row nslot takes the octant writes that do not fit (mode="drop")
+    scal = torch.zeros(nslot + 1, 16, dtype=f32, device=dev)
     scal[:npk] = torch.where(pure[:, None], full, 0.0)
-    smeta = torch.zeros(nslot, 8, dtype=i32, device=dev)
+    smeta = torch.zeros(nslot + 1, 8, dtype=i32, device=dev)
     smeta[:npk, 0] = torch.arange(npk, dtype=i32, device=dev)
     smeta[:npk, 1] = pure.to(i32)
-    smeta[:npk, 2] = oct_full * nk_local
+    smeta[:npk, 2] = table_row(slice(None), oct_full)
 
     # octant sub-slots: a mixed packet takes them only if ALL its octants
     # fit in the pool, else its base slot walks the whole-packet frustum
     valid0 = (~pure)[:, None] & present                    # [npk, 8]
-    rank0 = torch.cumsum(valid0.reshape(-1).to(i64), 0) - 1
     pkt_ids = torch.arange(npk, dtype=i64, device=dev).repeat_interleave(8)
+    rank0 = _pool_rank(valid0.reshape(-1), pkt_ids, segments)
     maxrank = torch.full((npk,), -1, dtype=i64, device=dev).scatter_reduce(
         0, pkt_ids, torch.where(valid0.reshape(-1), rank0, -1), "amax")
     fits = (~pure) & (maxrank < EXTRA)
     vflat = valid0.reshape(-1) & fits[pkt_ids]
-    rank = torch.cumsum(vflat.to(i64), 0) - 1
+    rank = _pool_rank(vflat, pkt_ids, segments)
     fit = vflat & (rank < EXTRA)
-    slot_of = (npk + rank)[fit]                # the dropped writes removed
+    if segments is not None:
+        rank = segments[0][pkt_ids] * EXTRA + rank   # the sub-wave's pool
+    slot_of = torch.where(fit, npk + rank, nslot)
     oct_ids = torch.arange(8, dtype=i32, device=dev).repeat(npk)
-    scal[slot_of] = cand.reshape(-1, 16)[fit]
-    smeta[slot_of, 0] = pkt_ids[fit].to(i32)
-    smeta[slot_of, 1] = 1
-    smeta[slot_of, 2] = oct_ids[fit] * nk_local
+    scal[slot_of] = cand.reshape(-1, 16)
+    smeta[slot_of, 0] = pkt_ids.to(i32)
+    smeta[:, 1].index_fill_(0, slot_of, 1)     # no scalar upload
+    smeta[slot_of, 2] = table_row(pkt_ids, oct_ids)
+    scal, smeta = scal[:nslot], smeta[:nslot]
 
     conserv = (~pure) & (~fits)
     scal[:npk] = torch.where(conserv[:, None], full, scal[:npk])
@@ -345,9 +395,9 @@ def _stage_glue(out_s, smeta, npk, n) -> HitRecord:
     alive = smeta[:, 1] > 0
     kb = torch.where(alive[:npk, None], t_all[:npk], FMAX).view(i32)
     ex_pkt = smeta[npk:, 0].to(i64)
-    ex_alive = alive[npk:]
     keep = (ex_pkt >= 0) & (ex_pkt < npk)           # mode="drop"
-    ex_pkt, ex_alive, ex = ex_pkt[keep], ex_alive[keep], out_s[npk:][keep]
+    ex_alive = alive[npk:] & keep       # (a dead extra slot takes nothing)
+    ex_pkt, ex = torch.where(keep, ex_pkt, 0), out_s[npk:]
     kx = torch.where(ex_alive[:, None], ex[:, :, 0], FMAX).view(i32)
     rows = ex_pkt[:, None].expand(-1, PKT)
     kmin = kb.scatter_reduce(0, rows, kx, "amin")
@@ -500,7 +550,7 @@ def _winner_barys(rows_w, inv0, kprim, ktri_geo, prim, t, n):
     face, prim is the primitive id (kleaf row 10), so the gather goes
     through the inverse of kprim; its padding rows (-1) land on the last
     face, which no primitive id reaches.  Misses get (0, 0)."""
-    f32, i64 = torch.float32, torch.int64
+    i64 = torch.int64
     nf = kprim.shape[0]
     kp = kprim.to(i64)
     idx = torch.where(kp >= 0, kp, nf - 1)
@@ -508,14 +558,7 @@ def _winner_barys(rows_w, inv0, kprim, ktri_geo, prim, t, n):
     iprim[idx] = torch.arange(nf, dtype=i64, device=kprim.device)
     hit = (t < FLT_MAX) & (prim >= 0)
     geo = ktri_geo[iprim[torch.clamp(prim.to(i64), 0, nf - 1)]]
-    ox, oy, oz, dx, dy, dz = (r[:n].to(f32) for r in rows_w[:6])
-    m = inv0.to(f32)
-    ox, oy, oz = (m[0, 0] * ox + m[0, 1] * oy + m[0, 2] * oz + m[0, 3],
-                  m[1, 0] * ox + m[1, 1] * oy + m[1, 2] * oz + m[1, 3],
-                  m[2, 0] * ox + m[2, 1] * oy + m[2, 2] * oz + m[2, 3])
-    dx, dy, dz = (m[0, 0] * dx + m[0, 1] * dy + m[0, 2] * dz,
-                  m[1, 0] * dx + m[1, 1] * dy + m[1, 2] * dz,
-                  m[2, 0] * dx + m[2, 1] * dy + m[2, 2] * dz)
+    ox, oy, oz, dx, dy, dz = to_object([r[:n] for r in rows_w[:6]], inv0)
     v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = geo.unbind(1)
     px = dy * e2z - dz * e2y
     py = dz * e2x - dx * e2z
@@ -535,9 +578,16 @@ def _run(rows_w, tmin, tmax, nodef, kleaf, inv0, *, live=None,
          flags: bool = False, blk_bound=None, count_pairs: bool = False,
          presort: bool = False, tqsort: bool = False, lean: bool = False,
          cull: bool = False, kprim=None, ktri_geo=None,
-         tq_bits: int = W_TQ_BITS):
+         tq_bits: int = W_TQ_BITS, segments=None, tables=None,
+         aabb8=None):
     """The pipeline on world-space component rows (stream3.py::_run,
-    non-work-stealing branch).  Returns a HitRecord, and with with_diag
+    non-work-stealing branch), moved to object space by inv0 (to_object's
+    m; None: the rows are in object space).  segments and tables:
+    _stage_prep's, the instance scan's sub-waves of whole groups each with
+    its octant pool, and the BLAS tables end to end with each packet's
+    BLAS (MultiTables: nodef_cat, kleaf_cat with global leaf rows, and
+    their leaf boxes aabb8, aabb8_cat; default leaf_aabb8 of nodef).
+    Returns a HitRecord, and with with_diag
     (rec, diag): diag["pkt_flag"] [npk] i32 marks packets whose walk was
     cut or whose list overflowed -- the caller must re-trace them --
     beside the sums "words", "kept_words", "steps" and "capped"; flags
@@ -577,7 +627,8 @@ def _run(rows_w, tmin, tmax, nodef, kleaf, inv0, *, live=None,
         if presort:
             rows_w, inv_blk, live = _block_sort(rows_w, live)
         rows, feats_t, scal, smeta, bscal, order = _stage_prep(
-            rows_w, nodef, inv0, live=live, stable=stable)
+            rows_w, nodef, inv0, live=live, stable=stable,
+            segments=segments, tables=tables)
         npad = rows[0].shape[0]
         npk = npad // PKT
     with profiling.span("stream3.emit"):
@@ -586,10 +637,11 @@ def _run(rows_w, tmin, tmax, nodef, kleaf, inv0, *, live=None,
                                   tq_bits=tq_bits)
     with profiling.span("stream3.refine"):
         slot_pkt = smeta[:, 0].contiguous()
+        if aabb8 is None:
+            aabb8 = leaf_aabb8(nodef, kleaf.shape[0])
         words_i, emeta_i = stage_refine(
-            words, emeta, slot_pkt, feats_t,
-            leaf_aabb8(nodef, kleaf.shape[0]), tmax, pcap=PCAP, sort=tqsort,
-            tq_bits=tq_bits)
+            words, emeta, slot_pkt, feats_t, aabb8, tmax, pcap=PCAP,
+            sort=tqsort, tq_bits=tq_bits)
         words_b = words_i
         if blk_bound is not None:
             bbv = pad_blk_bound(blk_bound, nb)

@@ -7,13 +7,21 @@ pass over the wave that tests every 128-ray block's world interval
 frustum against every instance's world AABB (the TLAS level, [nblk,
 ninst] slab tests).
 
-The instance scan (trace_rows_multi, :242-399), the default: a host loop
-over the instances, in slot order, gathers each instance's active blocks
-into a sub-wave, runs the stream3 pipeline (ops/stream3._run: kernels F,
-B, C, A and D, or E on occlusion waves) against that instance's own
-tables, and min-folds the hits into the running best.  Cost scales with
-the block/instance overlap, not with the instance count, unlike the
-per-instance packet sweeps (packet_trace.trace_rays_packet_multi).
+The instance scan (trace_rows_multi, :242-399), the default: each
+instance's active blocks are gathered into a sub-wave and moved into the
+instance's object space; one run of the stream3 pipeline
+(ops/stream3._run: kernels F, B, C, A and D, or E on occlusion waves)
+traces every sub-wave, each a segment with the octant slot pool it would
+have alone, against the unique BLASes' tables end to end (the native
+route's MultiTables.nodef_cat, kleaf_cat, aabb8_cat), each packet walking
+its instance's BLAS; where the global leaf rows pass the word format's
+reach (supports_native false), one run a BLAS over its instances'
+sub-waves, on its own tables.  One min-fold then takes, per ray, the
+nearest hit, the lowest instance on a tie, as folding the instances one
+by one in slot order would.  Cost scales with the block/instance
+overlap, not with the instance count, unlike the per-instance packet
+sweeps (packet_trace.trace_rays_packet_multi), and the host's share does
+not grow with the instances.
 
 The TLAS-native route (trace_rows_tlas, :574-761; trace_rows_multi with
 native=True): every (packet, instance) pair that survives the cull is a
@@ -33,6 +41,12 @@ Differences from the JAX module, none visible in a hit record:
     the instance's blocks rounded up to whole groups of G packets.  The
     dropped packets hold only dead lanes, which emit nothing, so the
     hits, the flags and the poisoning are the reference's;
+  * the JAX scan traces one instance a step; here the instances share a
+    stream3 run, every packet with the slots of its instance's run alone
+    (stream3._stage_prep's segments), so the records are those of one run
+    per instance (tests/test_torch_multi64_view.py).  On the tables end
+    to end a walk's step windows are clamped at the end of nodef_cat, as
+    on the native route (below): only a walk cut at STEP_CAP could tell;
   * no environment variable is read: the route is an argument (the
     reference's RADIANCE_MULTI, default scan), so is the native route's
     slot capacity (RADIANCE_TLAS_SCAP); f32, one emit walk a slot (no
@@ -97,6 +111,7 @@ from radiance_tpu_torch.ops.stream3_stages import (
     BIG, FMAX, G, PCAP, W_LEAF_MAX, W_TQ_BITS, feats_rows_to_major,
     group_scalars, octant_scalars, stage_emit, stage_isect, stage_refine,
     word_format)
+from radiance_tpu_torch.utils import profiling
 
 BLK = s3.BLK
 PKT = s3.PKT
@@ -231,7 +246,7 @@ def _block_overlap(rows_w, aabb_w, tmin, tmax, live=None):
     mixed = sgn == 0.0
     tn = torch.where(mixed, 0.0, tn).amax(dim=2)
     tf = torch.where(mixed, 3.4e38, tf).amin(dim=2)
-    tmax_t = torch.tensor(tmax, dtype=torch.float32, device=tf.device)
+    tmax_t = torch.full((), tmax, dtype=torch.float32, device=tf.device)
     tf = torch.minimum(tf, tmax_t)
     return (tf >= torch.clamp(tn, min=0.0)) & (tn < tmax_t)
 
@@ -266,11 +281,38 @@ def trace_rows_multi(scene, mt, rows_w, tmin, tmax, *, bcap_blocks=None,
     flagged) and "poisoned" (rays); with blk_bound also "block_pairs" and
     "block_pairs_bounded" (the (word, block) pairs of all sub-waves before
     and after the cull), "tb_residual", "tb_cap" and "tb_marked"
-    (stream3.trace_rows_stream3's)."""
+    (stream3.trace_rows_stream3's).
+
+    Its span, multi.trace, notes "rays" (N), "instances" (mt.ninst),
+    "instances_run" (the sub-waves run), "blocks" (the padded wave's
+    128-ray blocks), "block_pairs" (the (block, instance) pairs the TLAS
+    cull passes, within bcap) and, only while the span is live, since it
+    takes a host read, "poisoned" (rays returned with slot == -2).  Its
+    child multi.cull holds the cull, the block lists and their host read;
+    each sub-wave's stream3 stage spans nest in it, and the gathers and
+    the min-fold are its own time."""
     if native and supports_native(mt, tq_bits):
         return trace_rows_tlas(scene, mt, rows_w, tmin, tmax, live=live,
                                occl=occl, with_diag=with_diag,
                                blk_bound=blk_bound, tq_bits=tq_bits)
+    with profiling.span("multi.trace") as sp:
+        rec, diag, counts = _scan(scene, mt, rows_w, tmin, tmax, bcap_blocks,
+                                  live, occl, with_diag, blk_bound, tq_bits)
+        if sp.live:
+            counts["poisoned"] = _poisoned(rec)
+        sp.note(**counts)
+    return (rec, diag) if with_diag else rec
+
+
+def _poisoned(rec) -> int:
+    """The rays a trace returned poisoned (slot == -2): a host read."""
+    return int((rec.slot == -2).sum())
+
+
+def _scan(scene, mt, rows_w, tmin, tmax, bcap_blocks, live, occl,
+          with_diag, blk_bound, tq_bits):
+    """The instance scan of trace_rows_multi: (rec, diag or None, the
+    multi.trace span's counts that are on the host without a read)."""
     n = rows_w[0].shape[0]
     dev = rows_w[0].device
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
@@ -288,72 +330,84 @@ def trace_rows_multi(scene, mt, rows_w, tmin, tmax, *, bcap_blocks=None,
         bcap_blocks = max(nblk // 4, _GROUP_BLOCKS)
     bcap = -(-bcap_blocks // _GROUP_BLOCKS) * _GROUP_BLOCKS
 
-    ov = _block_overlap(rows_p, mt.aabb_dev, tmin, tmax, live=live_p)
-    # per-instance compact block lists [ninst, bcap] (fill nblk); the
-    # mode="drop" scatter of the reference as a masked write
-    rank = torch.cumsum(ov.to(i32), dim=0) - 1
-    ok = ov & (rank < bcap)
-    bi, ii = torch.nonzero(ok, as_tuple=True)
-    lists = torch.full((mt.ninst, bcap), nblk, dtype=i64, device=dev)
-    lists[ii, rank[bi, ii].to(i64)] = bi
-    blk_overflowed = (ov & (rank >= bcap)).any(dim=1)
-    n_act = ok.sum(dim=0).tolist()                  # active blocks per inst
+    with profiling.span("multi.cull"):
+        ov = _block_overlap(rows_p, mt.aabb_dev, tmin, tmax, live=live_p)
+        # per-instance compact block lists [ninst, bcap] (fill nblk); the
+        # mode="drop" scatter of the reference, its dropped writes to a
+        # spare entry (scanned along the blocks of an instance's contiguous
+        # row: torch's scan down the outer dimension of [nblk, ninst] is
+        # far slower)
+        rank = (torch.cumsum(ov.t().to(i32).contiguous(), dim=1) - 1).t()
+        ok = ov & (rank < bcap)
+        spare = mt.ninst * bcap
+        dst = torch.where(
+            ok, torch.arange(mt.ninst, dtype=i64, device=dev) * bcap + rank,
+            spare)
+        lists = torch.full((spare + 1,), nblk, dtype=i64, device=dev)
+        lists.scatter_(0, dst.reshape(-1), torch.arange(
+            nblk, dtype=i64, device=dev).repeat_interleave(mt.ninst))
+        lists = lists[:spare].view(mt.ninst, bcap)
+        blk_overflowed = (ov & (rank >= bcap)).any(dim=1)
+        n_act = ok.sum(dim=0).tolist()              # active blocks per inst
 
-    # running best; row npad takes the writes of lanes that take nothing
-    bt = torch.full((npad + 1,), FLT_MAX, dtype=f32, device=dev)
-    bp = torch.full((npad + 1,), -1, dtype=i32, device=dev)
-    bs = torch.full((npad + 1,), -1, dtype=i32, device=dev)
-    b1 = torch.zeros(npad + 1, dtype=f32, device=dev)
-    b2 = torch.zeros(npad + 1, dtype=f32, device=dev)
-    bbad = torch.zeros(npad + 1, dtype=torch.bool, device=dev)
-    lane = torch.arange(BLK, device=dev)
+    # the sub-waves: each instance's active blocks, moved into its object
+    # space, a segment of one stream3 run over the BLASes' tables end to
+    # end, or, where their global leaf rows pass the word format's reach,
+    # of its own BLAS's run
+    runs = sum(a > 0 for a in n_act)
+    cat = supports_native(mt, tq_bits)
+    plan, s3_runs = _plan(mt, n_act, cat)
+    inst_b, pos_b, seg_b = torch.from_numpy(plan).to(dev)
+    blist = lists[inst_b, pos_b]
+    blk = torch.clamp(blist, max=nblk - 1)
+    gsel = (blk[:, None] * BLK + torch.arange(BLK, device=dev)).reshape(-1)
+    live_s = (blist < nblk).repeat_interleave(BLK)
+    if live_p is not None:
+        live_s = live_s & live_p[gsel]
+    # dead lanes parked far outside the scene, pointing away
+    sub = s3.park_dead(tuple(r[gsel] for r in rows_p), live_s,
+                       (1.0, 0.0, 0.0))
+    sub = tuple(r.reshape(-1) for r in s3.to_object(
+        [r.view(-1, BLK) for r in sub], scene.inst_inv[inst_b][:, None]))
+    bb_s = None
+    if bbv_p is not None:
+        # the sub-wave keeps block granularity: its bounds are the gathered
+        # blocks' (the wave's closest-t bound holds inside every instance)
+        bb_s = torch.where(blist < nblk, bbv_p[blk], FLT_MAX)
     stable = bool(scene.stable_frames)
-    runs = flagged = 0
+    flagged = 0
     bpairs = [0, 0]
-    for i in range(mt.ninst):
-        if n_act[i] == 0:
-            continue                    # an all-dead sub-wave finds nothing
-        runs += 1
-        nsub = -(-n_act[i] // _GROUP_BLOCKS) * _GROUP_BLOCKS
-        blist = lists[i, :nsub]
-        gsel = (torch.clamp(blist, max=nblk - 1)[:, None] * BLK
-                + lane).reshape(-1)
-        live_i = (blist < nblk).repeat_interleave(BLK)
-        if live_p is not None:
-            live_i = live_i & live_p[gsel]
-        # dead lanes parked far outside the scene, pointing away
-        sub = s3.park_dead(tuple(r[gsel] for r in rows_p), live_i,
-                           (1.0, 0.0, 0.0))
-        nodef, kleaf = scene.kblas[mt.uniq[mt.inst_idx[i]]][:2]
-        bb_sub = None
-        if bbv_p is not None:
-            # the sub-wave keeps block granularity: its bounds are the
-            # gathered blocks' (the wave's closest-t bound holds inside
-            # every instance)
-            bb_sub = torch.where(blist < nblk,
-                                 bbv_p[torch.clamp(blist, max=nblk - 1)],
-                                 FLT_MAX)
-        rec, diag = s3._run(sub, tmin, tmax, nodef, kleaf, scene.inst_inv[i],
-                            live=live_i, stable=stable, occl=occl,
-                            flags=True, blk_bound=bb_sub,
-                            count_pairs=with_diag, tq_bits=tq_bits)
-        # a step-capped or word-overflowed sub-packet lost hits for this
+    recs, bads = [], []
+    for k0, k1, nseg in s3_runs:
+        r0, r1 = k0 * BLK, k1 * BLK
+        if cat:
+            inst_p = inst_b[k0:k1:PKT // BLK]
+            nodef, kleaf, aabb8 = mt.nodef_cat, mt.kleaf_cat, mt.aabb8_cat
+            tables = (mt.inst_node_off[inst_p], mt.inst_nk[inst_p])
+        else:
+            u = mt.inst_idx[int(plan[0, k0])]
+            nodef, kleaf = scene.kblas[mt.uniq[u]][:2]
+            aabb8 = tables = None
+        rec, diag = s3._run(
+            tuple(r[r0:r1] for r in sub), tmin, tmax, nodef, kleaf, None,
+            live=live_s[r0:r1], stable=stable, occl=occl, flags=True,
+            blk_bound=None if bb_s is None else bb_s[k0:k1],
+            count_pairs=with_diag, tq_bits=tq_bits,
+            segments=(seg_b[k0:k1:PKT // BLK], nseg), tables=tables,
+            aabb8=aabb8)
+        # a step-capped or word-overflowed sub-packet lost hits for its
         # instance: its rays are poisoned, not returned as silent misses
         pkt_bad = diag["pkt_flag"] > 0
         if with_diag:
             flagged += int(pkt_bad.sum())
-            if bb_sub is not None:
+            if bb_s is not None:
                 bpairs[0] += int(diag["block_pairs"])
                 bpairs[1] += int(diag["block_pairs_bounded"])
-        sub_bad = pkt_bad.repeat_interleave(PKT) & live_i
-        take = live_i & (rec.t < bt[gsel])  # the earlier instance wins ties
-        tgt = torch.where(take, gsel, npad)
-        bt[tgt] = rec.t
-        bp[tgt] = rec.prim
-        bs[tgt] = i
-        b1[tgt] = rec.b1
-        b2[tgt] = rec.b2
-        bbad[torch.where(sub_bad, gsel, npad)] = True
+        recs.append(rec)
+        bads.append(pkt_bad.repeat_interleave(PKT))
+    bt, bp, bs, b1, b2, bbad = _fold(recs, bads, gsel, live_s,
+                                     inst_b.repeat_interleave(BLK), npad,
+                                     mt.ninst)
     hit = bt[:n] < FLT_MAX
     bad = blk_overflowed.repeat_interleave(BLK)[:n] | bbad[:n]
     rec = HitRecord(t=torch.where(bad, FLT_MAX, bt[:n]),
@@ -367,10 +421,76 @@ def trace_rows_multi(scene, mt, rows_w, tmin, tmax, *, bcap_blocks=None,
                              _sweeps(scene, tmin, tmax, occl), occl=occl,
                              live=live, n=n)
         tb["block_pairs"], tb["block_pairs_bounded"] = bpairs
+    counts = dict(rays=n, instances=mt.ninst, instances_run=runs,
+                  blocks=nblk, block_pairs=sum(n_act))
     if not with_diag:
-        return rec
+        return rec, None, counts
     return rec, {"instances_run": runs, "pairs": int(ov.sum()),
-                 "flagged": flagged, "poisoned": int(bad.sum()), **tb}
+                 "flagged": flagged, "poisoned": int(bad.sum()),
+                 **tb}, counts
+
+
+def _plan(mt, n_act, one_run):
+    """The scan's sub-waves on the host: (plan [3, nb] i64 over the
+    sub-wave blocks, run by run and instance by instance within: each
+    block's instance, its place in that instance's block list and its
+    instance's segment within its run; runs, a (first block, end block,
+    segments) per stream3 run: one in all (one_run), else one a BLAS).
+    An instance takes its n_act blocks rounded up to whole groups of G
+    packets (fill entries name block nblk); one with none is not run."""
+    n_act = np.asarray(n_act, dtype=np.int64)
+    live = np.flatnonzero(n_act)
+    grp = (np.zeros(len(live), np.int64) if one_run
+           else np.asarray(mt.inst_idx, np.int64)[live])
+    order = np.argsort(grp, kind="stable")
+    live, grp = live[order], grp[order]             # run by run
+    if not len(live):
+        return np.zeros((3, 0), np.int64), []
+    nsub = -(-n_act[live] // _GROUP_BLOCKS) * _GROUP_BLOCKS
+    end = np.cumsum(nsub)
+    first = np.flatnonzero(np.r_[True, grp[1:] != grp[:-1]])   # of a run
+    last = np.r_[first[1:], len(live)]
+    k = np.arange(len(live)) - np.repeat(first, last - first)
+    runs = [(int(end[a] - nsub[a]), int(end[b - 1]), int(b - a))
+            for a, b in zip(first, last)]
+    return np.stack([np.repeat(live, nsub),
+                     np.arange(end[-1]) - np.repeat(end - nsub, nsub),
+                     np.repeat(k, nsub)]).astype(np.int64), runs
+
+
+def _fold(recs, bads, gsel, live, inst, npad, ninst):
+    """The sub-waves' records min-folded into wave rows [npad + 1] (row
+    npad takes the writes of lanes that take nothing): per ray the least t
+    below FLT_MAX among its live lanes, the lowest instance on a tie, as
+    folding the instances one by one in slot order with a strict `<`
+    would; and the rays any of whose packets were flagged (bads)."""
+    f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    dev = gsel.device
+    t, prim, b1, b2 = (torch.cat([getattr(r, f) for r in recs]) if recs
+                       else torch.zeros(0, dtype=d, device=dev)
+                       for f, d in (("t", f32), ("prim", i32), ("b1", f32),
+                                    ("b2", f32)))
+    cand = live & (t < FLT_MAX)
+    tk = torch.where(cand, t, FLT_MAX)
+    least = torch.full((npad + 1,), FLT_MAX, dtype=f32, device=dev)
+    least = least.scatter_reduce(0, gsel, tk, "amin")
+    win = cand & (tk == least[gsel])
+    first = torch.full((npad + 1,), ninst, dtype=i64, device=dev)
+    first = first.scatter_reduce(0, gsel, torch.where(win, inst, ninst),
+                                 "amin")
+    tgt = torch.where(win & (inst == first[gsel]), gsel, npad)
+    bt = torch.full((npad + 1,), FLT_MAX, dtype=f32, device=dev)
+    bp = torch.full((npad + 1,), -1, dtype=i32, device=dev)
+    bs = torch.full((npad + 1,), -1, dtype=i32, device=dev)
+    bb1 = torch.zeros(npad + 1, dtype=f32, device=dev)
+    bb2 = torch.zeros(npad + 1, dtype=f32, device=dev)
+    bt[tgt], bp[tgt], bs[tgt] = t, prim, inst.to(i32)
+    bb1[tgt], bb2[tgt] = b1, b2
+    bbad = torch.zeros(npad + 1, dtype=torch.bool, device=dev)
+    if bads:
+        bbad.index_fill_(0, torch.where(torch.cat(bads) & live, gsel,
+                                        npad), True)
+    return bt, bp, bs, bb1, bb2, bbad
 
 
 def _sweeps(scene, tmin, tmax, occl):
@@ -414,23 +534,24 @@ def _prep_tlas(mt, inst_inv, rows_p, tmin, tmax, live_p, scap, *,
     dev = rows_p[0].device
     npk = rows_p[0].shape[0] // PKT
     ninst = mt.ninst
-    ov = _block_overlap(rows_p, mt.aabb_dev, tmin, tmax, live=live_p)
-    valid0 = ov.view(npk, PKT // BLK, ninst).any(dim=1).reshape(-1)
-    rank = torch.cumsum(valid0.to(i64), 0) - 1
-    fit = valid0 & (rank < scap)
-    pair = torch.arange(npk * ninst, dtype=i64, device=dev)
-    pkt_ids, inst_ids = pair // ninst, pair % ninst
-    # the mode="drop" scatters of the reference: row scap takes the rest
-    sidx = torch.where(fit, rank, scap)
-    pkt_of = torch.full((scap + 1,), npk, dtype=i32, device=dev)
-    pkt_of[sidx] = pkt_ids.to(i32)
-    inst_of = torch.zeros(scap + 1, dtype=i32, device=dev)
-    inst_of[sidx] = inst_ids.to(i32)
-    valid = torch.zeros(scap + 1, dtype=torch.bool, device=dev)
-    valid[sidx] = True
-    pkt_of, inst_of, valid = pkt_of[:scap], inst_of[:scap], valid[:scap]
-    pool_of = torch.zeros(npk, dtype=i32, device=dev).scatter_reduce(
-        0, pkt_ids, (valid0 & ~fit).to(i32), "amax")
+    with profiling.span("multi.cull"):
+        ov = _block_overlap(rows_p, mt.aabb_dev, tmin, tmax, live=live_p)
+        valid0 = ov.view(npk, PKT // BLK, ninst).any(dim=1).reshape(-1)
+        rank = torch.cumsum(valid0.to(i64), 0) - 1
+        fit = valid0 & (rank < scap)
+        pair = torch.arange(npk * ninst, dtype=i64, device=dev)
+        pkt_ids, inst_ids = pair // ninst, pair % ninst
+        # the reference's mode="drop" scatters: row scap takes the rest
+        sidx = torch.where(fit, rank, scap)
+        pkt_of = torch.full((scap + 1,), npk, dtype=i32, device=dev)
+        pkt_of[sidx] = pkt_ids.to(i32)
+        inst_of = torch.zeros(scap + 1, dtype=i32, device=dev)
+        inst_of[sidx] = inst_ids.to(i32)
+        valid = torch.zeros(scap + 1, dtype=torch.bool, device=dev)
+        valid[sidx] = True
+        pkt_of, inst_of, valid = pkt_of[:scap], inst_of[:scap], valid[:scap]
+        pool_of = torch.zeros(npk, dtype=i32, device=dev).scatter_reduce(
+            0, pkt_ids, (valid0 & ~fit).to(i32), "amax")
 
     pc = torch.clamp(pkt_of, max=npk - 1).to(i64)
     gw = [r.view(npk, PKT)[pc] for r in rows_p]             # [scap, PKT]
@@ -560,7 +681,28 @@ def trace_rows_tlas(scene, mt, rows_w, tmin, tmax, *, live=None,
     re-traced), "residual_rays", "words", "kept_words", "steps" (slot walk
     step windows) and "capped" (slots cut at STEP_CAP); with blk_bound also
     "block_pairs" and "block_pairs_bounded" ((word, block) pairs before
-    and after the cull), "tb_residual", "tb_cap" and "tb_marked"."""
+    and after the cull), "tb_residual", "tb_cap" and "tb_marked".
+
+    Its span is trace_rows_multi's, multi.trace, noting "rays",
+    "instances" and "blocks", and while it is live "poisoned"; the slot
+    construction is its multi.cull."""
+    with profiling.span("multi.trace") as sp:
+        out = _tlas(scene, mt, rows_w, tmin, tmax, live=live, occl=occl,
+                    scap=scap, blk_bound=blk_bound, with_diag=with_diag,
+                    tq_bits=tq_bits)
+        n = rows_w[0].shape[0]
+        # the blocks of the wave padded to whole groups (stream3._pad_wave)
+        counts = dict(rays=n, instances=mt.ninst,
+                      blocks=-(-n // (G * PKT)) * _GROUP_BLOCKS)
+        if sp.live:
+            counts["poisoned"] = _poisoned(out[0] if with_diag else out)
+        sp.note(**counts)
+    return out
+
+
+def _tlas(scene, mt, rows_w, tmin, tmax, *, live, occl, scap, blk_bound,
+          with_diag, tq_bits):
+    """trace_rows_tlas without its span."""
     n = rows_w[0].shape[0]
     if live is not None:
         live = live.bool()

@@ -10,7 +10,8 @@ trace.
 
 Spans.  The hot path marks each layer boundary with
 `with profiling.span("<layer>.<part>") as sp:`, and `sp.note(**counts)`
-attaches integer counts that are already on the host.  Spans are off
+attaches integer counts that are already on the host; a count that needs
+a host read is taken only where `sp.live` holds.  Spans are off
 unless a torch profiler session is active
 (torch.autograd.profiler._is_profiler_enabled, which every
 torch.profiler.profile sets, whatever its activities): off, span returns
@@ -146,6 +147,7 @@ _LOG = _Log()
 
 class _Off:
     __slots__ = ()
+    live = False
 
     def __enter__(self):
         return self
@@ -165,6 +167,12 @@ class _Span:
 
     def __init__(self, name: str):
         self.name, self.rec, self.rf = name, None, None
+
+    @property
+    def live(self) -> bool:
+        """Whether the span is logged (False past LOG_CAP): a count that
+        needs a host read is taken only then."""
+        return self.rec is not None
 
     def __enter__(self):
         log = _LOG
