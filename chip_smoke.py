@@ -212,8 +212,9 @@ prints no result):
  15. wide leaves (chip_smoke.wide_leaves): the city at leaf_cap 256 (tq
      9), 64k-ray probes of the primary and shadow waves, driven (counts
      reset and read) through the packet kernel and stream3, then the
-     packet kernel, D and E -- 256-lane tiles in dynamic shared memory --
-     held to their plain versions and timed beside cap 128;
+     packet kernel (a leaf in passes of 32 lanes), D and E (256-lane
+     tiles in dynamic shared memory) held to their plain versions and
+     timed beside cap 128;
  16. many BLASes (chip_smoke.many_blas64): bench.py --multi's scene at
      leaf_cap 64, kleaf_cat's leaves, one native 1080p primary
      (trace_rows_tlas, tq 7) driven and held to the scan at tq 7;
@@ -243,7 +244,13 @@ prints no result):
      rt_material_finish timed alone beside their byte bounds, the whole
      wave through the fused route and through the SBT path it replaces,
      the two routes' path states equal bit for bit;
- 20. the kernels' JSON line (per kernel: the main path's launches, the
+ 20. the interior's 1920x1080 diffuse bounce wave through the packet
+     kernel (chip_smoke.diffuse_bounce_wave): cosine-weighted bounces
+     off the hall's primary hits, sorted as the engine sorts them, timed,
+     held against the plain version and bounded by its counts; the node
+     steps and leaves of a 64-ray packet walking with one cursor against
+     a ray alone (the union factor the ray-private walk removes);
+ 21. the kernels' JSON line (per kernel: the main path's launches, the
      per-launch means of kernel ms, plain ms and bound and their sums,
      by scene where a kernel runs in several; A from phase 5, B and C
      also phase 5's 1080p wave, F phase 7's masked 1080p rows; each
@@ -258,7 +265,9 @@ prints no result):
      (`wide256_probe`), and phase [18]'s launches (`collapse_launches`)
      and per-build ms (`collapse_1080p`); B's row the step windows'
      waves (`step_windows`); the fused material wave's row its
-     launches on phase [6]'s main path and phase [19]'s numbers.
+     launches on phase [6]'s main path and phase [19]'s numbers; the
+     packet kernel's closest-hit row phase [20]'s
+     (`diffuse_bounce_1080p`).
 
 Imports nothing of JAX or radiance_tpu (bench.py's numpy-only scene
 helpers are reused).  Needs one CUDA card; exits 2 without one.
@@ -4581,6 +4590,145 @@ def fused_material_wave(dev, card, tracer, scene, res):
     return out
 
 
+def walk_counts(o, d, nodef, base, clip, group):
+    """The node steps and leaves of escape-threaded walks in which
+    `group` consecutive rays share one cursor (64: the TPU kernel's packet
+    walk; 1: a ray alone, the packet kernel's ray-private walk), each
+    ray's clip fixed at `clip` (its final t, or tmax): a node
+    opens when any ray of the group enters its box before its clip.
+    base: each ray's table row base.  Parked rays (an origin component of
+    1e29 or more) walk nothing.  Returns per group the mean node steps
+    and leaves entered, and the ray-leaf pairs with their triangle sum."""
+    n = o.shape[0]
+    dev = o.device
+    g = -(-n // group)
+    pad = g * group - n
+
+    def grid(x, fill):
+        if pad:
+            x = torch.cat([x, x.new_full((pad,) + x.shape[1:], fill)])
+        return x.view(g, group, *x.shape[1:])
+
+    use = grid((o.abs() < 1e29).all(dim=1), False)
+    ox, oy, oz = (grid(o[:, k], 0.0) for k in range(3))
+    ix, iy, iz = (grid(1.0 / d[:, k], 1.0) for k in range(3))
+    cl = grid(clip, 0.0)
+    gbase = grid(base.long(), 0)[:, 0]
+    idx = torch.where(use.any(dim=1), 0, -1)
+    steps = torch.zeros(g, dtype=torch.int64, device=dev)
+    leaves = torch.zeros(g, dtype=torch.int64, device=dev)
+    pairs = torch.zeros((), dtype=torch.int64, device=dev)
+    pair_tris = torch.zeros((), dtype=torch.int64, device=dev)
+    while True:
+        act = torch.nonzero(idx >= 0).squeeze(1)
+        if act.numel() == 0:
+            break
+        row = nodef[gbase[act] + idx[act]]
+        a_, esc, ntri = (row[:, k].long() for k in (8, 9, 10))
+        t0x = (row[:, 0:1] - ox[act]) * ix[act]
+        t1x = (row[:, 3:4] - ox[act]) * ix[act]
+        t0y = (row[:, 1:2] - oy[act]) * iy[act]
+        t1y = (row[:, 4:5] - oy[act]) * iy[act]
+        t0z = (row[:, 2:3] - oz[act]) * iz[act]
+        t1z = (row[:, 5:6] - oz[act]) * iz[act]
+        tn = torch.maximum(torch.maximum(torch.minimum(t0x, t1x),
+                                         torch.minimum(t0y, t1y)),
+                           torch.minimum(t0z, t1z))
+        tf = torch.minimum(torch.minimum(torch.maximum(t0x, t1x),
+                                         torch.maximum(t0y, t1y)),
+                           torch.maximum(t0z, t1z))
+        inside = ((tf >= torch.clamp(tn, min=0.0)) & (tn < cl[act])
+                  & use[act])
+        opened = inside.any(dim=1)
+        leaf = ntri > 0
+        steps[act] += 1
+        leaves[act] += (leaf & opened).long()
+        k = inside.sum(dim=1) * leaf.long()
+        pairs += k.sum()
+        pair_tris += (k * ntri).sum()
+        idx[act] = torch.where(leaf, esc, torch.where(opened, a_, esc))
+    counted = use.any(dim=1)
+    return dict(group=group, groups=int(counted.sum()),
+                steps=float(steps[counted].float().mean()),
+                leaves=float(leaves[counted].float().mean()),
+                ray_leaf_pairs=int(pairs), ray_leaf_tris=int(pair_tris))
+
+
+def diffuse_bounce_wave(dev, card, scene, bench, pk):
+    """Phase [20]: the interior's 1920x1080 diffuse bounce wave through
+    the packet kernel (row 1), the wave its ray-private walk was built
+    for.  The hall's tile-ordered primary of sample 0
+    (interior_rays) is traced by the kernel; from each hit a direction
+    drawn cosine-weighted about the hit face's normal (the views'
+    material, roughness 0.6, scatters about as widely), from 1e-3 in
+    front of it; the lanes sorted by coherence_key, the missed ones
+    parked last, as the engine's argsort route sorts a bounce wave.  The
+    kernel is timed (device_ms), held against its plain version and
+    bounded by that version's counts (stats: ray_leaf_tris x
+    FLOPS_PER_PAIR; the rays in and out, the node rows and leaves
+    touched); walk_counts() gives the node steps and leaves of a 64-ray
+    packet with one cursor and of a ray alone, each ray's clip at its
+    final t: their ratio is the union factor the ray-private walk
+    removes.  Returns the numbers."""
+    n = W * H
+    t0 = time.time()
+    o1, d1 = interior_rays(dev, W, H, 0, bench._pcg3d_np)
+    t1, tri1 = pk.packet_trace_cuda(o1, d1, None, scene.knode_f, scene.kleaf,
+                                    TMIN, TMAX, any_hit=False, stable=True)
+    hit = t1 < 3.4e38
+    geo = scene.ktri_geo[tri1.clamp(min=0).long()]
+    nrm = torch.linalg.cross(geo[:, 3:6], geo[:, 6:9])
+    nrm = nrm / nrm.norm(dim=1, keepdim=True).clamp(min=1e-30)
+    nrm = torch.where(((nrm * d1).sum(1) > 0)[:, None], -nrm, nrm)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    u1 = torch.rand(n, device=dev, generator=gen)
+    u2 = torch.rand(n, device=dev, generator=gen)
+    r, phi = u1.sqrt(), 2 * np.pi * u2
+    a = torch.where(nrm[:, :1].abs() > 0.9,
+                    torch.tensor([0.0, 1.0, 0.0], device=dev),
+                    torch.tensor([1.0, 0.0, 0.0], device=dev))
+    tx = torch.linalg.cross(a, nrm)
+    tx = tx / tx.norm(dim=1, keepdim=True)
+    ty = torch.linalg.cross(nrm, tx)
+    d2 = ((r * phi.cos())[:, None] * tx + (r * phi.sin())[:, None] * ty
+          + (1 - u1).sqrt()[:, None] * nrm)
+    o2 = o1 + torch.where(hit, t1, 0.0)[:, None] * d1 + 1e-3 * nrm
+    key = torch.where(hit, pk.coherence_key(o2, d2), 2 ** 31 - 1)
+    perm = torch.argsort(key, stable=True)
+    parked = ~hit[perm]
+    o2 = torch.where(parked[:, None], 1e30, o2[perm]).contiguous()
+    d2 = torch.where(parked[:, None], 1.0, d2[perm]).contiguous()
+
+    def run():
+        return pk.packet_trace_cuda(o2, d2, None, scene.knode_f, scene.kleaf,
+                                    TMIN, TMAX, any_hit=False, stable=True)
+
+    ms, (t_k, tri_k) = device_ms(run, 10)
+    st = {}
+    p_ms, (t_p, tri_p) = cuda_ms(lambda: pk._packet_trace_reference(
+        o2, d2, None, scene.knode_f, scene.kleaf, TMIN, TMAX,
+        any_hit=False, stable=True, stats=st), 1, warmup=False)
+    held = judge("[20] diffuse bounce", t_k, tri_k, t_p, tri_p, o2, d2, None,
+                 scene.kprim, any_hit=False, t_scale="origin")
+    b_ms, b_by = bound(st["ray_leaf_tris"] * FLOPS_PER_PAIR,
+                       n * 32 + st["node_rows"] * 64
+                       + st["leaves"] * scene.kleaf[0].numel() * 4)
+    base = pk.packet_bases(d2, pk.PACKET_RAYS, scene.knode_f.shape[0] // 8)
+    base = base.repeat_interleave(pk.PACKET_RAYS)[:n]
+    clip = torch.where(t_k < 3.4e38, t_k, torch.full_like(t_k, TMAX))
+    ray = walk_counts(o2, d2, scene.knode_f, base, clip, 1)
+    packet = walk_counts(o2, d2, scene.knode_f, base, clip, pk.PACKET_RAYS)
+    out = dict(rays=n, live=int(hit.sum()), ms=ms, plain_ms=p_ms,
+               bound_ms=b_ms, bound_by=b_by, plain_stats=st,
+               hit_agree=held["hit_agree"], prim_agree=held["prim_agree"],
+               walk_ray=ray, walk_packet=packet,
+               union_factor=packet["steps"] / ray["steps"],
+               union_leaf_factor=packet["leaves"] / ray["leaves"])
+    log(f"[20] diffuse bounce wave ({card}): {json.dumps(out)} "
+        f"({time.time() - t0:.1f} s)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4620,12 +4768,13 @@ def main() -> int:
     # ---- 2. build ----------------------------------------------------
     t0 = time.time()
     libs = list(dict.fromkeys([
-        pk.KERNEL, pk.kernel_spec(WIDE_CAP), *stg.variant_libs(),
+        pk.KERNEL, *stg.variant_libs(),
         *stg.variant_libs(LEAF_CAP, TQ7), *stg.variant_libs(WIDE_CAP, 9)]))
     cuda_build.load_all(libs)
     log(f"[2] seven kernel sources built as {len(libs)} libraries (the "
-        f"defaults; B-E at leaf cap {LEAF_CAP} / tq {TQ7}, D, E and the "
-        f"packet kernel at {WIDE_CAP} lanes) in parallel and loaded in "
+        f"defaults; B-E at leaf cap {LEAF_CAP} / tq {TQ7}, D and E at "
+        f"{WIDE_CAP} lanes; the packet kernel takes every cap) in parallel "
+        f"and loaded in "
         f"{time.time() - t0:.1f} s: {' '.join(cuda_build.NVCC_FLAGS)}")
     for name, info in cuda_build.BUILD_INFO.items():
         log(f"    {name}: {info['seconds']:.1f} s, "
@@ -5540,7 +5689,6 @@ def main() -> int:
     t0 = time.time()
     order = ordering_modes(dev, card, tracer, scene, res, verts, tris, waves,
                            hit1, interior, bench, pk, s3, stg)
-    del interior
     log(f"[12] done in {time.time() - t0:.1f} s")
 
     # ---- 13. sharded frames ------------------------------------------
@@ -5586,7 +5734,13 @@ def main() -> int:
     fused = fused_material_wave(dev, card, tracer, scene, res)
     log(f"[19] done in {time.time() - t0:.1f} s")
 
-    # ---- 20. results -------------------------------------------------
+    # ---- 20. the interior's diffuse bounce wave ----------------------
+    t0 = time.time()
+    diffuse = diffuse_bounce_wave(dev, card, interior, bench, pk)
+    del interior
+    log(f"[20] done in {time.time() - t0:.1f} s")
+
+    # ---- 21. results -------------------------------------------------
     # per kernel: the main path's launches (the packet kernel: the city
     # frames and sample1; B, C, D and F: the city frames and the
     # 64-instance frame; E: the 64-instance frame), each timed on its own
@@ -5620,6 +5774,7 @@ def main() -> int:
             "bound_ms_sum": r["bound_ms_sum"], "by_scene": r["by_scene"],
             "wave_1080p": dict(zip(("ms", "plain_ms"), times[var]),
                                bound_ms=pk_bounds[var][0]),
+            "diffuse_bounce_1080p": (diffuse if var == "closest" else None),
             "packet": pk.PACKET_RAYS, "plain_packet_stride": PLAIN_STRIDE,
             "rd_api_launches": {k: c.get(f"packet_trace[{var}]", 0)
                                 for k, c in rd_counts.items()},

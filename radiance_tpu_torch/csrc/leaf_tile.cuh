@@ -1,7 +1,9 @@
-// The leaf tile shared by the packet kernel (packet_trace.cu) and the
-// stream3 closest-hit pair kernel D (s3_isect.cu): a staged copy of one
-// kernel leaf in shared memory and the Pluecker tests of a few rays held
-// in registers against four of its triangles at a time.
+// The leaf tile of the stream3 closest-hit pair kernel D (s3_isect.cu):
+// a staged copy of one kernel leaf in shared memory and the Pluecker
+// tests of a few rays held in registers against four of its triangles at
+// a time; and the ray and test primitives (Ray, side, plane, candidate,
+// Best, the ordered keys) that the packet kernel (packet_trace.cu)
+// applies to a leaf's unstaged lanes, so its results keep D's bits.
 //
 // A kernel leaf is a [16, 4T] f32 matrix (bvh/kernel_pack.py): lanes
 // [0, T) of rows 0-5 pair the ray's (d, moment) with the s0 edge, lanes

@@ -8,10 +8,10 @@ leaves as [1024, 16] @ [16, 4T] Pluecker matrix products on the MXU.
 Here:
 
   * on a CUDA tensor, `packet_trace_cuda` launches the hand-written
-    kernel csrc/packet_trace.cu: the same schedule in packets of
-    PACKET_RAYS rays, one block each, walking the packet-mean octant's
-    table (`packet_bases`) with a vote per node and testing each leaf
-    as a shared-memory tile (see the source's header for its design);
+    kernel csrc/packet_trace.cu: packets of PACKET_RAYS rays, one block
+    each, walking the packet-mean octant's table (`packet_bases`) with a
+    cursor per ray, each leaf tested by a warp for the rays standing at
+    it (the ray-private walk; see the source's header for its design);
   * on a CPU tensor, `_packet_trace_reference` runs the plain PyTorch
     version.  It keeps the TPU kernel's packet schedule, vectorised over
     packets -- one cursor per packet, a union box test, a batched
@@ -72,26 +72,15 @@ KERNEL = cuda_build.KernelLib("packet_trace", (("rt_packet_trace", (
     cuda_build.P, cuda_build.I64, cuda_build.I32, cuda_build.F32,
     cuda_build.F32, cuda_build.I32, cuda_build.I32, cuda_build.P,
     cuda_build.P, cuda_build.P)),))
-TILE_LANES = 128              # leaf lanes the default library's staged
-                              # leaf holds (leaf_tile.cuh's kMaxT)
 
 
-def kernel_spec(lanes: int = TILE_LANES) -> cuda_build.KernelLib:
-    """The library whose staged leaf holds `lanes` lanes: the default one
-    up to TILE_LANES, past that one built with RT_LEAF_MAXT = lanes
-    (lib packet_trace_t<lanes>.so, its leaf ring in dynamic shared
-    memory)."""
-    if lanes <= TILE_LANES:
-        return KERNEL
-    return KERNEL.variant(f"_t{lanes}", {"RT_LEAF_MAXT": lanes})
-
-
-def load_kernel(lanes: int = TILE_LANES):
+def load_kernel():
     """Build (once per process, if the .so is missing or stale) and load
-    the kernel library for leaves of `lanes` lanes;
-    cuda_build.BUILD_INFO[its name] then holds the build seconds and
-    nvcc's ptxas report."""
-    return cuda_build.load(kernel_spec(lanes))
+    the kernel library, one for every leaf cap (a leaf is tested in
+    passes of 32 lanes, never staged whole);
+    cuda_build.BUILD_INFO["packet_trace"] then holds the build seconds
+    and nvcc's ptxas report."""
+    return cuda_build.load(KERNEL)
 
 
 def variant(any_hit: bool, masked: bool, stable: bool) -> str:
@@ -123,9 +112,8 @@ def packet_trace_cuda(o, d, live, nodef, kleaf, tmin, tmax, *,
     """Launch the CUDA kernel: (t [n] f32, tri [n] i32) on o's device.
 
     o, d: [n, 3] f32 object-space rays; live: [n] bool or None;
-    nodef: [8*Nk, 16] f32; kleaf: [Nl, 16, 4T] f32, 16-byte aligned, T
-    a leaf cap (a multiple of 32 in [32, 512]; past TILE_LANES the
-    library built for T).  Packets of PACKET_RAYS rays.
+    nodef: [8*Nk, 16] f32; kleaf: [Nl, 16, 4T] f32, T a leaf cap (a
+    multiple of 32 in [32, 512]).  Packets of PACKET_RAYS rays.
     """
     dev = o.device
     if dev.type != "cuda":
@@ -142,14 +130,12 @@ def packet_trace_cuda(o, d, live, nodef, kleaf, tmin, tmax, *,
         raise ValueError(f"bad table shapes {tuple(nodef.shape)}, "
                          f"{tuple(kleaf.shape)}")
     lanes = check_leaf_cap(kleaf.shape[2] // 4)
-    if kleaf.data_ptr() % 16:
-        raise ValueError(f"{fn}: kleaf must be 16-byte aligned")
     live_u8 = None
     if live is not None:
         if live.shape != (n,) or live.device != dev:
             raise ValueError("live must be [n] on the rays' device")
         live_u8 = live.to(torch.uint8).contiguous()
-    lib = load_kernel(lanes)
+    lib = load_kernel()
     out_t = torch.empty(n, dtype=torch.float32, device=dev)
     out_tri = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:

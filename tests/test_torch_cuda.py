@@ -6,9 +6,9 @@ TLAS-native route on the card against their CPU routes, and sample1's RD-API rou
 render of the same inputs; a temporally bounded stream3 wave against
 its unbounded trace, and the temporal cull on the card against the CPU;
 kernel C's tq-sort form and kernel D's lean and cull forms against their
-plain versions on hand-made lists, long lists and exact ties; B-E and
-the packet kernel built for leaf caps 64, 256 and 512 and tq widths 7, 9
-and 5 against their plain versions; kernel B's step cap in windows of 8
+plain versions on hand-made lists, long lists and exact ties; B-E built
+for leaf caps 64, 256 and 512 and tq widths 7, 9 and 5, and the packet
+kernel on those caps, against their plain versions; kernel B's step cap in windows of 8
 and of 1 rows, also where the window start clamps at the end of the
 native route's concatenated tables; and B-E and the packet kernel on
 tables of the SAH-driven leaf collapse.
@@ -89,6 +89,65 @@ def _rays(seed, n, spread):
     return o, d
 
 
+def diffuse_bounces(verts, tris, o, d, t, prim, seed):
+    """A diffuse bounce wave off primary hits (o + t d on face `prim` of
+    the mesh): directions drawn cosine-weighted about each face's normal
+    turned toward the ray, from 1e-3 in front of the hit; (o, d) sorted
+    by coherence_key, as the engine's argsort route sorts a bounce wave.
+    numpy in, numpy out."""
+    p = o + t[:, None] * d
+    tv = verts[tris[prim].astype(np.int64)]
+    nrm = np.cross(tv[:, 1] - tv[:, 0], tv[:, 2] - tv[:, 0])
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    nrm = np.where(((nrm * d).sum(1) > 0)[:, None], -nrm, nrm)
+    rng = np.random.default_rng(seed)
+    u1, u2 = rng.uniform(size=len(t)), rng.uniform(size=len(t))
+    r, phi = np.sqrt(u1), 2 * np.pi * u2
+    a = np.where(np.abs(nrm[:, :1]) > 0.9, [[0.0, 1.0, 0.0]],
+                 [[1.0, 0.0, 0.0]])
+    tx = np.cross(a, nrm)
+    tx /= np.linalg.norm(tx, axis=1, keepdims=True)
+    ty = np.cross(nrm, tx)
+    bd = ((r * np.cos(phi))[:, None] * tx + (r * np.sin(phi))[:, None] * ty
+          + np.sqrt(1 - u1)[:, None] * nrm).astype(np.float32)
+    bo = (p + 1e-3 * nrm).astype(np.float32)
+    perm = torch.argsort(pk.coherence_key(torch.from_numpy(bo),
+                                          torch.from_numpy(bd)),
+                         stable=True).numpy()
+    return bo[perm], bd[perm]
+
+
+def hall_primary_hits(tlas_or_scene, meta, w, h):
+    """The hall's w x h pinhole primaries from its camera, traced by the
+    plain version on the CPU: (o, d, t, prim) of the rays that hit."""
+    u, v = np.meshgrid(np.linspace(-0.6, 0.6, w), np.linspace(-0.4, 0.4, h))
+    d = np.stack([u.ravel(), v.ravel(), -np.ones(w * h)], 1)
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    o = np.tile(np.float32(meta["camera_origin"]), (w * h, 1))
+    rec = pk.trace_rays_packet(tlas_or_scene, torch.from_numpy(o),
+                               torch.from_numpy(d), 1e-3, 1e3)
+    hit = rec.hit.numpy()
+    return o[hit], d[hit], rec.t.numpy()[hit], rec.prim.numpy()[hit]
+
+
+@pytest.fixture(scope="module")
+def hall():
+    """A small interior hall (20k triangles) and two waves off its 64 x 48
+    primaries' hits, each sorted as the engine sorts it: diffuse bounces,
+    then shadow rays toward the hall's light; (tlas, o, d), 64-ray
+    packets of the first wave then of the second."""
+    verts, tris, meta = procedural.interior_hall(20000, seed=11)
+    tlas = _scene(types.Mesh(verts, tris))
+    o, d, t, prim = hall_primary_hits(tlas.device_scene("cpu"), meta, 64, 48)
+    k = (len(t) // 64) * 64
+    bo, bd = diffuse_bounces(verts, tris, o[:k], d[:k], t[:k], prim[:k], 6)
+    sd = np.tile(np.float32(meta["light_dir"]), (k, 1))
+    perm = torch.argsort(pk.coherence_key(torch.from_numpy(bo),
+                                          torch.from_numpy(sd)),
+                         stable=True).numpy()
+    return tlas, np.concatenate([bo, bo[perm]]), np.concatenate([bd, sd])
+
+
 def _agree(ref, got, any_hit):
     hr = ref.t.cpu().numpy() < FLT_MAX
     hg = got.t.cpu().numpy() < FLT_MAX
@@ -105,13 +164,21 @@ def _agree(ref, got, any_hit):
     return hg
 
 
+@pytest.mark.parametrize("rays", ["random", "hall"])
 @pytest.mark.parametrize("stable", [True, False])
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("any_hit", [False, True])
-def test_kernel_matches_plain(cuda, any_hit, masked, stable):
-    tlas = _scene(_mesh(10, 3000, 8.0))
-    o, d = _rays(1, 5000, 10.0)
-    live = (np.random.default_rng(2).uniform(size=5000) < 0.6
+def test_kernel_matches_plain(cuda, any_hit, masked, stable, rays, hall):
+    """Each variant against the plain version: random rays into a random
+    soup, and the small hall's diffuse bounces and shadows as the engine
+    sorts them (packets whose rays fan out, and coherent ones)."""
+    if rays == "random":
+        tlas = _scene(_mesh(10, 3000, 8.0))
+        o, d = _rays(1, 5000, 10.0)
+    else:
+        tlas, o, d = hall
+    n = o.shape[0]
+    live = (np.random.default_rng(2).uniform(size=n) < 0.6
             if masked else None)
     out = {}
     for dev in ("cpu", cuda):
@@ -509,9 +576,9 @@ def test_s3_wave_matches_packet_kernel(cuda, masked):
 @pytest.mark.parametrize("cap,bits", [(64, 7), (256, 9), (512, 5)])
 def test_leaf_cap_and_tq_width_match_plain(cuda, cap, bits):
     """The kernels at a leaf cap and tq width other than (128, 9), each
-    built for it (B and C for the width, D and E for both, the packet
-    kernel's wide tile past 128 lanes in dynamic shared memory), against
-    its plain version: B's and C's word lists (unsorted and tq-sorted)
+    built for it (B and C for the width, D and E for both; the packet
+    kernel, one library for every cap, tests a leaf in passes of 32
+    lanes), against its plain version: B's and C's word lists (unsorted and tq-sorted)
     identical, D to the traversal bars, E on >= 0.999 of rays, the packet
     kernel's closest and any-hit traces; then the whole stream3 wave at
     the width against the packet kernel."""

@@ -10,6 +10,11 @@ the same rays, made from a seed with numpy.
 Tolerances: hit/miss agreement >= 0.999 and prim agreement >= 0.999 on
 rays both hit (the traversal bars of the port); t rtol 1e-5 (matmul
 summation order); barycentrics atol 1e-4.
+
+Besides random rays, the diffuse bounce waves of a small interior hall,
+sorted as the engine's argsort route sorts them: packets whose rays fan
+out across their octant, the waves the kernel's ray-private walk was
+built for (csrc/packet_trace.cu), with the plain version as its yardstick.
 """
 
 import numpy as np
@@ -21,6 +26,7 @@ import jax.numpy as jnp
 from radiance_tpu.api import accel
 from radiance_tpu.core import types
 from radiance_tpu.ops import packet_trace as jpk
+from radiance_tpu.scene import procedural as jprocedural
 from radiance_tpu.ops.intersect import FLT_MAX
 
 from radiance_tpu_torch.bvh import device as tdevice
@@ -28,6 +34,7 @@ from radiance_tpu_torch.ops import intersect as tintersect
 from radiance_tpu_torch.ops import packet_trace as tpk
 
 from test_bvh import random_mesh
+from test_torch_cuda import diffuse_bounces, hall_primary_hits
 from test_traversal import gen_rays
 
 TMIN, TMAX = 1e-3, 1e3
@@ -180,6 +187,48 @@ def test_multi_instance_sweeps_match_pallas():
                                       torch.from_numpy(d), TMIN, TMAX)
     hit = compare(ref, got)
     assert len(set(got.slot.numpy()[hit])) == 3
+
+
+@pytest.fixture(scope="module")
+def hall_bounces():
+    """A 4000-triangle interior hall (the JAX scene) and a diffuse bounce
+    wave off its 48 x 24 pinhole primaries' hits (traced by the plain
+    version), sorted as the engine sorts a bounce wave."""
+    verts, tris, meta = jprocedural.interior_hall(4000, seed=11)
+    blas = accel.BuildBottomAccelStruct(types.Mesh(verts, tris))
+    ds = accel.BuildTopAccelStruct([types.Instance(
+        np.eye(4, dtype=np.float32), 0, 0, blas)]).device_scene()
+    o, d, t, prim = hall_primary_hits(torch_scene(ds), meta, 48, 24)
+    assert len(t) > 0.9 * 48 * 24
+    return (ds, *diffuse_bounces(verts, tris, o, d, t, prim, 6))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_diffuse_bounces_match_pallas(hall_bounces, any_hit, masked):
+    """The hall's diffuse bounce wave, closest and any hit, every ray
+    live or a random half: the plain version against the Pallas kernel
+    (packets of one octant whose rays still fan out across it: the
+    packet's summed direction lies at least 30 degrees off some ray's)."""
+    ds, o, d = hall_bounces
+    dd = torch.from_numpy(d)
+    n = (d.shape[0] // tpk.PACKET_RAYS) * tpk.PACKET_RAYS
+    pk_d = dd[:n].view(-1, tpk.PACKET_RAYS, 3)
+    s = pk_d.sum(dim=1, keepdim=True)
+    cos = (pk_d * s).sum(-1) / s.norm(dim=-1)
+    assert float((cos.amin(dim=1) < np.cos(np.pi / 6)).float().mean()) > 0.9
+    kw = dict(any_hit=any_hit)
+    if masked:
+        kw["live"] = np.random.default_rng(7).uniform(size=d.shape[0]) < 0.5
+    ref, got = trace_both(ds, o, d, **kw)
+    if any_hit:
+        occ_ref = np.asarray(ref.t) < FLT_MAX
+        occ_got = got.t.numpy() < FLT_MAX
+        assert (occ_ref == occ_got).mean() >= 0.999 and occ_got.mean() > 0.3
+    else:
+        assert compare(ref, got).mean() > 0.3
+    if masked:
+        assert not (got.t.numpy() < FLT_MAX)[~kw["live"]].any()
 
 
 @pytest.mark.parametrize("any_hit", [False, True])
